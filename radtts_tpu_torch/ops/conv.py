@@ -1,0 +1,87 @@
+"""1-D convolutions, channels-last at the interface, with mask-renormalized
+("partial") padding.
+
+Weights are stored in torch's Conv1d layout (C_out, C_in, K); activations
+enter and leave as (B, T, C) and are transposed to (B, C, T) for F.conv1d
+inside. Weight norm is collapsed once at load (ops/fold_norms.py), so a conv
+here holds only its effective weight.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from radtts_tpu_torch.ops.linear import GAINS
+
+
+def effective_weight(params):
+    """numpy: collapse a weight-normed conv {v, g} (v: (K, C_in, C_out),
+    JAX layout) to its kernel, as the JAX package computes it."""
+    if "v" in params:
+        v = np.asarray(params["v"], np.float32)
+        norm = np.sqrt(np.sum(v * v, axis=(0, 1), keepdims=True)) + 1e-30
+        return np.asarray(params["g"], np.float32)[None, None, :] * v / norm
+    return np.asarray(params["w"], np.float32)
+
+
+def conv1d(x, weight, bias=None, padding=0, dilation=1):
+    """x: (B, T, C_in); weight: (C_out, C_in, K) -> (B, T', C_out)."""
+    y = F.conv1d(x.transpose(1, 2), weight, bias, padding=padding,
+                 dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def partial_conv1d(x, weight, bias, padding, dilation, mask=None):
+    """PartialConv1d: each window is renormalized by k / (#valid samples in
+    it) and windows with no valid sample are zeroed. With mask None an
+    all-ones mask is used, which still renormalizes the windows that
+    overlap the zero padding at the borders."""
+    k = weight.shape[-1]
+    if mask is None:
+        m = torch.ones(1, 1, x.shape[1], dtype=x.dtype, device=x.device)
+        xm = x
+    else:
+        m = mask.to(x.dtype)[:, None, :]
+        xm = x * m.transpose(1, 2)
+    ones_k = torch.ones(1, 1, k, dtype=x.dtype, device=x.device)
+    counts = F.conv1d(m, ones_k, padding=padding,
+                      dilation=dilation).transpose(1, 2)       # (B, T, 1)
+    update_mask = counts.clamp(0.0, 1.0)
+    ratio = k / (counts + 1e-6) * update_mask
+    raw = conv1d(xm, weight, None, padding, dilation)
+    if bias is None:
+        return raw * ratio
+    return (raw * ratio + bias) * update_mask
+
+
+class ConvNorm(nn.Module):
+    """Same-padded conv (reference ConvNorm) with optional partial padding;
+    with a mask the output is re-zeroed past each length."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=1, dilation=1, bias=True,
+                 gain_name="linear", zero_init=False):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.dilation = dilation
+        self.padding = dilation * (kernel_size - 1) // 2
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        if zero_init:
+            nn.init.zeros_(self.weight)
+        else:
+            nn.init.xavier_uniform_(self.weight, gain=GAINS[gain_name])
+            if bias:
+                bound = 1.0 / np.sqrt(in_ch * kernel_size)
+                nn.init.uniform_(self.bias, -bound, bound)
+
+    def forward(self, x, mask=None, use_partial_padding=False):
+        if use_partial_padding:
+            y = partial_conv1d(x, self.weight, self.bias, self.padding,
+                               self.dilation, mask)
+        else:
+            y = conv1d(x, self.weight, self.bias, self.padding,
+                       self.dilation)
+        if mask is not None:
+            y = y * mask.to(y.dtype)[:, :, None]
+        return y
