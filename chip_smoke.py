@@ -18,8 +18,8 @@ Phases, each printing a JSON or text line:
      with denoising_strength=0.1), then a fixed-duration 608-frame
      decode + vocoder + denoiser runs with stage times and the RTF.
      mrf.launches must grow by 72 per generator call. Outputs must be
-     finite and of the expected lengths; the decode and the vocoder are
-     also held against the CPU plain path on a small input.
+     finite and of the expected lengths; the decode and the vocoder of
+     the 608-frame utterance are also held against the CPU plain path.
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
@@ -173,22 +173,33 @@ def flagship_parts(dev):
     return config, model, vocoder, denoiser
 
 
+def flagship_input(synth):
+    """TEXTS[0] with fixed durations summing to MAX_FRAMES (CPU tensors)."""
+    text = torch.as_tensor(synth.encode(TEXTS[0]))[None]
+    N = text.shape[1]
+    dur = torch.full((1, N), MAX_FRAMES // N, dtype=torch.int32)
+    dur[0, -1] += MAX_FRAMES - int(dur.sum())
+    return text, dur
+
+
 def phase_reference(synth, dev):
-    """Decode and vocoder on the card vs the CPU plain path, small input."""
+    """Decode and vocoder on the card vs the CPU plain path, on the
+    608-frame flagship utterance with a seeded decoder residual."""
     from radtts_tpu_torch.models.radtts import radtts_infer
 
-    text = torch.as_tensor(synth.encode(TEXTS[1]))[None]
-    N = text.shape[1]
-    dur = torch.full((1, N), 2, dtype=torch.int32)
-    mf = ((2 * N + 31) // 32) * 32
+    text, dur = flagship_input(synth)
+    meta = synth.model.meta
+    g = meta["n_group_size"]
     gen = torch.Generator().manual_seed(3)
-    res = torch.randn(1, mf // 2, 160, generator=gen) * 0.8
+    res = torch.randn(1, MAX_FRAMES // g, meta["n_mel_channels"] * g,
+                      generator=gen) * 0.8
     spk = torch.zeros(1, dtype=torch.int64)
-    mel_gpu = radtts_infer(synth.model, spk.to(dev), text.to(dev), 0.8, mf,
-                           dur=dur.to(dev), residual=res.to(dev))["mel"]
+    mel_gpu = radtts_infer(synth.model, spk.to(dev), text.to(dev), 0.8,
+                           MAX_FRAMES, dur=dur.to(dev),
+                           residual=res.to(dev))["mel"]
     wav_gpu = synth.vocoder(mel_gpu)
     model_cpu = synth.model.to("cpu")
-    mel_cpu = radtts_infer(model_cpu, spk, text, 0.8, mf, dur=dur,
+    mel_cpu = radtts_infer(model_cpu, spk, text, 0.8, MAX_FRAMES, dur=dur,
                            residual=res)["mel"]
     synth.model.to(dev)
     wav_cpu = synth.vocoder.to("cpu")(mel_gpu.cpu())
@@ -196,7 +207,12 @@ def phase_reference(synth, dev):
     mel_err = (mel_gpu.cpu() - mel_cpu).abs().max().item()
     wav_err = (wav_gpu.cpu() - wav_cpu).abs().max().item()
     wav_scale = wav_cpu.abs().max().item()
-    log({"phase": "gpu_vs_cpu", "frames": mf, "mel_max_abs_err": mel_err,
+    if mel_gpu.shape != (1, MAX_FRAMES, meta["n_mel_channels"]) or \
+            wav_gpu.shape != (1, MAX_FRAMES * synth.hop_length):
+        raise AssertionError(f"shapes {tuple(mel_gpu.shape)}, "
+                             f"{tuple(wav_gpu.shape)}")
+    log({"phase": "gpu_vs_cpu", "frames": MAX_FRAMES,
+         "mel_max_abs_err": mel_err,
          "mel_max_abs": mel_cpu.abs().max().item(),
          "wav_max_abs_err": wav_err, "wav_max_abs": wav_scale})
     # decode: the CPU parity bound of the port's tests; vocoder: the
@@ -228,12 +244,8 @@ def phase_main_path(synth, mrf_mod, dev, power):
 
     # fixed-duration flagship utterance (608 frames)
     with torch.inference_mode():
-        text = torch.as_tensor(synth.encode(TEXTS[0]), device=dev)[None]
-        N = text.shape[1]
+        text, dur = (t.to(dev) for t in flagship_input(synth))
         spk = torch.zeros(1, dtype=torch.int64, device=dev)
-        dur = torch.full((1, N), MAX_FRAMES // N, dtype=torch.int32,
-                         device=dev)
-        dur[0, -1] += MAX_FRAMES - int(dur.sum())
 
         def utterance():
             _, t_dur = timed(lambda: infer_durations(synth.model, spk, text))

@@ -119,17 +119,17 @@ class DAP(nn.Module):
         return torch.cat([h, spk], dim=-1)
 
 
-def dap_infer(model, z, txt_enc, spk_emb, lens=None):
-    """txt_enc: (B, T, C); spk_emb: (B, S). z is ignored (DAP is
-    deterministic)."""
+def dap_infer(model, txt_enc, spk_emb, lens=None):
+    """txt_enc: (B, T, C); spk_emb: (B, S). The DAP is deterministic: it
+    takes no noise."""
     out = model.feat(model.context(txt_enc, spk_emb), lens)
     return attr_denormalize(out, model.take_log_of_input)
 
 
 def dap_infer_fused(models, txt_list, spk_list, lens=None):
-    """[dap_infer(m, None, t, s, lens) for ...]; the JAX package batches the
+    """[dap_infer(m, t, s, lens) for ...]; the JAX package batches the
     recurrences into one scan, here they run one after the other."""
-    return [dap_infer(m, None, t, s, lens)
+    return [dap_infer(m, t, s, lens)
             for m, t, s in zip(models, txt_list, spk_list)]
 
 
@@ -144,5 +144,5 @@ def attribute_model(config, n_speaker_dim=None):
     return DAP(hp)
 
 
-def attribute_model_infer(model, z, txt_enc, spk_emb, lens=None):
-    return dap_infer(model, z, txt_enc, spk_emb, lens)
+def attribute_model_infer(model, txt_enc, spk_emb, lens=None):
+    return dap_infer(model, txt_enc, spk_emb, lens)

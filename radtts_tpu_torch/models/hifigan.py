@@ -27,12 +27,13 @@ def _normal(shape, std=0.01):
 class MRFBlock(nn.Module):
     """One ResBlock1: w1/w2 (3, k, C, C) taps-major, b1/b2 (3, C)."""
 
-    def __init__(self, C, k, n_dilations=len(DILATIONS)):
+    def __init__(self, C, k):
         super().__init__()
-        self.w1 = _normal((n_dilations, k, C, C))
-        self.w2 = _normal((n_dilations, k, C, C))
-        self.b1 = nn.Parameter(torch.zeros(n_dilations, C))
-        self.b2 = nn.Parameter(torch.zeros(n_dilations, C))
+        n = len(DILATIONS)
+        self.w1 = _normal((n, k, C, C))
+        self.w2 = _normal((n, k, C, C))
+        self.b1 = nn.Parameter(torch.zeros(n, C))
+        self.b2 = nn.Parameter(torch.zeros(n, C))
 
     def weights(self):
         return {"w1": self.w1, "b1": self.b1, "w2": self.w2, "b2": self.b2}

@@ -238,18 +238,17 @@ def _flow_step_inverse(model, flow, z, context, mask):
 # ---------------------------------------------------------------------------
 
 
-def infer_durations(model, speaker_id_text, text, sigma_dur=0.8,
-                    token_dur_scaling=1.0, token_duration_max=100,
-                    in_lens=None, z_dur=None, generator=None):
-    """Predict integer per-token durations. text: (B, N) int64.
+def infer_durations(model, speaker_id_text, text, token_dur_scaling=1.0,
+                    token_duration_max=100, in_lens=None):
+    """Predict integer per-token durations with the (deterministic) DAP.
+    text: (B, N) int64.
 
     in_lens: optional (B,) true token counts for padded batches (pad
-    positions get duration 0). z_dur/generator would feed a sampling
-    duration model; the DAP is deterministic and ignores them."""
+    positions get duration 0)."""
     spk_vec_text = encode_speaker(model, speaker_id_text)
     txt_enc, _ = encode_text(model, text, in_lens)
     N = text.shape[1]
-    dur = attribute_model_infer(model.dur_pred_layer, z_dur, txt_enc,
+    dur = attribute_model_infer(model.dur_pred_layer, txt_enc,
                                 spk_vec_text, in_lens)[..., 0]
     dur = dur.clamp(0, token_duration_max)
     if token_dur_scaling > 0:
@@ -324,8 +323,8 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
     if not is_attribute_unconditional(meta):
         if voiced_mask is None and meta["use_vpred_module"]:
             v_logits = attribute_model_infer(
-                model.v_pred_module, None, txt_enc_time_expanded,
-                spk_vec_attrs, out_lens)
+                model.v_pred_module, txt_enc_time_expanded, spk_vec_attrs,
+                out_lens)
             voiced_mask = (torch.sigmoid(v_logits[..., 0]) > 0.5).float()
 
         ap_txt_enc = txt_enc_time_expanded

@@ -46,14 +46,14 @@ def _conv_plain(x, w_taps, b, d):
                     dilation=d)
 
 
-def mrf_plain(x, weights, dilations=DILATIONS):
+def mrf_plain(x, weights):
     """Plain PyTorch MRF mean, as the JAX package's _resblock1_apply runs
     it: one F.conv1d per conv. x: (B, T, C) -> (B, T, C)."""
     xc = x.transpose(1, 2)
     out = torch.zeros_like(xc)
     for wd in weights:
         xr = xc
-        for i, d in enumerate(dilations):
+        for i, d in enumerate(DILATIONS):
             xt = _conv_plain(F.leaky_relu(xr, LRELU_SLOPE), wd["w1"][i],
                              wd["b1"][i], d)
             xt = _conv_plain(F.leaky_relu(xt, LRELU_SLOPE), wd["w2"][i],
@@ -120,13 +120,13 @@ def _conv_launch(x, w, b, d, res, out, acc, acc_scale):
     mrf.launches += 1
 
 
-def mrf(x, weights, dilations=DILATIONS):
+def mrf(x, weights):
     """MRF mean of one stage. x: (B, T, C) float32 -> (B, T, C).
 
     A CPU tensor runs mrf_plain. A CUDA tensor runs the hand-written kernel
     (18 launches for three resblocks), or raises."""
     if x.device.type == "cpu":
-        return mrf_plain(x, weights, dilations)
+        return mrf_plain(x, weights)
     if x.device.type != "cuda":
         raise ValueError(f"mrf: unsupported device {x.device}")
     if _lib is None:
@@ -137,10 +137,10 @@ def mrf(x, weights, dilations=DILATIONS):
         raise ValueError(f"mrf: C={C} must be a multiple of 4")
     for m, wd in enumerate(weights):
         k = wd["w1"].shape[1]
-        if k % 2 == 0 or k > 11 or (k - 1) * max(dilations) > 50:
-            raise ValueError(f"mrf: resblock {m} kernel size {k} with "
-                             f"dilations {dilations} is not supported")
-        n = len(dilations)
+        if k % 2 == 0 or k > 11:
+            raise ValueError(f"mrf: resblock {m} kernel size {k} is not "
+                             "supported")
+        n = len(DILATIONS)
         for key in ("w1", "w2"):
             _check(f"{key}[{m}]", wd[key], (n, k, C, C), x.device)
         for key in ("b1", "b2"):
@@ -152,8 +152,8 @@ def mrf(x, weights, dilations=DILATIONS):
     scale = 1.0 / len(weights)
     for wd in weights:
         src = x
-        for i, d in enumerate(dilations):
-            last = i == len(dilations) - 1
+        for i, d in enumerate(DILATIONS):
+            last = i == len(DILATIONS) - 1
             _conv_launch(src, wd["w1"][i], wd["b1"][i], d, None, xt, None,
                          0.0)
             _conv_launch(xt, wd["w2"][i], wd["b2"][i], 1, src,

@@ -77,16 +77,16 @@ class Synthesizer:
 
     @torch.inference_mode()
     def synthesize(self, texts, speaker, *, speaker_text=None,
-                   speaker_attributes=None, sigma=0.8, sigma_tkndur=0.666,
-                   sigma_f0=1.0, sigma_energy=1.0, denoising_strength=0.0,
+                   speaker_attributes=None, sigma=0.8, denoising_strength=0.0,
                    trim=True):
         """Synthesize a batch of texts for one speaker.
 
         Returns (wavs, aux): `wavs` is a list of float32 numpy arrays (one
         per text, trimmed to its own duration unless trim=False); `aux` has
         per-item 'f0', 'energy_avg', 'dur', 'n_frames'. Batches pad to a
-        16-token bucket. sigma_tkndur, sigma_f0 and sigma_energy would scale
-        the noise of sampling attribute models; the DAPs are deterministic."""
+        16-token bucket. `sigma` scales the decoder's noise; the DAP
+        attribute models are deterministic, so the JAX engine's
+        sigma_tkndur/sigma_f0/sigma_energy have no counterpart here."""
         if isinstance(texts, str):
             texts = [texts]
         encs = [self.encode(t) for t in texts]
@@ -108,10 +108,9 @@ class Synthesizer:
         spk_attr = self._ids(speaker_attributes, sid, B)
 
         dur = infer_durations(
-            self.model, spk_text, text_b, sigma_dur=sigma_tkndur,
+            self.model, spk_text, text_b,
             token_dur_scaling=self.token_dur_scaling,
-            token_duration_max=self.token_duration_max, in_lens=in_lens,
-            generator=self.generator)
+            token_duration_max=self.token_duration_max, in_lens=in_lens)
         totals = dur.sum(1).cpu().numpy()
         if (totals < 1).any():  # untrained/degenerate duration guard
             valid = np.arange(N)[None, :] < lens[:, None]

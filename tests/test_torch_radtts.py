@@ -18,6 +18,7 @@ from radtts_tpu.models.radtts import encode_text as jax_encode_text
 from radtts_tpu.models.radtts import infer_durations as jax_infer_durations
 from radtts_tpu.models.radtts import radtts_infer as jax_radtts_infer
 from radtts_tpu.models.radtts import radtts_init
+from radtts_tpu.models.radtts import renormalize_f0 as jax_renormalize_f0
 from tests.small_model import MODEL_CONFIG
 
 from radtts_tpu_torch.convert import radtts_from_jax
@@ -76,7 +77,7 @@ def test_infer_durations(models, scaling):
     text, lens, spk = (torch.as_tensor(a) for a in (TEXT, IN_LENS, SPK))
     # margin: the value before rounding is clear of x.5
     txt_enc, _ = port.encode_text(model, text, lens)
-    raw = attribute_model_infer(model.dur_pred_layer, None, txt_enc,
+    raw = attribute_model_infer(model.dur_pred_layer, txt_enc,
                                 port.encode_speaker(model, spk), lens)
     raw = raw[..., 0].clamp(0, 100) * scaling
     frac = (raw - torch.floor(raw)).numpy()
@@ -114,7 +115,7 @@ def test_radtts_infer_mel(models, batched):
     txt_enc, _ = port.encode_text(model, t_text, t_lens)
     expanded = regulate_length(txt_enc, t_dur, max_frames)
     logits = attribute_model_infer(
-        model.v_pred_module, None, expanded,
+        model.v_pred_module, expanded,
         port.encode_speaker(model, torch.as_tensor(spk)), t_dur.sum(1))
     assert (torch.abs(torch.sigmoid(logits) - 0.5) > 1e-4).all()
 
@@ -136,3 +137,20 @@ def test_radtts_infer_mel(models, batched):
     for key in ("f0", "energy_avg"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("f0_std", [0.0, 30.0])
+def test_renormalize_f0(f0_std):
+    rng = np.random.default_rng(4)
+    f0 = rng.uniform(80, 300, (2, 40)).astype(np.float32)
+    vm = (rng.random((2, 40)) > 0.4).astype(np.float32)
+    out_lens = np.array([40, 25])
+    ref = jax_renormalize_f0(jnp.asarray(f0), jnp.asarray(vm), 180.0,
+                             f0_std, out_lens=jnp.asarray(out_lens))
+    got = port.renormalize_f0(torch.as_tensor(f0), torch.as_tensor(vm),
+                              180.0, f0_std,
+                              out_lens=torch.as_tensor(out_lens))
+    # masked means and a Bessel-corrected std over <= 40 fp32 values
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-3)
+    assert not np.allclose(got.numpy(), f0)
