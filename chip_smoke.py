@@ -6,32 +6,54 @@
 Phases, each printing a JSON or text line:
   1. device: the card's name and power limit, torch/CUDA versions, the
      pinned TF32 flags;
-  2. build: nvcc of radtts_tpu_torch/csrc/mrf.cu for sm_90a, with seconds;
-  3. kernel vs plain: ops/mrf.py:mrf (the CUDA kernel) against mrf_plain on
-     the card at the four flagship stage shapes and a ragged B=2 shape,
-     within 1e-4 * max|plain| (fp32 sums in another order, TF32 off), with
-     the kernel's, the plain version's and the cuDNN conv chain's times and
-     the fp32 FLOP bound;
-  4. main path: a Synthesizer at the flagship config_ljs_dap.json width
+  2. build: nvcc of radtts_tpu_torch/csrc/mrf.cu and csrc/mel.cu for
+     sm_90a, both at once, with seconds and ptxas register/spill lines;
+  3. MRF kernel vs plain: ops/mrf.py:mrf (the CUDA kernel) against
+     mrf_plain on the card at the four flagship stage shapes and a ragged
+     B=2 shape, within 1e-4 * max|plain| (fp32 sums in another order, TF32
+     off), with the kernel's, the plain version's and the cuDNN conv
+     chain's times and the fp32 FLOP bound;
+  4. mel kernel vs plain: ops/mel.py:mel against mel_plain at (16, 8192),
+     (1, 155648) and (3, 9001): log-mel within 1e-3 (fp32 sums over 1024
+     terms in another order, amplified by the log near the 1e-5 clamp),
+     the gradient through MelFunction within 1e-5 * max|plain grad|, with
+     the kernel's, the plain version's and the cuFFT composite's times and
+     the bound; then the MRF kernel must refuse a call whose output would
+     need a gradient;
+  5. serving path: a Synthesizer at the flagship config_ljs_dap.json width
      plus HiFi-GAN v1 with random weights (seed 0; WN end convs perturbed
      to sd 0.002) answers three requests (one text, a batch of three, one
      with denoising_strength=0.1), then a fixed-duration 608-frame
      decode + vocoder + denoiser runs with stage times and the RTF.
      mrf.launches must grow by 72 per generator call. Outputs must be
      finite and of the expected lengths; the decode and the vocoder of
-     the 608-frame utterance are also held against the CPU plain path.
+     the 608-frame utterance are also held against the CPU plain path;
+  6. training path: python -m radtts_tpu_torch.train_vocoder's main runs 3
+     steps of HiFi-GAN v1 with the full discriminators at batch 16,
+     segment 8192, on 4 seeded 2 s wavs, and checkpoints at the last step.
+     Per-step ms and the five losses are printed; the losses must be
+     finite, mel.launches must grow by 2 and mrf.launches by 72 per step,
+     and the checkpoints must reload. One more step runs under the
+     profiler, and one step at batch 2 on the card is held against the
+     same step on the CPU plain path from the same state;
+  7. the {"kernels": [...]} line with both kernels.
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
 """
 
+import copy
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,6 +70,8 @@ HIFIGAN_V1 = {
 MAX_FRAMES = 608            # 608 * 256 / 22050 Hz = 7.06 s of audio
 STAGES = [(1, 4864, 256), (1, 38912, 128), (1, 77824, 64), (1, 155648, 32)]
 RAGGED = (2, 997, 32)
+MEL_SHAPES = [(16, 8192), (1, 155648), (3, 9001)]   # training, flagship
+TRAIN_STEPS, TRAIN_BATCH, SEGMENT = 3, 16, 8192      # train_vocoder.py CLI
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 HBM_BYTES = 3.35e12         # H100 SXM HBM3
 TEXTS = [
@@ -64,19 +88,24 @@ def log(obj):
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
-def cuda_ms(fn, reps=10, warmup=2):
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
+def cuda_ms(fn, reps=10, warmup=2, min_ms=2.0):
+    """Median milliseconds per call of fn() on the current stream: CUDA
+    events around back-to-back calls lasting at least min_ms, so that the
+    host's latency to launch one call is not counted as device time."""
     for _ in range(warmup):
         fn()
+    _, one_ms = timed(fn)
+    calls = max(1, math.ceil(min_ms / max(one_ms, 1e-3)))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -154,6 +183,88 @@ def phase_kernels(mrf_mod, dev):
             stages.append(row)
         log(row)
     return stages, max_err
+
+
+def mel_bound(B, n, n_fft=1024, hop=256, n_mels=80):
+    """The log-mel of (B, n) audio: DFT and mel projection FLOP over the
+    fp32 rate against audio in, log-mel out and the constant bases read
+    once, over the HBM rate."""
+    frames = B * (1 + n // hop)
+    n_freq = n_fft // 2 + 1
+    flop = frames * (2.0 * n_fft * n_freq * 2 + 2.0 * n_freq * n_mels)
+    nbytes = 4.0 * (B * n + frames * n_mels + n_fft * n_fft
+                    + n_mels * n_freq)
+    t_ops, t_bytes = flop / FP32_FLOPS, nbytes / HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flop)
+
+
+def composite_mel(a, window, fb):
+    """The cuFFT composite: torch.stft + mel matmul + log(clamp). It does
+    ~20x fewer operations than a DFT by products; timed for information."""
+    spec = torch.stft(a, 1024, 256, 1024, window=window, center=True,
+                      pad_mode="reflect", return_complex=True).abs()
+    return torch.log(torch.clamp(fb @ spec, min=1e-5)).transpose(1, 2)
+
+
+def phase_mel_kernels(mel_mod, dev, mel_kw):
+    from radtts_tpu_torch.ops.stft import mel_basis
+
+    fb = torch.from_numpy(mel_basis(22050, 1024, 80, 0.0, 8000.0)).to(dev)
+    window = torch.hann_window(1024, periodic=True, device=dev)
+    gen = torch.Generator(dev).manual_seed(2)
+    rows, max_err = [], 0.0
+    for B, n in MEL_SHAPES:
+        a = torch.rand(B, n, device=dev, generator=gen) * 1.6 - 0.8
+        got = mel_mod.mel(a, **mel_kw)
+        ref = mel_mod.mel_plain(a, **mel_kw)
+        err = (got - ref).abs().max().item()
+        max_err = max(max_err, err)
+        if got.shape != ref.shape or not err <= 1e-3:
+            raise AssertionError(f"mel kernel disagrees at {(B, n)}: "
+                                 f"{tuple(got.shape)}, max|k-p| {err}")
+        cot = torch.randn(ref.shape, device=dev, generator=gen)
+        grads = []
+        for fn in (mel_mod.mel, mel_mod.mel_plain):
+            x = a.clone().requires_grad_(True)
+            (fn(x, **mel_kw) * cot).sum().backward()
+            grads.append(x.grad)
+        g_err = (grads[0] - grads[1]).abs().max().item()
+        g_max = grads[1].abs().max().item()
+        if not g_err <= 1e-5 * g_max:
+            raise AssertionError(f"mel gradient disagrees at {(B, n)}: "
+                                 f"{g_err} > 1e-5 * {g_max}")
+        bound_ms, bound_by, flop = mel_bound(B, n)
+        row = {"phase": "mel_kernel_vs_plain", "shape": [B, n],
+               "max_abs_err": err, "max_abs_plain": ref.abs().max().item(),
+               "grad_max_abs_err": g_err, "grad_max_abs_plain": g_max,
+               "ms": cuda_ms(lambda: mel_mod.mel(a, **mel_kw)),
+               "plain_ms": cuda_ms(lambda: mel_mod.mel_plain(a, **mel_kw)),
+               "composite_ms": cuda_ms(lambda: composite_mel(a, window, fb)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gflop": flop / 1e9}
+        row["tflops"] = flop / row["ms"] / 1e9
+        rows.append(row)
+        log(row)
+    return rows, max_err
+
+
+def phase_guard(mrf_mod, dev):
+    """The MRF kernel has no backward: asked for an output that would need
+    a gradient, it must raise and launch nothing."""
+    gen = torch.Generator(dev).manual_seed(4)
+    w = random_mrf_weights(32, dev, gen)
+    w[0]["w1"].requires_grad_(True)
+    x = torch.randn(1, 256, 32, device=dev, generator=gen)
+    before = mrf_mod.mrf.launches
+    try:
+        mrf_mod.mrf(x, w)
+    except RuntimeError as e:
+        if mrf_mod.mrf.launches != before:
+            raise AssertionError("mrf launched before refusing") from e
+        log({"phase": "mrf_grad_guard", "raised": str(e)})
+        return
+    raise AssertionError("mrf ran the kernel with grad-requiring weights")
 
 
 def flagship_parts(dev):
@@ -260,7 +371,7 @@ def phase_main_path(synth, mrf_mod, dev, power):
         runs = [utterance() for _ in range(3)]
         audio = runs[-1][0]
         times = {k: [t[k] for _, t in runs] for k in runs[0][1]}
-        profile = profile_utterance(utterance)
+        profile = profile_run(utterance)
         n_generator_calls += len(runs) + 1
     launches = mrf_mod.mrf.launches
     if audio.shape != (1, MAX_FRAMES * hop) or not torch.isfinite(
@@ -279,26 +390,175 @@ def phase_main_path(synth, mrf_mod, dev, power):
     return launches
 
 
-def profile_utterance(utterance, top=12):
-    """One flagship utterance under torch.profiler: device time by kernel
-    and the device's busy share of the wall time."""
+def profile_run(fn, top=12):
+    """fn() (which ends by waiting for the card) under torch.profiler:
+    device time by kernel and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         tic = time.perf_counter()
-        utterance()
+        fn()
         wall_ms = (time.perf_counter() - tic) * 1e3
+
+    def on_device(e):
+        # user annotations (e.g. Optimizer.step) span kernels on the device
+        # timeline; counting them would count those kernels twice
+        return (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+
     kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               for e in prof.key_averages() if on_device(e)]
     kernels.sort(key=lambda k: -k[2])
-    busy_ms = sum(k[2] for k in kernels) if kernels else None
+    # busy time: the union of the device events' intervals
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in prof.events() if on_device(e)):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    busy_ms = busy_us / 1e3 if kernels else None
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_kernel_sum_ms": sum(k[2] for k in kernels),
+            "port_kernels": [{"name": n[:60], "count": c, "ms": ms}
+                             for n, c, ms in kernels
+                             if "mrf_conv_kernel" in n or "mel_kernel" in n],
             "device_idle_share": (None if busy_ms is None
                                   else 1.0 - busy_ms / wall_ms),
             "top_kernels": [{"name": n[:90], "count": c, "ms": ms}
                             for n, c, ms in kernels[:top]]}
+
+
+def write_dataset(root, data_config):
+    """4 seeded 2 s int16 wavs (two sines plus noise), their filelist, the
+    flagship config repointed at them and HIFIGAN_V1, under root.
+    Returns (config path, HiFi-GAN config path)."""
+    from scipy.io import wavfile
+
+    sr = data_config["sampling_rate"]
+    os.makedirs(os.path.join(root, "wavs"))
+    rng = np.random.default_rng(0)
+    t = np.arange(2 * sr) / sr
+    names = []
+    for i in range(4):
+        hz = 110.0 * (i + 2)
+        w = (0.3 * np.sin(2 * np.pi * hz * t)
+             + 0.2 * np.sin(2 * np.pi * 2.5 * hz * t)
+             + 0.05 * rng.standard_normal(t.size))
+        wavfile.write(os.path.join(root, "wavs", f"{i}.wav"), sr,
+                      (w * 32767).astype(np.int16))
+        names.append(f"{i}.wav|text|ljs\n")
+    with open(os.path.join(root, "train.txt"), "w") as f:
+        f.writelines(names)
+    with open(CONFIG) as f:
+        config = json.load(f)
+    config["data_config"]["training_files"] = {
+        "T": {"basedir": root, "audiodir": "wavs", "filelist": "train.txt"}}
+    paths = (os.path.join(root, "config.json"),
+             os.path.join(root, "hifigan.json"))
+    for path, obj in zip(paths, (config, HIFIGAN_V1)):
+        with open(path, "w") as f:
+            json.dump(obj, f)
+    return paths
+
+
+def phase_training(mel_mod, mrf_mod, dev, data_config):
+    """The training path through its CLI entry point, counts set to 0 just
+    before and read just after."""
+    from radtts_tpu_torch.models.hifigan import generator_from_reference
+    from radtts_tpu_torch.train.vocoder_trainer import vocoder_train_init
+    from radtts_tpu_torch.train_vocoder import main as train_main
+
+    with tempfile.TemporaryDirectory() as root:
+        config_path, hifigan_path = write_dataset(root, data_config)
+        out = os.path.join(root, "out")
+        torch.cuda.reset_peak_memory_stats()
+        mel_mod.mel.launches = 0
+        mrf_mod.mrf.launches = 0
+        history = train_main([
+            "-c", config_path, "-k", hifigan_path, "-o", out,
+            "--steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_BATCH),
+            "--segment_size", str(SEGMENT), "--log_interval", "1",
+            "--seed", "0"])
+        launches = {"mel": mel_mod.mel.launches, "mrf": mrf_mod.mrf.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        for h in history:
+            if not all(np.isfinite(v) for v in h.values()):
+                raise AssertionError(f"non-finite training step {h}")
+        if len(history) != TRAIN_STEPS or launches != {
+                "mel": 2 * TRAIN_STEPS, "mrf": 72 * TRAIN_STEPS}:
+            raise AssertionError(f"{len(history)} steps, launches {launches}")
+        tag = f"{TRAIN_STEPS:08d}"
+        generator_from_reference(torch.load(os.path.join(
+            out, f"g_{tag}.pt"))["generator"], HIFIGAN_V1)
+        state = torch.load(os.path.join(out, f"do_{tag}.pt"),
+                           map_location=dev)
+        vocoder_train_init(HIFIGAN_V1).to(dev).load_state_dict(
+            state["models"])
+        if state["iteration"] != TRAIN_STEPS:
+            raise AssertionError(f"checkpoint iteration {state['iteration']}")
+    log({"phase": "train_vocoder", "batch": TRAIN_BATCH, "segment": SEGMENT,
+         "steps": history, "steady_step_ms": statistics.median(
+             h["ms"] for h in history[1:]),
+         "launches": launches, "peak_allocated_gib": peak_gb})
+    return launches
+
+
+def _audio(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((0.5 * np.tanh(rng.standard_normal(shape)))
+                            .astype(np.float32))
+
+
+def phase_train_profile(dev, mel_kw):
+    """One training step at batch 16 under torch.profiler, after a warm-up
+    step on the same models."""
+    from radtts_tpu_torch.train.vocoder_trainer import (
+        make_optimizers, make_vocoder_train_step, vocoder_train_init)
+
+    models = vocoder_train_init(HIFIGAN_V1, seed=1).to(dev)
+    step = make_vocoder_train_step(mel_kw, *make_optimizers(models))
+    audio = _audio((TRAIN_BATCH, SEGMENT), 6).to(dev)
+
+    def one_step():
+        return {k: float(v) for k, v in step(models, audio).items()}
+
+    one_step()
+    log({"phase": "profile_train_step", "batch": TRAIN_BATCH,
+         **profile_run(one_step)})
+
+
+def phase_train_vs_cpu(dev, mel_kw, lr=2e-4):
+    """One step at batch 2, full widths, on the card and on the CPU plain
+    path from the same state: the five losses within rtol 1e-3, the updated
+    generator within 2 * lr (Adam's first update is ~lr * sign(grad), and a
+    gradient near zero may differ in sign)."""
+    from radtts_tpu_torch.train.vocoder_trainer import (
+        make_optimizers, make_vocoder_train_step, vocoder_train_init)
+
+    models_cpu = vocoder_train_init(HIFIGAN_V1, seed=2)
+    models_dev = copy.deepcopy(models_cpu).to(dev)
+    audio = _audio((2, SEGMENT), 7)
+    out = {}
+    for name, models in (("card", models_dev), ("cpu", models_cpu)):
+        step = make_vocoder_train_step(mel_kw, *make_optimizers(models,
+                                                                lr=lr))
+        a = audio.to(next(models.parameters()).device)
+        tic = time.perf_counter()
+        out[name] = {k: float(v) for k, v in step(models, a).items()}
+        out[name + "_ms"] = (time.perf_counter() - tic) * 1e3
+    diffs = torch.cat([(p.detach().cpu() - q.detach()).abs().flatten()
+                       for p, q in zip(models_dev["gen"].parameters(),
+                                       models_cpu["gen"].parameters())])
+    worst = diffs.max().item()
+    log({"phase": "train_step_card_vs_cpu", **out,
+         "gen_max_abs_diff": worst, "lr": lr,
+         "gen_share_diff_over_lr_10": (diffs > 0.1 * lr).float().mean()
+         .item()})
+    for k, v in out["cpu"].items():
+        if not abs(out["card"][k] - v) <= 1e-3 * abs(v):
+            raise AssertionError(f"{k}: card {out['card'][k]} vs cpu {v}")
+    if not worst <= 2 * lr + 1e-7:
+        raise AssertionError(f"generator update differs by {worst}")
 
 
 def main():
@@ -310,6 +570,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from radtts_tpu_torch.ops import mel as mel_mod
     from radtts_tpu_torch.ops import mrf as mrf_mod
     from radtts_tpu_torch.synthesizer import Synthesizer, resolve_device
     from radtts_tpu_torch.text import TextProcessing
@@ -326,12 +587,24 @@ def main():
          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
-    _, nvcc_log, build_s = mrf_mod.build()
-    log({"phase": "build", "seconds": build_s,
-         "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
-                   if "registers" in ln or "spill" in ln]})
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(mod.build)
+                  for name, mod in (("mrf", mrf_mod), ("mel", mel_mod))}
+        for name, fut in builds.items():
+            _, nvcc_log, build_s = fut.result()
+            log({"phase": "build", "kernel": name, "seconds": build_s,
+                 "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
+                           if "registers" in ln or "spill" in ln]})
 
     stages, max_err = phase_kernels(mrf_mod, dev)
+    with open(CONFIG) as f:
+        data_config = json.load(f)["data_config"]
+    mel_kw = {k: data_config[k] for k in (
+        "filter_length", "hop_length", "win_length", "n_mel_channels",
+        "sampling_rate", "mel_fmin", "mel_fmax")}
+    mel_rows, mel_err = phase_mel_kernels(mel_mod, dev, mel_kw)
+    phase_guard(mrf_mod, dev)
 
     config, model, vocoder, denoiser = flagship_parts(dev)
     dc = config["data_config"]
@@ -350,11 +623,16 @@ def main():
     with torch.no_grad():
         phase_reference(synth, dev)
 
-    launches = phase_main_path(synth, mrf_mod, dev, power)
+    serve_launches = phase_main_path(synth, mrf_mod, dev, power)
+    del synth, model, vocoder, denoiser
+    train_launches = phase_training(mel_mod, mrf_mod, dev, data_config)
+    phase_train_profile(dev, mel_kw)
+    phase_train_vs_cpu(dev, mel_kw)
 
     def total(key):
         return sum(s[key] for s in stages)
 
+    train_row = mel_rows[0]   # (16, 8192): the training step's shape
     log({"kernels": [{
         "name": "mrf_conv",
         "route": "cuda",
@@ -362,7 +640,9 @@ def main():
         "replaces": "radtts_tpu/ops/pallas_mrf.py:121",
         "also_replaces": ["radtts_tpu/ops/pallas_mrf.py:177",
                           "radtts_tpu/ops/pallas_mrf.py:231"],
-        "launches": launches,
+        "launches": serve_launches + train_launches["mrf"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": train_launches["mrf"]},
         "max_abs_err": max_err,
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
@@ -374,6 +654,28 @@ def main():
         "stages": [{k: s[k] for k in ("shape", "ms", "plain_ms",
                                       "library_ms", "bound_ms", "bound_by",
                                       "max_abs_err")} for s in stages],
+    }, {
+        "name": "mel",
+        "route": "cuda",
+        "source": "radtts_tpu_torch/csrc/mel.cu",
+        "replaces": "radtts_tpu/ops/pallas_mel.py:74",
+        "launches": train_launches["mel"],
+        "launches_by_path": {"serve": 0, "train": train_launches["mel"]},
+        "max_abs_err": mel_err,
+        "ms": train_row["ms"],
+        "plain_ms": train_row["plain_ms"],
+        "bound_ms": train_row["bound_ms"],
+        "bound_by": train_row["bound_by"],
+        "library_ms": None,
+        "composite_ms": train_row["composite_ms"],
+        "note": "times at (16, 8192), the training step's shape; no single "
+                "PyTorch call computes the log-mel: composite_ms is the "
+                "cuFFT composite (torch.stft + mel matmul + log(clamp)), "
+                "~20x fewer operations, timed for information",
+        "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                      "composite_ms", "bound_ms", "bound_by",
+                                      "max_abs_err", "grad_max_abs_err")}
+                   for r in mel_rows],
     }]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(power, flush=True)

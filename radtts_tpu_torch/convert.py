@@ -9,7 +9,7 @@ converted: conv kernels (K, C_in, C_out) -> (C_out, C_in, K); linear
 (in, out) -> (out, in); LSTM w_ih (in, 4H) -> (4H, in); flipped
 transposed-conv kernels (K, C_in, C_out) -> (C_in, C_out, K) unflipped.
 MRF resblock convs keep the taps-major (3, K, C_in, C_out) layout the
-kernel reads.
+kernel reads. The discriminators' kernels go to torch's conv layouts.
 """
 
 import numpy as np
@@ -18,6 +18,7 @@ import torch
 from radtts_tpu_torch.models.hifigan import Generator
 from radtts_tpu_torch.models.radtts import RADTTS
 from radtts_tpu_torch.ops.fold_norms import fold_norms
+from radtts_tpu_torch.train.vocoder_trainer import vocoder_train_init
 
 
 @torch.no_grad()
@@ -106,9 +107,7 @@ def radtts_from_jax(params_np, model_config):
     return model.eval().requires_grad_(False)
 
 
-def hifigan_from_jax(params_np, h):
-    """HiFi-GAN Generator (eval, no grad) holding the JAX tree's weights."""
-    p = fold_norms(params_np)
+def _generator(p, h):
     gen = Generator(h)
     _conv(gen.conv_pre, p["conv_pre"])
     _conv(gen.conv_post, p["conv_post"])
@@ -121,4 +120,29 @@ def hifigan_from_jax(params_np, h):
                 convs = bp[f"convs{i}"]
                 _set(getattr(blk, f"w{i}"), np.stack([c["w"] for c in convs]))
                 _set(getattr(blk, f"b{i}"), np.stack([c["b"] for c in convs]))
-    return gen.eval().requires_grad_(False)
+    return gen
+
+
+def hifigan_from_jax(params_np, h):
+    """HiFi-GAN Generator (eval, no grad) holding the JAX tree's weights."""
+    return _generator(fold_norms(params_np), h).eval().requires_grad_(False)
+
+
+def _disc_conv(mod, p, perm):
+    _set(mod.weight, np.transpose(p["w"], perm))
+    _set(mod.bias, p["b"])
+
+
+def vocoder_train_from_jax(params_np, h):
+    """vocoder_train_init's modules (train mode, grad on) holding the JAX
+    tree {gen, mpd, msd} of radtts_tpu.train.vocoder_trainer. 2-D conv
+    kernels (kh, kw, in, out) -> (out, in, kh, kw); grouped 1-D kernels
+    (k, in/groups, out) -> (out, in/groups, k)."""
+    models = vocoder_train_init(h)
+    models["gen"] = _generator(fold_norms(params_np["gen"]), h)
+    for name, perm in (("mpd", (3, 2, 0, 1)), ("msd", (2, 1, 0))):
+        for disc, dp in zip(models[name].discs, params_np[name]["discs"]):
+            for conv, cp in zip(disc.convs, dp["convs"]):
+                _disc_conv(conv, cp, perm)
+            _disc_conv(disc.post, dp["post"], perm)
+    return models.train().requires_grad_(True)

@@ -1,0 +1,45 @@
+"""Build a CUDA C++ source of csrc/ with nvcc for sm_90a into a shared
+library with a plain C interface, and load it with ctypes.
+
+Libraries go to build/radtts_tpu_torch/ at the repository root, named by a
+hash of the source and the flags, so a changed source builds anew and an
+unchanged one is loaded as it is. Nothing is built at import: each kernel's
+wrapper builds at its first CUDA call.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "radtts_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def build_library(name):
+    """nvcc csrc/<name>.cu (once per source version) and load it. Returns
+    (ctypes library, nvcc output, seconds); the output is empty when the
+    library was already built."""
+    tic = time.perf_counter()
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                             ).hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    log = ""
+    if not os.path.exists(so):
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(so), log, time.perf_counter() - tic

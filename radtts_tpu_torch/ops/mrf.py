@@ -9,7 +9,8 @@ Port of the TPU kernels in radtts_tpu/ops/pallas_mrf.py (pallas_mrf,
 pallas_mrf_wide, pallas_mrf_folded: one function at four widths). On the
 card `mrf` chains 18 launches of the hand-written kernel in csrc/mrf.cu
 (see its header for the design and what bounds it); `mrf_plain` is the same
-function in plain PyTorch, which the CPU path and the tests use.
+function in plain PyTorch, which the CPU path, the tests and every pass
+that needs gradients use.
 
 weights: one dict per resblock, {w1: (3, k, C, C), b1: (3, C), w2: (3, k, C,
 C), b2: (3, C)}, w*[i] being the dilation-i conv taps-major (k, C_in, C_out)
@@ -17,24 +18,14 @@ as in the JAX package's packed layout.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 import torch.nn.functional as F
 
+from radtts_tpu_torch.ops.cuda_build import build_library
+
 DILATIONS = (1, 3, 5)
 LRELU_SLOPE = 0.1
-
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "mrf.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "radtts_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -64,32 +55,16 @@ def mrf_plain(x, weights):
 
 
 def build():
-    """Compile csrc/mrf.cu with nvcc into BUILD_DIR (once per source
-    version) and load it. Returns (library, nvcc output, build seconds)."""
+    """Compile csrc/mrf.cu (ops/cuda_build.py) and load it. Returns
+    (library, nvcc output, build seconds)."""
     global _lib
-    tic = time.perf_counter()
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libmrf_{tag}.so")
-    log = ""
-    if not os.path.exists(so):
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, _SRC],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
+    lib, log, seconds = build_library("mrf")
     fn = lib.radtts_mrf_conv
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _lib = lib
-    return lib, log, time.perf_counter() - tic
+    return lib, log, seconds
 
 
 def _ptr(t):
@@ -124,11 +99,19 @@ def mrf(x, weights):
     """MRF mean of one stage. x: (B, T, C) float32 -> (B, T, C).
 
     A CPU tensor runs mrf_plain. A CUDA tensor runs the hand-written kernel
-    (18 launches for three resblocks), or raises."""
+    (18 launches for three resblocks), or raises. The kernel has no
+    backward: with grad enabled and x or a weight requiring grad it raises,
+    since its output would carry no gradient; differentiate mrf_plain."""
     if x.device.type == "cpu":
         return mrf_plain(x, weights)
     if x.device.type != "cuda":
         raise ValueError(f"mrf: unsupported device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for wd in weights for t in wd.values())):
+        raise RuntimeError(
+            "mrf: the CUDA kernel has no backward, and its output would "
+            "carry no gradient; run it under torch.no_grad() or use "
+            "mrf_plain (Generator mrf_impl='plain')")
     if _lib is None:
         build()
     B, T, C = x.shape

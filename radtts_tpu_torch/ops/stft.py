@@ -1,9 +1,11 @@
-"""STFT / inverse STFT for the vocoder denoiser.
+"""STFT / inverse STFT for the vocoder denoiser, and the log-mel frontend.
 
 The round trip (stft_reim / istft_reim) uses the same matmul DFT bases and
 overlap-add with window-sumsquare correction as the JAX package, not
 torch.stft / torch.istft, so the output length and edge handling match it.
 stft_magnitude_phase (the denoiser's bias spectrum) is an rfft.
+mel_spectrogram is the reference's TacotronSTFT mel (slaney filterbank,
+log-clamp dynamic range compression) on the same matmul DFT.
 """
 
 import functools
@@ -12,6 +14,8 @@ import numpy as np
 import scipy.signal
 import torch
 import torch.nn.functional as F
+
+from radtts_tpu_torch.data.mel_filters import mel_filterbank
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -81,6 +85,29 @@ def stft_reim(audio, n_fft=1024, hop_length=256, win_length=1024):
     fw = frames * _const(hann_window(win_length, n_fft), audio)
     cos_f, nsin_f = _dft_bases(n_fft)
     return fw @ _const(cos_f, audio), fw @ _const(nsin_f, audio)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_basis(sampling_rate, n_fft, n_mels, fmin, fmax):
+    """Slaney mel filterbank (n_mels, n_fft//2+1), float32 numpy."""
+    return mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax)
+
+
+def dynamic_range_compression(x, C=1.0, clip_val=1e-5):
+    return torch.log(x.clamp(min=clip_val) * C)
+
+
+def mel_spectrogram(audio, *, filter_length=1024, hop_length=256,
+                    win_length=1024, n_mel_channels=80, sampling_rate=22050,
+                    mel_fmin=0.0, mel_fmax=8000.0):
+    """audio: (B, n) in [-1, 1] -> log-mel (B, 1 + n//hop, n_mel), in plain
+    PyTorch: the matmul DFT of stft_reim, magnitude, mel projection,
+    log(clamp(., 1e-5)). ops/mel.py:mel runs it on the card as one kernel
+    and takes this function as its plain version."""
+    re, im = stft_reim(audio, filter_length, hop_length, win_length)
+    basis = _const(mel_basis(sampling_rate, filter_length, n_mel_channels,
+                             mel_fmin, mel_fmax), audio)
+    return dynamic_range_compression(torch.sqrt(re * re + im * im) @ basis.T)
 
 
 def istft_reim(re, im, n_fft=1024, hop_length=256, win_length=1024):
