@@ -28,13 +28,17 @@
 // nonzero bins of filter m (the slaney triangles are narrow), so each mel
 // output sums only the bins its filter touches.
 //
-// Bound: per frame 2 * N * (N/2+1) * 2 FLOP for the DFT plus 2 * (N/2+1) *
-// n_mels for the mel projection, about 2.18 MFLOP at N = 1024, n_mels = 80,
-// against 4 * (N/4 + n_mels) bytes of audio in and log-mel out: the
-// function is bound by operations (fp32, 67 TFLOP/s on an H100 SXM). This
-// first design spends the operations of a DFT by products, ~20x those of an
-// FFT; it does them at the fp32 FMA rate, with the bases (4 MB) streamed
-// from L2 once per block.
+// Bound: the function's least work per frame is a real FFT (2.5 N log2 N
+// FLOP), N/2+1 magnitudes, two FLOP per nonzero of the filterbank (~700)
+// and n_mels logs: about 29 kFLOP at N = 1024, n_mels = 80, against
+// 4 * (N/4 + n_mels) = 1344 bytes of audio in and log-mel out. That is ~22
+// FLOP per byte, just above an H100 SXM's fp32 ridge (67 TFLOP/s over
+// 3.35 TB/s = 20), so the function is bound by operations, barely; at the
+// training shape (528 frames) the bound is a fraction of a microsecond, far
+// below one launch. This first design does not approach it: it spends the
+// operations of a DFT by products, 2 * N * (N/2+1) * 2 FLOP per frame
+// (~2.1 MFLOP, ~70x the least work), at the fp32 FMA rate, with the bases
+// (4 MB) streamed from L2 once per block.
 
 #include <cuda_runtime.h>
 #include <cstddef>

@@ -20,6 +20,9 @@ from radtts_tpu_torch.ops.stft import (istft_length, istft_reim,
                                        stft_magnitude_phase, stft_reim)
 
 _TINY = torch.finfo(torch.float32).tiny
+# the gaussian kernels of the mel blur augmentation
+BLUR_KERNEL_SIZE = (5, 5)
+BLUR_SIGMAS = (0.1, 0.5, 1.0)
 
 
 def _normal(shape, std=0.01):
@@ -116,28 +119,28 @@ def gaussian_blur_kernels(kernel_size, sigmas):
     return torch.from_numpy(np.stack(kernels))
 
 
-def _blur(mel, index, uniform, kernel_size, sigmas, p_blurring):
-    """The blur for given draws: kernel `index`, applied unless
-    uniform > p_blurring."""
+def _blur(mel, index, uniform, p_blurring):
+    """The blur for given draws: kernel `index` of BLUR_SIGMAS, applied
+    unless uniform > p_blurring."""
     if uniform > p_blurring:
         return mel
-    kernel = gaussian_blur_kernels(kernel_size, sigmas)[index].to(mel)
-    pad = (kernel_size[0] - 1) // 2
+    kernel = gaussian_blur_kernels(BLUR_KERNEL_SIZE,
+                                   BLUR_SIGMAS)[index].to(mel)
+    pad = (BLUR_KERNEL_SIZE[0] - 1) // 2
     x = F.pad(mel[:, None], (pad, pad, pad, pad), mode="reflect")
     return F.conv2d(x, kernel[None, None])[:, 0]
 
 
-def gaussian_blur_augmentation(mel, generator=None, kernel_size=(5, 5),
-                               sigmas=(0.1, 0.5, 1.0), p_blurring=0.0):
+def gaussian_blur_augmentation(mel, generator=None, p_blurring=0.0):
     """With probability p_blurring, blur the (B, T, n_mel) mel with a
     randomly chosen gaussian kernel (reference: hifigan_models.py:71-80;
     used on the generator's input mel during vocoder training). The kernel
     index and the uniform are drawn from the torch.Generator `generator`."""
     if p_blurring <= 0.0:
         return mel
-    index = int(torch.randint(len(sigmas), (), generator=generator))
+    index = int(torch.randint(len(BLUR_SIGMAS), (), generator=generator))
     uniform = float(torch.rand((), generator=generator))
-    return _blur(mel, index, uniform, kernel_size, sigmas, p_blurring)
+    return _blur(mel, index, uniform, p_blurring)
 
 
 def _remap_legacy_keys(sd):

@@ -16,6 +16,9 @@ from torch import nn
 
 LRELU_SLOPE = 0.1
 PERIODS = (2, 3, 5, 7, 11)
+# kernel height and stride of the period discriminator's first four convs
+P_KERNEL, P_STRIDE = 5, 3
+N_SCALES = 3
 # (in, out, kernel, stride, groups, padding) of the scale discriminator
 S_SPECS = [
     (1, 128, 15, 1, 1, 7),
@@ -41,12 +44,11 @@ class DiscriminatorP(nn.Module):
     """Period discriminator: the waveform folded to (T / period, period)
     and run through 2-D convs along the first axis."""
 
-    def __init__(self, period, kernel_size=5, stride=3):
+    def __init__(self, period):
         super().__init__()
         self.period = period
-        self.stride = stride
         chans = [(1, 32), (32, 128), (128, 512), (512, 1024), (1024, 1024)]
-        self.convs = nn.ModuleList(_Conv((c_out, c_in, kernel_size, 1))
+        self.convs = nn.ModuleList(_Conv((c_out, c_in, P_KERNEL, 1))
                                    for c_in, c_out in chans)
         self.post = _Conv((1, 1024, 3, 1))
 
@@ -59,7 +61,7 @@ class DiscriminatorP(nn.Module):
         h = x.reshape(B, 1, -1, self.period)
         fmap = []
         for i, conv in enumerate(self.convs):
-            stride = self.stride if i < len(self.convs) - 1 else 1
+            stride = P_STRIDE if i < len(self.convs) - 1 else 1
             h = F.leaky_relu(F.conv2d(h, conv.weight, conv.bias,
                                       stride=(stride, 1), padding=(2, 0)),
                              LRELU_SLOPE)
@@ -121,9 +123,9 @@ class MultiScaleDiscriminator(nn.Module):
     """Three scale discriminators on the waveform, then on it average-pooled
     once and twice."""
 
-    def __init__(self, n_scales=3):
+    def __init__(self):
         super().__init__()
-        self.discs = nn.ModuleList(DiscriminatorS() for _ in range(n_scales))
+        self.discs = nn.ModuleList(DiscriminatorS() for _ in range(N_SCALES))
 
     def forward(self, y, y_hat):
         ys, y_hats = [y], [y_hat]

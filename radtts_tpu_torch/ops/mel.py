@@ -4,9 +4,9 @@ magnitude, slaney mel projection, log(clamp(., 1e-5)).
 Port of the TPU kernel radtts_tpu/ops/pallas_mel.py:mel_spectrogram_pallas.
 On the card `mel` launches the hand-written kernel in csrc/mel.cu once per
 call (see its header for the design and what bounds it); `mel_plain` is the
-same function in plain PyTorch (ops/stft.py:mel_spectrogram), which the CPU
-path and the tests use. Gradients with respect to the audio go through
-mel_plain: the kernel has no backward, as the TPU kernel had none.
+same function in plain PyTorch, which the CPU path and the tests use.
+Gradients with respect to the audio go through mel_plain: the kernel has no
+backward, as the TPU kernel had none.
 """
 
 import ctypes
@@ -16,12 +16,23 @@ import numpy as np
 import torch
 
 from radtts_tpu_torch.ops.cuda_build import build_library
-from radtts_tpu_torch.ops.stft import hann_window, mel_basis
-from radtts_tpu_torch.ops.stft import mel_spectrogram as mel_plain
-
-CLIP_VAL = 1e-5
+from radtts_tpu_torch.ops.stft import (CLIP_VAL, dynamic_range_compression,
+                                       hann_window, mel_basis, stft_reim)
 
 _lib = None
+
+
+def mel_plain(audio, *, filter_length=1024, hop_length=256, win_length=1024,
+              n_mel_channels=80, sampling_rate=22050, mel_fmin=0.0,
+              mel_fmax=8000.0):
+    """audio: (B, n) in [-1, 1] -> log-mel (B, 1 + n//hop, n_mel), in plain
+    PyTorch: the matmul DFT of stft_reim, magnitude, mel projection,
+    log(clamp(., CLIP_VAL))."""
+    re, im = stft_reim(audio, filter_length, hop_length, win_length)
+    basis = torch.from_numpy(mel_basis(sampling_rate, filter_length,
+                                       n_mel_channels, mel_fmin, mel_fmax))
+    return dynamic_range_compression(
+        torch.sqrt(re * re + im * im) @ basis.to(audio).T)
 
 
 def build():

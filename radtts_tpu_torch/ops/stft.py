@@ -4,8 +4,9 @@ The round trip (stft_reim / istft_reim) uses the same matmul DFT bases and
 overlap-add with window-sumsquare correction as the JAX package, not
 torch.stft / torch.istft, so the output length and edge handling match it.
 stft_magnitude_phase (the denoiser's bias spectrum) is an rfft.
-mel_spectrogram is the reference's TacotronSTFT mel (slaney filterbank,
-log-clamp dynamic range compression) on the same matmul DFT.
+mel_basis and dynamic_range_compression are the pieces of the reference's
+TacotronSTFT mel (slaney filterbank, log-clamp dynamic range compression),
+which ops/mel.py assembles on the same matmul DFT.
 """
 
 import functools
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from radtts_tpu_torch.data.mel_filters import mel_filterbank
 
 _TINY = float(np.finfo(np.float32).tiny)
+CLIP_VAL = 1e-5   # the log-mel's floor
 
 
 @functools.lru_cache(maxsize=8)
@@ -93,21 +95,8 @@ def mel_basis(sampling_rate, n_fft, n_mels, fmin, fmax):
     return mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax)
 
 
-def dynamic_range_compression(x, C=1.0, clip_val=1e-5):
-    return torch.log(x.clamp(min=clip_val) * C)
-
-
-def mel_spectrogram(audio, *, filter_length=1024, hop_length=256,
-                    win_length=1024, n_mel_channels=80, sampling_rate=22050,
-                    mel_fmin=0.0, mel_fmax=8000.0):
-    """audio: (B, n) in [-1, 1] -> log-mel (B, 1 + n//hop, n_mel), in plain
-    PyTorch: the matmul DFT of stft_reim, magnitude, mel projection,
-    log(clamp(., 1e-5)). ops/mel.py:mel runs it on the card as one kernel
-    and takes this function as its plain version."""
-    re, im = stft_reim(audio, filter_length, hop_length, win_length)
-    basis = _const(mel_basis(sampling_rate, filter_length, n_mel_channels,
-                             mel_fmin, mel_fmax), audio)
-    return dynamic_range_compression(torch.sqrt(re * re + im * im) @ basis.T)
+def dynamic_range_compression(x):
+    return torch.log(x.clamp(min=CLIP_VAL))
 
 
 def istft_reim(re, im, n_fft=1024, hop_length=256, win_length=1024):

@@ -24,6 +24,9 @@ from radtts_tpu_torch.models.hifigan_disc import (MultiPeriodDiscriminator,
                                                   generator_loss)
 from radtts_tpu_torch.ops.mel import mel
 
+BETAS = (0.8, 0.99)
+WEIGHT_DECAY = 0.01
+
 
 def vocoder_train_init(h, seed=0):
     """{gen, mpd, msd} for a HiFi-GAN config dict, normal(0, 0.01) weights
@@ -55,13 +58,12 @@ class DecayedAdamW(torch.optim.AdamW):
         return super().step(closure)
 
 
-def make_optimizers(models, lr=2e-4, betas=(0.8, 0.99), lr_decay=0.999,
-                    decay_every=1000, weight_decay=0.01):
-    """(optim_g, optim_d): upstream HiFi-GAN's AdamW pair (betas (0.8,
-    0.99), weight decay 0.01) with stepped exponential decay."""
+def make_optimizers(models, lr=2e-4, lr_decay=0.999, decay_every=1000):
+    """(optim_g, optim_d): upstream HiFi-GAN's AdamW pair (BETAS,
+    WEIGHT_DECAY) with stepped exponential decay."""
     def make(params):
-        return DecayedAdamW(params, lr, lr_decay, decay_every, betas=betas,
-                            eps=1e-8, weight_decay=weight_decay)
+        return DecayedAdamW(params, lr, lr_decay, decay_every, betas=BETAS,
+                            eps=1e-8, weight_decay=WEIGHT_DECAY)
     return (make(models["gen"].parameters()),
             make([*models["mpd"].parameters(), *models["msd"].parameters()]))
 

@@ -1,5 +1,5 @@
 """The port's log-mel frontend against the JAX package on the CPU: the
-filterbank copy, mel_plain / mel_spectrogram against both the JAX
+filterbank copy, mel (mel_plain on a CPU tensor) against both the JAX
 mel_spectrogram and the Pallas kernel in interpret mode, the gradient, and
 the host-side constants the CUDA kernel (csrc/mel.cu) reads.
 
@@ -18,11 +18,13 @@ import jax.numpy as jnp
 
 from radtts_tpu.data.mel_filters import mel_filterbank as jax_mel_filterbank
 from radtts_tpu.ops.pallas_mel import mel_spectrogram_pallas
+from radtts_tpu.ops.stft import dynamic_range_compression as \
+    jax_dynamic_range_compression
 from radtts_tpu.ops.stft import mel_spectrogram as jax_mel_spectrogram
 
 from radtts_tpu_torch.data.mel_filters import mel_filterbank
 from radtts_tpu_torch.ops.mel import kernel_constants, mel, mel_plain
-from radtts_tpu_torch.ops.stft import mel_spectrogram
+from radtts_tpu_torch.ops.stft import CLIP_VAL, dynamic_range_compression
 
 MEL_KW = dict(filter_length=1024, hop_length=256, win_length=1024,
               n_mel_channels=80, sampling_rate=22050, mel_fmin=0.0,
@@ -41,22 +43,36 @@ def test_filterbank_copy_is_exact(args):
                                   jax_mel_filterbank(*args))
 
 
-@pytest.fixture(scope="module", params=[(2, 9000), (2, 8192)])
-def mels(request):
-    a = _audio(request.param)
+@pytest.mark.parametrize("shape", [(2, 9000), (2, 8192), (1, 2053),
+                                   (3, 4097)])
+def test_mel_matches_jax(shape):
+    """mel on a CPU tensor (which runs mel_plain) against the JAX
+    mel_spectrogram and the Pallas kernel in interpret mode."""
+    a = _audio(shape)
     ref = np.asarray(jax_mel_spectrogram(jnp.asarray(a), **MEL_KW))
     pallas = np.asarray(mel_spectrogram_pallas(jnp.asarray(a), interpret=True,
                                                **MEL_KW))
-    return a, ref, pallas
-
-
-@pytest.mark.parametrize("fn", [mel_plain, mel_spectrogram, mel])
-def test_mel_matches_jax(mels, fn):
-    a, ref, pallas = mels
-    got = fn(torch.from_numpy(a), **MEL_KW).numpy()
+    got = mel(torch.from_numpy(a), **MEL_KW).numpy()
     assert got.shape == ref.shape == (a.shape[0], 1 + a.shape[1] // 256, 80)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
     np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-4)
+
+
+def test_dynamic_range_compression_matches_jax():
+    """log(clamp(x, CLIP_VAL)) equals the JAX package's, the floor
+    included."""
+    x = np.array([0.0, 1e-7, 1e-5, 3e-5, 0.5, 20.0], np.float32)
+    np.testing.assert_allclose(
+        dynamic_range_compression(torch.from_numpy(x)).numpy(),
+        np.asarray(jax_dynamic_range_compression(jnp.asarray(x))), rtol=1e-7)
+    assert CLIP_VAL == 1e-5
+
+
+def test_mel_refuses_other_devices():
+    """A tensor that is on neither the CPU nor a CUDA card gets no plain
+    fallback."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        mel(torch.zeros(1, 4096, device="meta"), **MEL_KW)
 
 
 def test_mel_gradient_matches_jax():

@@ -29,7 +29,8 @@ from radtts_tpu.models.hifigan import (hifigan_generator_apply,
 from radtts_tpu.train import vocoder_trainer as jt
 
 from radtts_tpu_torch.convert import vocoder_train_from_jax
-from radtts_tpu_torch.models.hifigan import (_blur, gaussian_blur_kernels,
+from radtts_tpu_torch.models.hifigan import (BLUR_KERNEL_SIZE, BLUR_SIGMAS,
+                                             _blur, gaussian_blur_kernels,
                                              gaussian_blur_augmentation,
                                              generator_from_reference,
                                              generator_to_reference)
@@ -97,9 +98,9 @@ def assert_close_each(got, ref, rel):
 # --------------------------------------------------------------------------
 
 def test_blur_kernels_are_exact():
-    sigmas = (0.1, 0.5, 1.0)
-    np.testing.assert_array_equal(gaussian_blur_kernels((5, 5), sigmas),
-                                  np.asarray(jax_blur_kernels((5, 5), sigmas)))
+    args = (BLUR_KERNEL_SIZE, BLUR_SIGMAS)
+    np.testing.assert_array_equal(gaussian_blur_kernels(*args),
+                                  np.asarray(jax_blur_kernels(*args)))
 
 
 # keys whose draws cover no blur, and a blur with each kernel
@@ -115,8 +116,7 @@ def test_blur_matches_jax_with_injected_draws(seed, p):
     k_rng, p_rng = jax.random.split(key)
     index = int(jax.random.randint(k_rng, (), 0, 3))
     uniform = float(jax.random.uniform(p_rng, ()))
-    got = _blur(torch.from_numpy(mel_np), index, uniform, (5, 5),
-                (0.1, 0.5, 1.0), p).numpy()
+    got = _blur(torch.from_numpy(mel_np), index, uniform, p).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
     if uniform > p:
         np.testing.assert_array_equal(got, mel_np)
@@ -131,7 +131,7 @@ def test_blur_draws_from_generator():
         mel_t, torch.Generator().manual_seed(3), p_blurring=1.0)
     g = torch.Generator().manual_seed(3)
     index = int(torch.randint(3, (), generator=g))
-    expect = _blur(mel_t, index, 0.0, (5, 5), (0.1, 0.5, 1.0), 1.0)
+    expect = _blur(mel_t, index, 0.0, 1.0)
     torch.testing.assert_close(blurred, expect, rtol=0, atol=0)
 
 
@@ -229,7 +229,11 @@ def test_train_step_matches_jax(params):
     updated discriminators) from the same state: the five losses within
     rtol 1e-4, every parameter within 2 * lr, Adam's first update moving a
     parameter by ~lr * sign(grad), whose sign a gradient near zero may
-    flip."""
+    flip. Any gradient bounds that update by lr, so the 2 * lr limit alone
+    would pass a zero or wrong gradient; such a gradient moves nearly every
+    parameter by ~lr away from JAX's, so at most 1e-3 of the generator's
+    and of the discriminators' parameters may differ by more than 0.1 *
+    lr."""
     lr = 2e-4
     audio = _audio((1, SEGMENT), 5)
     optim_g, optim_d = jt.make_optimizers(lr=lr)
@@ -247,6 +251,9 @@ def test_train_step_matches_jax(params):
         np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-4,
                                    err_msg=k)
     ref = port_models(new)
-    worst = max((a - b).abs().max().item() for a, b in
-                zip(models.parameters(), ref.parameters()))
-    assert worst <= 2 * lr, worst
+    for name in ("gen", "mpd", "msd"):
+        diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(
+            models[name].parameters(), ref[name].parameters())])
+        assert diffs.max().item() <= 2 * lr, (name, diffs.max().item())
+        share = (diffs > 0.1 * lr).float().mean().item()
+        assert share <= 1e-3, (name, share)
