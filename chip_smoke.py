@@ -6,13 +6,18 @@
 Phases, each printing a JSON or text line:
   1. device: the card's name and power limit, torch/CUDA versions, the
      pinned TF32 flags;
-  2. build: nvcc of radtts_tpu_torch/csrc/mrf.cu and csrc/mel.cu for
-     sm_90a, both at once, with seconds and ptxas register/spill lines;
-  3. MRF kernel vs plain: ops/mrf.py:mrf (the CUDA kernel) against
-     mrf_plain on the card at the four flagship stage shapes and a ragged
-     B=2 shape, within 1e-4 * max|plain| (fp32 sums in another order, TF32
-     off), with the kernel's, the plain version's and the cuDNN conv
-     chain's times and the fp32 FLOP bound;
+  2. build: nvcc of radtts_tpu_torch/csrc/mrf.cu, csrc/mrf_tc.cu and
+     csrc/mel.cu for sm_90a, all at once, with seconds and ptxas
+     register/spill lines;
+  3. MRF kernels vs plain: ops/mrf.py:mrf against mrf_plain on the card,
+     within 1e-4 * max|plain| (fp32 sums in another order, TF32 off; the
+     tensor-core kernel in 3xTF32): csrc/mrf_tc.cu at C=256 and C=128 (the
+     serving stages, the training discriminator pass's (16, 256, 256) and
+     (16, 2048, 128), ragged (2, 997, C)), csrc/mrf.cu at C=64 and C=32
+     (serving stages, ragged (2, 997, 32)). With the kernel's, the plain
+     version's and the cuDNN conv chain's times, the launch grid, and the
+     bound at the 3xTF32 rate beside the fp32-FMA one. Then the
+     tensor-core kernel's four tile shapes at the two serving stages;
   4. mel kernel vs plain: ops/mel.py:mel against mel_plain at (16, 8192),
      (1, 155648) and (3, 9001): log-mel within 1e-3 (fp32 sums over 1024
      terms in another order, amplified by the log near the 1e-5 clamp),
@@ -25,19 +30,21 @@ Phases, each printing a JSON or text line:
      to sd 0.002) answers three requests (one text, a batch of three, one
      with denoising_strength=0.1), then a fixed-duration 608-frame
      decode + vocoder + denoiser runs with stage times and the RTF.
-     mrf.launches must grow by 72 per generator call. Outputs must be
+     mrf.launches (csrc/mrf.cu) and mrf.tc_launches (csrc/mrf_tc.cu) must
+     each grow by 36 per generator call. Outputs must be
      finite and of the expected lengths; the decode and the vocoder of
      the 608-frame utterance are also held against the CPU plain path;
   6. training path: python -m radtts_tpu_torch.train_vocoder's main runs 3
      steps of HiFi-GAN v1 with the full discriminators at batch 16,
      segment 8192, on 4 seeded 2 s wavs, and checkpoints at the last step.
      Per-step ms and the five losses are printed; the losses must be
-     finite, mel.launches must grow by 2 and mrf.launches by 72 per step,
+     finite, mel.launches must grow by 2, mrf.launches and
+     mrf.tc_launches by 36 each per step,
      and the checkpoints must reload. One more step runs under the
      profiler, and one step at batch 2 on the card is held against the
      same step on the CPU plain path from the same state (losses and
      updates) and its generator gradients against the step in float64;
-  7. the {"kernels": [...]} line with both kernels.
+  7. the {"kernels": [...]} line with the three kernels.
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
@@ -70,10 +77,13 @@ HIFIGAN_V1 = {
 }
 MAX_FRAMES = 608            # 608 * 256 / 22050 Hz = 7.06 s of audio
 STAGES = [(1, 4864, 256), (1, 38912, 128), (1, 77824, 64), (1, 155648, 32)]
-RAGGED = (2, 997, 32)
+TRAIN_STAGES = [(16, 256, 256), (16, 2048, 128)]   # discriminator pass
+RAGGED = [(2, 997, 256), (2, 997, 128), (2, 997, 32)]
+TC_TILES = [(64, 1), (64, 2), (128, 1), (128, 2)]
 MEL_SHAPES = [(16, 8192), (1, 155648), (3, 9001)]   # training, flagship
 TRAIN_STEPS, TRAIN_BATCH, SEGMENT = 3, 16, 8192      # train_vocoder.py CLI
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
 HBM_BYTES = 3.35e12         # H100 SXM HBM3
 TEXTS = [
     "It is well known that deep generative models have a rich latent "
@@ -143,47 +153,82 @@ def library_mrf(xc, torch_weights):
 
 
 def mrf_bound(B, T, C, ks=(3, 7, 11)):
+    """The least time of one MRF stage: its FLOP, fp32-accurate, at the
+    3xTF32 rate (3 tensor-core passes, 495/3 TFLOP/s), against x and the
+    weights read once and the output written once. Also returns the FLOP
+    and the operations' time at the 67 TFLOP/s fp32-FMA rate."""
     flop = 2.0 * B * T * C * C * sum(6 * k for k in ks)
     n_weights = sum(6 * (k * C * C + C) for k in ks)
     nbytes = 4.0 * (2 * B * T * C + n_weights)
-    t_ops, t_bytes = flop / FP32_FLOPS, nbytes / HBM_BYTES
+    t_ops, t_bytes = 3 * flop / TF32_FLOPS, nbytes / HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flop)
+            "operations" if t_ops >= t_bytes else "bytes", flop,
+            max(flop / FP32_FLOPS, t_bytes) * 1e3)
 
 
 def phase_kernels(mrf_mod, dev):
     gen = torch.Generator(dev).manual_seed(1)
-    stages, max_err = [], 0.0
-    for B, T, C in STAGES + [RAGGED]:
+    stages, max_err = [], {"mrf_tc": 0.0, "mrf_conv": 0.0}
+    inputs = {}
+    for B, T, C in STAGES + TRAIN_STAGES + RAGGED:
         x = torch.randn(B, T, C, device=dev, generator=gen)
         w = random_mrf_weights(C, dev, gen)
+        kernel = "mrf_tc" if mrf_mod.use_tensor_cores(C) else "mrf_conv"
         got = mrf_mod.mrf(x, w)
         ref = mrf_mod.mrf_plain(x, w)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
-        max_err = max(max_err, err)
+        max_err[kernel] = max(max_err[kernel], err)
         if not err <= 1e-4 * scale:
-            raise AssertionError(f"mrf kernel disagrees at {(B, T, C)}: "
+            raise AssertionError(f"{kernel} disagrees at {(B, T, C)}: "
                                  f"max|k-p| {err} > 1e-4 * {scale}")
-        row = {"phase": "kernel_vs_plain", "shape": [B, T, C],
-               "max_abs_err": err, "max_abs_plain": scale}
-        if (B, T, C) != RAGGED:
+        row = {"phase": "kernel_vs_plain", "kernel": kernel,
+               "shape": [B, T, C], "max_abs_err": err,
+               "max_abs_plain": scale}
+        if kernel == "mrf_tc":
+            row["grid"] = list(mrf_mod.tc_grid(B, T, C))
+            row["tile"] = list(mrf_mod.tc_tile(C))
+        if (B, T, C) not in RAGGED:
             xc = x.transpose(1, 2).contiguous()
             tw = [tuple(t.permute(0, 3, 2, 1).contiguous()
                         if t.dim() == 4 else t
                         for t in (wd["w1"], wd["b1"], wd["w2"], wd["b2"]))
                   for wd in w]
-            bound_ms, bound_by, flop = mrf_bound(B, T, C)
+            bound_ms, bound_by, flop, fp32_bound_ms = mrf_bound(B, T, C)
             row.update(
                 ms=cuda_ms(lambda: mrf_mod.mrf(x, w)),
                 plain_ms=cuda_ms(lambda: mrf_mod.mrf_plain(x, w)),
                 library_ms=cuda_ms(lambda: library_mrf(xc, tw)),
-                bound_ms=bound_ms, bound_by=bound_by, gflop=flop / 1e9)
+                bound_ms=bound_ms, bound_by=bound_by,
+                fp32_fma_bound_ms=fp32_bound_ms, gflop=flop / 1e9)
             row["tflops"] = flop / row["ms"] / 1e9
+            row["serving"] = (B, T, C) in STAGES
             stages.append(row)
+            inputs[(B, T, C)] = (x, w)
         log(row)
-    return stages, max_err
+    return stages, max_err, inputs
+
+
+def phase_tc_tiles(mrf_mod, inputs):
+    """The tensor-core kernel's four tile shapes (TN, NWG) at the serving
+    stages it runs, each held to the same limit as the chosen one."""
+    for B, T, C in STAGES:
+        if not mrf_mod.use_tensor_cores(C):
+            continue
+        x, w = inputs[(B, T, C)]
+        ref = mrf_mod.mrf_plain(x, w)
+        scale = ref.abs().max().item()
+        for tile in TC_TILES:
+            err = (mrf_mod.mrf_cuda(x, w, tile) - ref).abs().max().item()
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"mrf_tc tile {tile} disagrees at "
+                                     f"{(B, T, C)}: {err} > 1e-4 * {scale}")
+            log({"phase": "mrf_tc_tiles", "shape": [B, T, C],
+                 "tile": list(tile), "chosen": tile == mrf_mod.tc_tile(C),
+                 "grid": list(mrf_mod.tc_grid(B, T, C, tile)),
+                 "max_abs_err": err,
+                 "ms": cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, tile))})
 
 
 def mel_bound(B, n, fb_nnz, n_fft=1024, hop=256, n_mels=80):
@@ -350,6 +395,7 @@ def phase_main_path(synth, mrf_mod, dev, power):
     hop = synth.hop_length
     n_generator_calls = 0
     mrf_mod.mrf.launches = 0
+    mrf_mod.mrf.tc_launches = 0
     requests = [(TEXTS[0], {}), (TEXTS, {}),
                 (TEXTS[1], {"denoising_strength": 0.1, "sigma": 0.6})]
     for texts, kw in requests:
@@ -382,12 +428,14 @@ def phase_main_path(synth, mrf_mod, dev, power):
         times = {k: [t[k] for _, t in runs] for k in runs[0][1]}
         profile = profile_run(utterance)
         n_generator_calls += len(runs) + 1
-    launches = mrf_mod.mrf.launches
+    launches = {"mrf_conv": mrf_mod.mrf.launches,
+                "mrf_tc": mrf_mod.mrf.tc_launches}
     if audio.shape != (1, MAX_FRAMES * hop) or not torch.isfinite(
             audio).all():
         raise AssertionError(f"bad flagship audio {tuple(audio.shape)}")
-    if launches != 72 * n_generator_calls:
-        raise AssertionError(f"mrf.launches {launches} != 72 x "
+    if launches != {"mrf_conv": 36 * n_generator_calls,
+                    "mrf_tc": 36 * n_generator_calls}:
+        raise AssertionError(f"MRF launches {launches} != 36 + 36 x "
                              f"{n_generator_calls} generator calls")
     med = {k: statistics.median(v) for k, v in times.items()}
     audio_s = MAX_FRAMES * hop / synth.sampling_rate
@@ -441,7 +489,8 @@ def profile_run(fn, top=12):
                                for e in device_events}),
             "port_kernels": [{"name": n[:60], "count": c, "ms": ms}
                              for n, c, ms in kernels
-                             if "mrf_conv_kernel" in n or "mel_kernel" in n],
+                             if "mrf_conv_kernel" in n or "mrf_tc_kernel" in n
+                             or "mel_kernel" in n],
             "device_idle_share": (None if busy_ms is None
                                   else 1.0 - busy_ms / wall_ms),
             "top_kernels": [{"name": n[:90], "count": c, "ms": ms}
@@ -494,18 +543,22 @@ def phase_training(mel_mod, mrf_mod, dev, data_config):
         torch.cuda.reset_peak_memory_stats()
         mel_mod.mel.launches = 0
         mrf_mod.mrf.launches = 0
+        mrf_mod.mrf.tc_launches = 0
         history = train_main([
             "-c", config_path, "-k", hifigan_path, "-o", out,
             "--steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_BATCH),
             "--segment_size", str(SEGMENT), "--log_interval", "1",
             "--seed", "0"])
-        launches = {"mel": mel_mod.mel.launches, "mrf": mrf_mod.mrf.launches}
+        launches = {"mel": mel_mod.mel.launches,
+                    "mrf_conv": mrf_mod.mrf.launches,
+                    "mrf_tc": mrf_mod.mrf.tc_launches}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         for h in history:
             if not all(np.isfinite(v) for v in h.values()):
                 raise AssertionError(f"non-finite training step {h}")
         if len(history) != TRAIN_STEPS or launches != {
-                "mel": 2 * TRAIN_STEPS, "mrf": 72 * TRAIN_STEPS}:
+                "mel": 2 * TRAIN_STEPS, "mrf_conv": 36 * TRAIN_STEPS,
+                "mrf_tc": 36 * TRAIN_STEPS}:
             raise AssertionError(f"{len(history)} steps, launches {launches}")
         tag = f"{TRAIN_STEPS:08d}"
         generator_from_reference(torch.load(os.path.join(
@@ -653,16 +706,23 @@ def main():
          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(2) as pool:
-        builds = {name: pool.submit(mod.build)
-                  for name, mod in (("mrf", mrf_mod), ("mel", mel_mod))}
+    with ThreadPoolExecutor(3) as pool:
+        builds = {name: pool.submit(fn) for name, fn in (
+            ("mrf_conv", mrf_mod.build), ("mrf_tc", mrf_mod.build_tc),
+            ("mel", mel_mod.build))}
         for name, fut in builds.items():
             _, nvcc_log, build_s = fut.result()
             log({"phase": "build", "kernel": name, "seconds": build_s,
                  "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
-                           if "registers" in ln or "spill" in ln]})
+                           if "registers" in ln or "spill" in ln
+                           or "arning" in ln]})
+    log({"phase": "mrf_tc_smem", "bytes_per_block": {
+        f"{tn}x{nwg}": mrf_mod._tc_lib.radtts_mrf_tc_smem_bytes(tn, nwg)
+        for tn, nwg in TC_TILES}})
 
-    stages, max_err = phase_kernels(mrf_mod, dev)
+    stages, max_err, inputs = phase_kernels(mrf_mod, dev)
+    phase_tc_tiles(mrf_mod, inputs)
+    del inputs
     with open(CONFIG) as f:
         data_config = json.load(f)["data_config"]
     mel_kw = {k: data_config[k] for k in (
@@ -694,32 +754,45 @@ def main():
     phase_train_profile(dev, mel_kw)
     phase_train_vs_cpu(dev, mel_kw)
 
-    def total(key):
-        return sum(s[key] for s in stages)
+    def mrf_entry(kernel, source, replaces, also_replaces):
+        serving = [s for s in stages if s["kernel"] == kernel and s["serving"]]
+
+        def total(key):
+            return sum(s[key] for s in serving)
+        return {
+            "name": kernel,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "also_replaces": also_replaces,
+            "launches": serve_launches[kernel] + train_launches[kernel],
+            "launches_by_path": {"serve": serve_launches[kernel],
+                                 "train": train_launches[kernel]},
+            "max_abs_err": max_err[kernel],
+            "ms": total("ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("operations" if all(
+                s["bound_by"] == "operations" for s in serving) else "bytes"),
+            "fp32_fma_bound_ms": total("fp32_fma_bound_ms"),
+            "library_ms": total("library_ms"),
+            "note": "sums over the kernel's MRF stages of one 608-frame "
+                    "utterance; bound_ms at the 3xTF32 rate (495/3 "
+                    "TFLOP/s), fp32_fma_bound_ms at 67 TFLOP/s",
+            "stages": [{k: s[k] for k in (
+                "shape", "grid", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "fp32_fma_bound_ms", "max_abs_err") if k in s}
+                for s in stages if s["kernel"] == kernel],
+        }
 
     train_row = mel_rows[0]   # (16, 8192): the training step's shape
-    log({"kernels": [{
-        "name": "mrf_conv",
-        "route": "cuda",
-        "source": "radtts_tpu_torch/csrc/mrf.cu",
-        "replaces": "radtts_tpu/ops/pallas_mrf.py:121",
-        "also_replaces": ["radtts_tpu/ops/pallas_mrf.py:177",
-                          "radtts_tpu/ops/pallas_mrf.py:231"],
-        "launches": serve_launches + train_launches["mrf"],
-        "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches["mrf"]},
-        "max_abs_err": max_err,
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": ("operations" if all(s["bound_by"] == "operations"
-                                         for s in stages) else "bytes"),
-        "library_ms": total("library_ms"),
-        "note": "sums over the four MRF stages of one 608-frame utterance",
-        "stages": [{k: s[k] for k in ("shape", "ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by",
-                                      "max_abs_err")} for s in stages],
-    }, {
+    log({"kernels": [
+        mrf_entry("mrf_tc", "radtts_tpu_torch/csrc/mrf_tc.cu",
+                  "radtts_tpu/ops/pallas_mrf.py:177",
+                  ["radtts_tpu/ops/pallas_mrf.py:121 (at C=128)"]),
+        mrf_entry("mrf_conv", "radtts_tpu_torch/csrc/mrf.cu",
+                  "radtts_tpu/ops/pallas_mrf.py:121",
+                  ["radtts_tpu/ops/pallas_mrf.py:231"]), {
         "name": "mel",
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mel.cu",

@@ -1,0 +1,484 @@
+// One fused convolution of the HiFi-GAN multi-receptive-field (MRF)
+// resblock chain on Hopper's tensor cores, channels-last, fp32-accurate,
+// for sm_90a. It serves the C=256 and C=128 stages; csrc/mrf.cu serves
+// C=64 and C=32 (the routing rule is ops/mrf.py:use_tensor_cores).
+//
+// Replaces the TPU kernels of radtts_tpu/ops/pallas_mrf.py: pallas_mrf_wide
+// (C=256, there with bf16 weight storage; here fp32-accurate) and
+// pallas_mrf (at C=128). The host wrapper (radtts_tpu_torch/ops/mrf.py:mrf)
+// chains 18 launches per stage, exactly as for csrc/mrf.cu, and one launch
+// computes the same function as mrf_conv_kernel there:
+//
+//   y[b,t,co] = bias[co] + sum_{j<k, ci<C} w[j,ci,co] * lrelu(x[b, t+(j-(k-1)/2)*d, ci])
+//
+// with x read as zero outside [0, T). Epilogue: y += res (if given);
+// out = y (if given); acc += acc_scale * y (if given). res may alias out:
+// each element is read and written by the same thread, from its own
+// accumulator fragment. x never aliases out.
+//
+// Bound: 2*T*C^2*126 FLOP per stage against <= 20 MB of activations, so
+// it is operation-bound. In fp32 FMA (csrc/mrf.cu) the card caps it at
+// 67 TFLOP/s; here it is an implicit GEMM on the tensor cores in 3xTF32:
+// every operand v is split as hi = tf32_rna(v), lo = tf32_rna(v - hi), and
+// the products hi*hi + hi*lo + lo*hi are summed in the fp32 accumulators
+// (the dropped lo*lo term is ~2^-22 of each product), which keeps fp32
+// accuracy at a third of the 495 TFLOP/s TF32 rate. Single-pass TF32
+// (10-bit mantissas) lands hundreds of times further from fp32 in the
+// arithmetic's emulation (tests/test_torch_mrf_tc.py).
+//
+// Design (one block = a TM x TN output tile of one batch item, TM = 64 *
+// NWG time rows, TN output channels; M = time, N = C_out, K = taps x C_in):
+//  - NWG consumer warpgroups run wgmma.m64nTNk8.f32.tf32.tf32 with A in
+//    registers and B from shared memory; one producer warp keeps loads in
+//    flight through mbarrier rings (2 activation slabs, 3 weight stages).
+//  - A (activations) come from registers: tf32 wgmma reads shared-memory
+//    operands only K-major, and tap j reads the slab shifted by j*d rows,
+//    d in {1, 3, 5}, which no descriptor start address can express for a
+//    shift that is not a multiple of 8 rows. So the producer stages, once
+//    per chunk of kCK input channels, the slab of rows [t0 - pad, t0 + TM +
+//    pad) with cp.async, whose zero fill for a source size of 0 is the
+//    conv's zero padding (rows outside [0, T) of this item, never the
+//    neighbouring item). Slab rows are padded to kCK + 4 floats, so the
+//    fragment loads (8 rows x 4 columns per warp) hit 32 distinct banks.
+//    TMA is not used for the slab: its tensor map comes from libcuda's
+//    cuTensorMapEncodeTiled, and an unpadded box would make those loads
+//    8-way bank conflicts. Each consumer thread loads its fragment at row
+//    offset j*d, applies leaky ReLU (lrelu(0) = 0 keeps the padding zero)
+//    and splits it into hi/lo.
+//  - B (weights) must be K-major: per tap (C_out, C_in), as hi and lo
+//    planes. The wrapper repacks w (k, C_in, C_out) on every call
+//    (ops/mrf.py:tc_pack), so weights that change every training step are
+//    never stale, into the order in which the kernel streams it: per
+//    (tap, C_out tile, C_in chunk) one contiguous block of two planes, each
+//    in wgmma's no-swizzle core-matrix layout (8 rows x 16 bytes per core
+//    matrix; K-direction stride LBO = TN * 16 bytes, 8-row-group stride
+//    SBO = 128 bytes). The producer fetches each block with one bulk copy
+//    (cp.async.bulk) that completes on an mbarrier. All taps' planes of a
+//    chunk at C=256, k=11 would exceed shared memory, so B streams per
+//    (chunk, tap).
+//  - Per tap, each consumer thread loads and splits all of its A fragments
+//    (kCK / 8 k-steps) before the tap's first wgmma, issues the tap's
+//    3 * kCK / 8 wgmmas as one group, and waits for that group before it
+//    releases the weight stage and writes the next tap's fragments. Letting
+//    the next tap's fragments be written while the group was still in
+//    flight (wgmma.wait_group 1) gave occasional wrong outputs on the card
+//    at TN=64, NWG=2 (four warpgroups per SM): wgmma reads its register
+//    operands asynchronously. The overlap of loads with products comes
+//    from the other warpgroups on the SM and from the producer warp.
+//  - Tiles: the host picks (TN, NWG) per C (ops/mrf.py:tc_tile), the
+//    fastest of the four on the card (chip_smoke.py, mrf_tc_tiles). At
+//    C=256 and 4864 frames that is 128 x 128 in 76 blocks, though 132 SMs
+//    are left part idle: the 152-block shapes do the same A-fragment work
+//    per element for half the products (TN=64), or run one warpgroup per
+//    block, whose fragment preparation leaves the tensor cores idle
+//    (NWG=1), and both measured slower.
+//  - A wait on an mbarrier that does not complete within ~2 s traps, so a
+//    fault in the pipeline ends the launch with an error instead of a hang.
+
+#include <cuda_runtime.h>
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr int kCK = 32;                // input channels per chunk
+constexpr int kSlabStride = kCK + 4;   // floats per slab row
+constexpr int kMaxTaps = 11;
+constexpr int kMaxHalo = 50;           // (kMaxTaps - 1) * largest dilation (5)
+constexpr int kStagesA = 2;
+constexpr int kStagesB = 3;
+constexpr long long kWaitTrapCycles = 1LL << 32;
+
+template <int TN, int NWG>
+struct Layout {
+  static constexpr int TM = 64 * NWG;
+  static constexpr int kThreads = 128 * NWG + 32;
+  static constexpr int kSlabFloats = (TM + kMaxHalo) * kSlabStride;
+  static constexpr int kBFloats = 2 * TN * kCK;   // hi and lo planes
+  static constexpr size_t kBytes =
+      (size_t)(kStagesB * kBFloats + kStagesA * kSlabFloats) * 4 +
+      sizeof(uint64_t) * 2 * (kStagesA + kStagesB);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Waits for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  while (!mbar_try_wait(addr, parity)) {
+    if (clock64() - start > kWaitTrapCycles) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// The barrier gets one arrival once all of this thread's earlier cp.async
+// copies have landed.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// wgmma shared-memory descriptor, no swizzle: start address, leading
+// (K-direction) byte offset, stride (8-row-group) byte offset, all >> 4.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma group boundaries.
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+template <int TN>
+__device__ __forceinline__ void wgmma(float (&d)[TN / 2], const uint32_t (&a)[4],
+                                      uint64_t desc_b) {
+  if constexpr (TN == 128)
+    wgmma_n128(d, a, desc_b);
+  else
+    wgmma_n64(d, a, desc_b);
+}
+
+template <int TN, int NWG>
+__global__ void __launch_bounds__(Layout<TN, NWG>::kThreads)
+mrf_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+              const float* __restrict__ bias, const float* res, float* out,
+              float* acc, float acc_scale, int T, int C, int k, int d,
+              float slope) {
+  using L = Layout<TN, NWG>;
+  constexpr int TM = L::TM;
+  extern __shared__ __align__(128) float smem[];
+  float* b_ring = smem;
+  float* a_ring = smem + kStagesB * L::kBFloats;
+  uint64_t* a_full =
+      reinterpret_cast<uint64_t*>(a_ring + kStagesA * L::kSlabFloats);
+  uint64_t* a_empty = a_full + kStagesA;
+  uint64_t* b_full = a_empty + kStagesA;
+  uint64_t* b_empty = b_full + kStagesB;
+
+  const int t0 = blockIdx.x * TM;
+  const int n0 = blockIdx.y * TN;
+  const int b = blockIdx.z;
+  const int pad = (k - 1) / 2 * d;
+  const int n_chunks = C / kCK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesA; ++s) {
+      mbar_init(&a_full[s], 32);          // one cp.async arrival per lane
+      mbar_init(&a_empty[s], 128 * NWG);  // every consumer thread
+    }
+    for (int s = 0; s < kStagesB; ++s) {
+      mbar_init(&b_full[s], 1);           // expect_tx + the bulk copy
+      mbar_init(&b_empty[s], 128 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {
+    // Producer warp: per chunk the activation slab, then its k weight
+    // stages. Waits on "empty" start at parity 1, which passes at once.
+    const float* xb = x + (size_t)b * T * C;
+    const int rows = TM + 2 * pad;
+    int sa = 0, pa = 0, sb = 0, pb = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      mbar_wait(&a_empty[sa], pa ^ 1);
+      float* slab = a_ring + sa * L::kSlabFloats;
+      for (int e = lane; e < rows * (kCK / 4); e += 32) {
+        const int i = e / (kCK / 4), q = e % (kCK / 4);
+        const int t = t0 - pad + i;
+        const bool in = t >= 0 && t < T;
+        cp_async_16(slab + i * kSlabStride + 4 * q,
+                    in ? xb + (size_t)t * C + c * kCK + 4 * q : xb,
+                    in ? 16 : 0);
+      }
+      cp_async_mbar_arrive(&a_full[sa]);
+      if (++sa == kStagesA) { sa = 0; pa ^= 1; }
+      for (int j = 0; j < k; ++j) {
+        mbar_wait(&b_empty[sb], pb ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&b_full[sb], L::kBFloats * 4);
+          bulk_copy(b_ring + sb * L::kBFloats,
+                    wp + (((size_t)j * gridDim.y + blockIdx.y) * n_chunks +
+                          c) * L::kBFloats,
+                    L::kBFloats * 4, &b_full[sb]);
+        }
+        __syncwarp();
+        if (++sb == kStagesB) { sb = 0; pb ^= 1; }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // Consumer warpgroups. Fragment rows of this thread: r0 and r0 + 8 of
+  // the tile; columns tig and tig + 4 of each k-step of 8 channels.
+  const int wg = warp / 4, gid = lane / 4, tig = lane % 4;
+  const int r0 = 64 * wg + 16 * (warp % 4) + gid;
+  float frag[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) frag[i] = 0.f;
+  fence_operand(frag);
+
+  int sa = 0, pa = 0, sb = 0, pb = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    mbar_wait(&a_full[sa], pa);
+    const float* slab = a_ring + sa * L::kSlabFloats;
+    for (int j = 0; j < k; ++j) {
+      // All of the tap's A fragments are in registers before its first
+      // wgmma, and the tap's group completes before the next tap writes
+      // them: no register that an in-flight wgmma reads is ever written.
+      const float* row_a = slab + (r0 + j * d) * kSlabStride + tig;
+      const float* row_b = row_a + 8 * kSlabStride;
+      uint32_t a_hi[kCK / 8][4], a_lo[kCK / 8][4];
+#pragma unroll
+      for (int s = 0; s < kCK / 8; ++s) {
+        const float v[4] = {row_a[8 * s], row_b[8 * s], row_a[8 * s + 4],
+                            row_b[8 * s + 4]};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float a = v[q] >= 0.f ? v[q] : slope * v[q];
+          a_hi[s][q] = tf32_rna(a);
+          a_lo[s][q] = tf32_rna(a - __uint_as_float(a_hi[s][q]));
+        }
+      }
+      mbar_wait(&b_full[sb], pb);
+      const uint32_t b_hi = smem_u32(b_ring + sb * L::kBFloats);
+      const uint32_t b_lo = b_hi + TN * kCK * 4;
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kCK / 8; ++s) {
+        const uint64_t d_hi = make_desc(b_hi + s * TN * 32, TN * 16, 128);
+        const uint64_t d_lo = make_desc(b_lo + s * TN * 32, TN * 16, 128);
+        wgmma<TN>(frag, a_lo[s], d_hi);
+        wgmma<TN>(frag, a_hi[s], d_lo);
+        wgmma<TN>(frag, a_hi[s], d_hi);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operand(frag);
+      mbar_arrive(&b_empty[sb]);
+      if (++sb == kStagesB) { sb = 0; pb ^= 1; }
+    }
+    // the slab's values are all in registers by now
+    mbar_arrive(&a_empty[sa]);
+    if (++sa == kStagesA) { sa = 0; pa ^= 1; }
+  }
+  // Accumulator fragment: frag[4 jn + 2 h + e] is row r0 + 8 h, column
+  // 8 jn + 2 tig + e of the tile.
+#pragma unroll
+  for (int jn = 0; jn < TN / 8; ++jn) {
+    const int co = n0 + 8 * jn + 2 * tig;
+    const float2 bv = *reinterpret_cast<const float2*>(&bias[co]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + r0 + 8 * h;
+      if (t >= T) continue;
+      const size_t idx = ((size_t)b * T + t) * C + co;
+      float2 y = make_float2(frag[4 * jn + 2 * h] + bv.x,
+                             frag[4 * jn + 2 * h + 1] + bv.y);
+      if (res != nullptr) {
+        const float2 rv = *reinterpret_cast<const float2*>(&res[idx]);
+        y.x += rv.x;
+        y.y += rv.y;
+      }
+      if (out != nullptr) *reinterpret_cast<float2*>(&out[idx]) = y;
+      if (acc != nullptr) {
+        float2 av = *reinterpret_cast<float2*>(&acc[idx]);
+        av.x = fmaf(acc_scale, y.x, av.x);
+        av.y = fmaf(acc_scale, y.y, av.y);
+        *reinterpret_cast<float2*>(&acc[idx]) = av;
+      }
+    }
+  }
+}
+
+template <int TN, int NWG>
+int launch(const float* x, const float* wp, const float* bias,
+           const float* res, float* out, float* acc, float acc_scale, int B,
+           int T, int C, int k, int d, float slope, cudaStream_t stream) {
+  using L = Layout<TN, NWG>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mrf_tc_kernel<TN, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)L::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const dim3 grid((T + L::TM - 1) / L::TM, C / TN, B);
+  mrf_tc_kernel<TN, NWG><<<grid, L::kThreads, L::kBytes, stream>>>(
+      x, wp, bias, res, out, acc, acc_scale, T, C, k, d, slope);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 on success). Shapes: x, res,
+// out, acc (B, T, C) contiguous; wp the k packed taps of one conv
+// (ops/mrf.py:tc_pack with the same tn); bias (C,). Requires tn in {64,
+// 128}, nwg in {1, 2}, C % tn == 0, C % 32 == 0, k odd and <= 11,
+// (k - 1) * d <= 50, and 16-byte aligned x, wp, bias, res, out and acc.
+extern "C" int radtts_mrf_tc_conv(const float* x, const float* wp,
+                                  const float* bias, const float* res,
+                                  float* out, float* acc, float acc_scale,
+                                  int B, int T, int C, int k, int d,
+                                  float slope, int tn, int nwg,
+                                  void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0 || C % kCK != 0 || (tn != 64 && tn != 128) ||
+      C % tn != 0 || (nwg != 1 && nwg != 2) || k <= 0 || k % 2 == 0 ||
+      k > kMaxTaps || d <= 0 || (k - 1) * d > kMaxHalo || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tn == 128 && nwg == 2)
+    return launch<128, 2>(x, wp, bias, res, out, acc, acc_scale, B, T, C, k,
+                          d, slope, s);
+  if (tn == 128)
+    return launch<128, 1>(x, wp, bias, res, out, acc, acc_scale, B, T, C, k,
+                          d, slope, s);
+  if (nwg == 2)
+    return launch<64, 2>(x, wp, bias, res, out, acc, acc_scale, B, T, C, k,
+                         d, slope, s);
+  return launch<64, 1>(x, wp, bias, res, out, acc, acc_scale, B, T, C, k, d,
+                       slope, s);
+}
+
+// Dynamic shared memory of one block, in bytes (for the build report).
+extern "C" int radtts_mrf_tc_smem_bytes(int tn, int nwg) {
+  if (tn == 128) return nwg == 2 ? (int)Layout<128, 2>::kBytes
+                                 : (int)Layout<128, 1>::kBytes;
+  return nwg == 2 ? (int)Layout<64, 2>::kBytes : (int)Layout<64, 1>::kBytes;
+}

@@ -6,7 +6,7 @@ The generator takes and returns channels-last tensors: mel (B, T, 80) ->
 waveform (B, T * prod(upsample_rates)). conv_pre, the ConvTranspose1d ups
 and conv_post run as F.conv1d / F.conv_transpose1d; each stage's MRF
 resblock stack runs through ops/mrf.py:mrf, the port of the TPU's Pallas
-MRF kernels (a hand-written CUDA kernel on the card).
+MRF kernels (hand-written CUDA kernels on the card).
 """
 
 import numpy as np

@@ -7,8 +7,11 @@ lrelu slope 0.1, every conv zero-padded at 0 and T.
 
 Port of the TPU kernels in radtts_tpu/ops/pallas_mrf.py (pallas_mrf,
 pallas_mrf_wide, pallas_mrf_folded: one function at four widths). On the
-card `mrf` chains 18 launches of the hand-written kernel in csrc/mrf.cu
-(see its header for the design and what bounds it); `mrf_plain` is the same
+card `mrf` chains 18 launches of one of two hand-written kernels (see
+their headers for the design and what bounds them): csrc/mrf_tc.cu, a
+3xTF32 implicit GEMM on the tensor cores, for the stages that
+`use_tensor_cores` picks (C=256 and C=128), and csrc/mrf.cu, fp32 FMA on
+the CUDA cores, for the others (C=64 and C=32). `mrf_plain` is the same
 function in plain PyTorch, which the CPU path, the tests and every pass
 that needs gradients use.
 
@@ -27,7 +30,10 @@ from radtts_tpu_torch.ops.cuda_build import build_library
 DILATIONS = (1, 3, 5)
 LRELU_SLOPE = 0.1
 
+TC_CK = 32            # input channels per chunk of csrc/mrf_tc.cu (kCK)
+
 _lib = None
+_tc_lib = None
 
 
 def _conv_plain(x, w_taps, b, d):
@@ -67,6 +73,72 @@ def build():
     return lib, log, seconds
 
 
+def build_tc():
+    """Compile csrc/mrf_tc.cu and load it. Returns (library, nvcc output,
+    build seconds)."""
+    global _tc_lib
+    lib, log, seconds = build_library("mrf_tc")
+    fn = lib.radtts_mrf_tc_conv
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
+                   + [ctypes.c_int] * 5 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.radtts_mrf_tc_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.radtts_mrf_tc_smem_bytes.restype = ctypes.c_int
+    _tc_lib = lib
+    return lib, log, seconds
+
+
+def use_tensor_cores(C):
+    """The routing rule: which stage widths run csrc/mrf_tc.cu on the card
+    (C=256 and C=128); the others run csrc/mrf.cu."""
+    return C >= 128 and C % 64 == 0
+
+
+def tc_tile(C):
+    """(TN, NWG) of csrc/mrf_tc.cu for width C: TN output channels and NWG
+    consumer warpgroups (64 NWG time rows) per block. The fastest of the
+    four on the H100 (chip_smoke.py's mrf_tc_tiles phase): 128 x 128 tiles
+    at C=256 (each weight stage feeds 128 rows; 76 blocks at 4864 frames
+    beat 152 smaller ones), 128 x 64 at C=128."""
+    return (128, 2) if C >= 256 and C % 128 == 0 else (64, 2)
+
+
+def tc_grid(B, T, C, tile=None):
+    """The launch grid of csrc/mrf_tc.cu: (time tiles, C_out tiles, B)."""
+    tn, nwg = tile or tc_tile(C)
+    return (-(-T // (64 * nwg)), C // tn, B)
+
+
+def tf32_round(x):
+    """Round float32 to TF32 as cvt.rna.tf32.f32 does (to nearest, ties
+    away from zero; the 13 low mantissa bits zero), for finite x."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tc_split(w):
+    """w (..., C_in, C_out) -> its K-major planes (hi, lo), each (...,
+    C_out, C_in) (views): hi = tf32(w), lo = tf32(w - hi), so hi + lo is
+    w within 2^-22 relative."""
+    hi = tf32_round(w)
+    return hi.transpose(-1, -2), tf32_round(w - hi).transpose(-1, -2)
+
+
+def tc_pack(w, tn):
+    """Taps w (..., C_in, C_out) -> the order in which csrc/mrf_tc.cu
+    streams them: (..., C/tn, C/TC_CK, 2, TC_CK/4, tn/8, 8, 4). Per (tap,
+    C_out tile, C_in chunk) one contiguous block of the hi and lo planes,
+    each in wgmma's core-matrix layout: element (co, ci) of the tile at
+    ((ci // 4) * tn / 8 + co // 8) * 32 + (co % 8) * 4 + ci % 4."""
+    p = torch.stack(tc_split(w), -3)             # (..., 2, C_out, C_in)
+    *lead, _, C, _ = p.shape
+    n = len(lead)
+    p = p.reshape(*lead, 2, C // tn, tn // 8, 8, C // TC_CK, TC_CK // 4, 4)
+    order = [n + 1, n + 4, n, n + 5, n + 2, n + 3, n + 6]
+    return p.permute(*range(n), *order).contiguous()
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -83,6 +155,12 @@ def _check(name, t, shape, device):
                          "aligned")
 
 
+def _raise(err, x, k, d):
+    B, T, C = x.shape
+    raise RuntimeError(f"mrf: kernel launch failed with cudaError {err} "
+                       f"(B={B}, T={T}, C={C}, k={k}, d={d})")
+
+
 def _conv_launch(x, w, b, d, res, out, acc, acc_scale):
     B, T, C = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -90,16 +168,27 @@ def _conv_launch(x, w, b, d, res, out, acc, acc_scale):
         _ptr(x), _ptr(w), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
         acc_scale, B, T, C, w.shape[0], d, LRELU_SLOPE, stream)
     if err != 0:
-        raise RuntimeError(f"mrf: kernel launch failed with cudaError {err} "
-                           f"(B={B}, T={T}, C={C}, k={w.shape[0]}, d={d})")
+        _raise(err, x, w.shape[0], d)
     mrf.launches += 1
+
+
+def _tc_conv_launch(x, wp, k, b, d, res, out, acc, acc_scale, tile):
+    B, T, C = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _tc_lib.radtts_mrf_tc_conv(
+        _ptr(x), _ptr(wp), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
+        acc_scale, B, T, C, k, d, LRELU_SLOPE, *tile, stream)
+    if err != 0:
+        _raise(err, x, k, d)
+    mrf.tc_launches += 1
 
 
 def mrf(x, weights):
     """MRF mean of one stage. x: (B, T, C) float32 -> (B, T, C).
 
-    A CPU tensor runs mrf_plain. A CUDA tensor runs the hand-written kernel
-    (18 launches for three resblocks), or raises. The kernel has no
+    A CPU tensor runs mrf_plain. A CUDA tensor runs a hand-written kernel
+    (18 launches for three resblocks), or raises: csrc/mrf_tc.cu where
+    use_tensor_cores(C), else csrc/mrf.cu. The kernels have no
     backward: with grad enabled and x or a weight requiring grad it raises,
     since its output would carry no gradient; differentiate mrf_plain."""
     if x.device.type == "cpu":
@@ -112,8 +201,12 @@ def mrf(x, weights):
             "mrf: the CUDA kernel has no backward, and its output would "
             "carry no gradient; run it under torch.no_grad() or use "
             "mrf_plain (Generator mrf_impl='plain')")
-    if _lib is None:
-        build()
+    return mrf_cuda(x, weights)
+
+
+def mrf_cuda(x, weights, tile=None):
+    """The card's chain of mrf; `tile` overrides tc_tile(C) for the
+    tensor-core kernel."""
     B, T, C = x.shape
     _check("x", x, (B, T, C), x.device)
     if C % 4:
@@ -129,20 +222,48 @@ def mrf(x, weights):
         for key in ("b1", "b2"):
             _check(f"{key}[{m}]", wd[key], (n, C), x.device)
 
+    if use_tensor_cores(C):
+        if _tc_lib is None:
+            build_tc()
+        tile = tile or tc_tile(C)
+        # every tap of the stage packed at once, on every call: the weights
+        # change every training step
+        with torch.no_grad():
+            packed = tc_pack(torch.cat([wd[key].reshape(-1, C, C)
+                                        for wd in weights
+                                        for key in ("w1", "w2")]), tile[0])
+        first, n = {}, 0
+        for m, wd in enumerate(weights):
+            for key in ("w1", "w2"):
+                first[m, key] = n
+                n += wd[key].shape[0] * wd[key].shape[1]
+
+        def conv(m, key, i, src, b, d, res, dst, acc, scale):
+            k = weights[m][key].shape[1]
+            j = first[m, key] + i * k
+            _tc_conv_launch(src, packed[j:j + k], k, b, d, res, dst, acc,
+                            scale, tile)
+    else:
+        if _lib is None:
+            build()
+
+        def conv(m, key, i, src, b, d, res, dst, acc, scale):
+            _conv_launch(src, weights[m][key][i], b, d, res, dst, acc, scale)
+
     out = torch.zeros_like(x)
     xr = torch.empty_like(x)
     xt = torch.empty_like(x)
     scale = 1.0 / len(weights)
-    for wd in weights:
+    for m, wd in enumerate(weights):
         src = x
         for i, d in enumerate(DILATIONS):
             last = i == len(DILATIONS) - 1
-            _conv_launch(src, wd["w1"][i], wd["b1"][i], d, None, xt, None,
-                         0.0)
-            _conv_launch(xt, wd["w2"][i], wd["b2"][i], 1, src,
-                         None if last else xr, out if last else None, scale)
+            conv(m, "w1", i, src, wd["b1"][i], d, None, xt, None, 0.0)
+            conv(m, "w2", i, xt, wd["b2"][i], 1, src,
+                 None if last else xr, out if last else None, scale)
             src = xr
     return out
 
 
-mrf.launches = 0
+mrf.launches = 0        # csrc/mrf.cu launches
+mrf.tc_launches = 0     # csrc/mrf_tc.cu launches

@@ -1,0 +1,168 @@
+"""The tensor-core MRF kernel's host side and arithmetic on the CPU.
+
+csrc/mrf_tc.cu runs only on the card. What can be held here: the routing
+rule that sends a stage to it, the weight packer it reads, and its
+arithmetic (3xTF32: operands rounded as cvt.rna.tf32.f32 rounds them, split
+hi/lo, the products hi*hi + hi*lo + lo*hi summed in fp32), emulated with
+numpy-rounded operands and F.conv1d. Limits: the emulated chain within
+1e-4 * max|plain| of mrf_plain (the kernel's limit on the card), and within
+rtol/atol 1e-5 of the JAX pallas_mrf in interpret mode, as
+tests/test_torch_ops.py holds mrf_plain.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax.numpy as jnp
+
+from radtts_tpu.ops.pallas_mrf import pallas_mrf
+
+from radtts_tpu_torch.ops import mrf as mrf_mod
+from radtts_tpu_torch.ops.mrf import (DILATIONS, LRELU_SLOPE, TC_CK, mrf,
+                                      mrf_plain, tc_grid, tc_pack, tc_split,
+                                      tc_tile, tf32_round, use_tensor_cores)
+
+
+def _weights(C, seed, std=0.03):
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy((std * rng.standard_normal(shape))
+                                .astype(np.float32))
+    return [{"w1": rnd(3, k, C, C), "b1": rnd(3, C), "w2": rnd(3, k, C, C),
+             "b2": rnd(3, C)} for k in (3, 7, 11)]
+
+
+def _x(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32))
+
+
+def _rna(t):
+    """cvt.rna.tf32.f32 in numpy: round the 13 low mantissa bits to
+    nearest, ties away from zero (sign-magnitude: add half, truncate)."""
+    b = t.numpy().view(np.uint32)
+    return torch.from_numpy(((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000))
+                            .view(np.float32))
+
+
+def _conv_emulated(x, w_taps, b, d, passes=3):
+    """One conv of the chain as the kernel computes it. x (B, C, T) before
+    leaky ReLU; w_taps (k, C_in, C_out)."""
+    k = w_taps.shape[0]
+    a = F.leaky_relu(x, LRELU_SLOPE)
+    a_hi, w_hi = _rna(a), _rna(w_taps)
+    a_lo, w_lo = _rna(a - a_hi), _rna(w_taps - w_hi)
+
+    def conv(aa, ww):
+        return F.conv1d(aa, ww.permute(2, 1, 0), None,
+                        padding=(k - 1) // 2 * d, dilation=d)
+    y = conv(a_hi, w_hi)
+    if passes == 3:
+        y = conv(a_lo, w_hi) + conv(a_hi, w_lo) + y
+    return y + b[:, None]
+
+
+def _mrf_emulated(x, weights, passes=3):
+    """mrf_plain's chain with every conv as _conv_emulated."""
+    xc = x.transpose(1, 2)
+    out = torch.zeros_like(xc)
+    for wd in weights:
+        xr = xc
+        for i, d in enumerate(DILATIONS):
+            xt = _conv_emulated(xr, wd["w1"][i], wd["b1"][i], d, passes)
+            xr = xr + _conv_emulated(xt, wd["w2"][i], wd["b2"][i], 1, passes)
+        out = out + xr
+    return (out / len(weights)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("C,tc", [(256, True), (128, True), (64, False),
+                                  (32, False)])
+def test_routing_rule(C, tc):
+    assert use_tensor_cores(C) is tc
+
+
+def test_cpu_tensor_takes_plain_path_at_tensor_core_width():
+    w = _weights(128, seed=1)
+    x = _x((1, 40, 128), 2)
+    before = (mrf.launches, mrf.tc_launches)
+    torch.testing.assert_close(mrf(x, w), mrf_plain(x, w), rtol=0, atol=0)
+    assert (mrf.launches, mrf.tc_launches) == before
+    assert mrf_mod._tc_lib is None    # nothing was built
+
+
+def test_tile_and_grid_at_serving_and_training_shapes():
+    assert tc_tile(256) == (128, 2) and tc_tile(128) == (64, 2)
+    # tiles never straddle batch items: the batch is the grid's z
+    assert tc_grid(1, 4864, 256) == (38, 2, 1)
+    assert tc_grid(1, 38912, 128) == (304, 2, 1)
+    assert tc_grid(16, 256, 256) == (2, 2, 16)
+    assert tc_grid(2, 997, 128) == (8, 2, 2)
+    assert tc_grid(1, 4864, 256, tile=(64, 1)) == (76, 4, 1)
+
+
+def test_tf32_round_matches_cvt_rna():
+    one = 1.0 + 2.0 ** -11         # halfway between two TF32 values
+    x = torch.tensor([one, -one, 1.0 + 2.0 ** -12, 3.0, 0.0,
+                      1.0 + 3 * 2.0 ** -11], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0,
+                         0.0, 1.0 + 2.0 ** -9])
+    torch.testing.assert_close(tf32_round(x), want, rtol=0, atol=0)
+    r = _x((1000,), 3) * 100
+    torch.testing.assert_close(tf32_round(r), _rna(r), rtol=0, atol=0)
+
+
+def test_split_planes():
+    w = _x((2, 3, 64, 96), 4) * 0.05
+    hi, lo = tc_split(w)
+    assert hi.shape == lo.shape == (2, 3, 96, 64)   # (.., C_out, C_in)
+    assert (hi.contiguous().view(torch.int32) & 0x1FFF).eq(0).all()
+    assert (lo.contiguous().view(torch.int32) & 0x1FFF).eq(0).all()
+    wt = w.transpose(-1, -2)
+    torch.testing.assert_close(hi, _rna(wt.contiguous()), rtol=0, atol=0)
+    err = ((hi.double() + lo.double()) - wt.double()).abs()
+    assert (err <= 2.0 ** -22 * wt.double().abs()).all()
+
+
+@pytest.mark.parametrize("tn", [64, 128])
+def test_pack_layout(tn):
+    C, n_taps = 256, 5
+    w = _x((n_taps, C, C), 5)
+    p = tc_pack(w, tn)
+    assert p.shape == (n_taps, C // tn, C // TC_CK, 2, TC_CK // 4, tn // 8,
+                       8, 4)
+    hi, lo = tc_split(w)
+    rng = np.random.default_rng(tn)
+    for j, co, ci in zip(rng.integers(0, n_taps, 50),
+                         rng.integers(0, C, 50), rng.integers(0, C, 50)):
+        block = p[j, co // tn, ci // TC_CK].reshape(2, -1)
+        n, kk = co % tn, ci % TC_CK
+        idx = ((kk // 4) * (tn // 8) + n // 8) * 32 + (n % 8) * 4 + kk % 4
+        assert block[0, idx] == hi[j, co, ci]
+        assert block[1, idx] == lo[j, co, ci]
+
+
+@pytest.mark.parametrize("B,T,C", [(1, 160, 256), (2, 97, 128)])
+def test_3xtf32_emulation_matches_plain(B, T, C):
+    w = _weights(C, seed=T, std=0.01)
+    x = _x((B, T, C), C)
+    ref = mrf_plain(x, w)
+    got = _mrf_emulated(x, w)
+    limit = 1e-4 * ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    assert err <= limit
+    # one TF32 pass would not do: the 3 passes are what keeps fp32 accuracy
+    one_pass = (_mrf_emulated(x, w, passes=1) - ref).abs().max().item()
+    assert one_pass > 30 * err
+
+
+def test_3xtf32_emulation_matches_pallas():
+    B, T, C = 2, 97, 128
+    w = _weights(C, seed=7)
+    x = _x((B, T, C), 8)
+    jw = [{k: jnp.asarray(v.numpy()) for k, v in wd.items()} for wd in w]
+    ref = pallas_mrf(jnp.asarray(x.numpy()), jw, tile=128, interpret=True)
+    np.testing.assert_allclose(_mrf_emulated(x, w).numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
