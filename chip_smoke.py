@@ -11,13 +11,17 @@ Phases, each printing a JSON or text line:
      register/spill lines;
   3. MRF kernels vs plain: ops/mrf.py:mrf against mrf_plain on the card,
      within 1e-4 * max|plain| (fp32 sums in another order, TF32 off; the
-     tensor-core kernel in 3xTF32): csrc/mrf_tc.cu at C=256 and C=128 (the
-     serving stages, the training discriminator pass's (16, 256, 256) and
-     (16, 2048, 128), ragged (2, 997, C)), csrc/mrf.cu at C=64 and C=32
-     (serving stages, ragged (2, 997, 32)). With the kernel's, the plain
-     version's and the cuDNN conv chain's times, the launch grid, and the
-     bound at the 3xTF32 rate beside the fp32-FMA one. Then the
-     tensor-core kernel's four tile shapes at the two serving stages;
+     tensor-core kernel in 3xTF32): csrc/mrf_tc.cu at all four HiFi-GAN v1
+     widths (the serving stages C=256, 128, 64, 32; the training
+     discriminator pass's (16, 256, 256), (16, 2048, 128), (16, 4096, 64),
+     (16, 8192, 32); ragged (2, 997, C)), csrc/mrf.cu at the widths it
+     still serves (C=16 and C=8 at the same frame counts, ragged (2, 997,
+     16)). With the kernel's, the plain version's and the cuDNN conv
+     chain's times, the launch grid, the bound at the 3xTF32 rate beside
+     the fp32-FMA one, and the chain's activation-bytes floor; at C=64 and
+     C=32 also csrc/mrf.cu's time on the same inputs (the kernel these
+     stages ran before). Then the tensor-core kernel's tile shapes at the
+     four serving stages;
   4. mel kernel vs plain: ops/mel.py:mel against mel_plain at (16, 8192),
      (1, 155648) and (3, 9001): log-mel within 1e-3 (fp32 sums over 1024
      terms in another order, amplified by the log near the 1e-5 clamp),
@@ -30,16 +34,16 @@ Phases, each printing a JSON or text line:
      to sd 0.002) answers three requests (one text, a batch of three, one
      with denoising_strength=0.1), then a fixed-duration 608-frame
      decode + vocoder + denoiser runs with stage times and the RTF.
-     mrf.launches (csrc/mrf.cu) and mrf.tc_launches (csrc/mrf_tc.cu) must
-     each grow by 36 per generator call. Outputs must be
+     mrf.tc_launches (csrc/mrf_tc.cu) must grow by 72 per generator call
+     and mrf.launches (csrc/mrf.cu) by 0. Outputs must be
      finite and of the expected lengths; the decode and the vocoder of
      the 608-frame utterance are also held against the CPU plain path;
-  6. training path: python -m radtts_tpu_torch.train_vocoder's main runs 3
+  6. training path: python -m radtts_tpu_torch.train_vocoder's main runs 5
      steps of HiFi-GAN v1 with the full discriminators at batch 16,
      segment 8192, on 4 seeded 2 s wavs, and checkpoints at the last step.
      Per-step ms and the five losses are printed; the losses must be
-     finite, mel.launches must grow by 2, mrf.launches and
-     mrf.tc_launches by 36 each per step,
+     finite, mel.launches must grow by 2, mrf.tc_launches by 72 and
+     mrf.launches by 0 per step,
      and the checkpoints must reload. One more step runs under the
      profiler, and one step at batch 2 on the card is held against the
      same step on the CPU plain path from the same state (losses and
@@ -77,11 +81,14 @@ HIFIGAN_V1 = {
 }
 MAX_FRAMES = 608            # 608 * 256 / 22050 Hz = 7.06 s of audio
 STAGES = [(1, 4864, 256), (1, 38912, 128), (1, 77824, 64), (1, 155648, 32)]
-TRAIN_STAGES = [(16, 256, 256), (16, 2048, 128)]   # discriminator pass
-RAGGED = [(2, 997, 256), (2, 997, 128), (2, 997, 32)]
-TC_TILES = [(64, 1), (64, 2), (128, 1), (128, 2)]
+TRAIN_STAGES = [(16, 256, 256), (16, 2048, 128),    # discriminator pass
+                (16, 4096, 64), (16, 8192, 32)]
+RAGGED = [(2, 997, 256), (2, 997, 128), (2, 997, 64), (2, 997, 32)]
+# csrc/mrf.cu's widths (HiFi-GAN v2's and smaller vocoders' last stages)
+CONV_STAGES = [(1, 77824, 16), (1, 155648, 8)]
+CONV_RAGGED = [(2, 997, 16)]
 MEL_SHAPES = [(16, 8192), (1, 155648), (3, 9001)]   # training, flagship
-TRAIN_STEPS, TRAIN_BATCH, SEGMENT = 3, 16, 8192      # train_vocoder.py CLI
+TRAIN_STEPS, TRAIN_BATCH, SEGMENT = 5, 16, 8192      # train_vocoder.py CLI
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
 HBM_BYTES = 3.35e12         # H100 SXM HBM3
@@ -152,25 +159,44 @@ def library_mrf(xc, torch_weights):
     return out / len(torch_weights)
 
 
+def tc_tiles(C):
+    """The tensor-core kernel's tile shapes (TN, NWG) at width C: TN = C
+    at C=64 and C=32 (one or two warpgroups), four at the wider stages."""
+    if C <= 64:
+        return [(C, 1), (C, 2)]
+    return [(64, 1), (64, 2), (128, 1), (128, 2)]
+
+
+CHAIN_PASSES = 49   # (B, T, C) passes of the 18-launch chain, see below
+
+
 def mrf_bound(B, T, C, ks=(3, 7, 11)):
     """The least time of one MRF stage: its FLOP, fp32-accurate, at the
     3xTF32 rate (3 tensor-core passes, 495/3 TFLOP/s), against x and the
-    weights read once and the output written once. Also returns the FLOP
-    and the operations' time at the 67 TFLOP/s fp32-FMA rate."""
+    weights read once and the output written once. Also returns the FLOP,
+    the operations' time at the 67 TFLOP/s fp32-FMA rate, and the chain's
+    activation-bytes floor: the 18 launches as ops/mrf.py:mrf chains them
+    move CHAIN_PASSES whole (B, T, C) tensors through memory (per resblock
+    16: 2 per first conv, 3 per second conv, 4 for the last, which
+    accumulates the mean; and the mean's zero fill), none of them kept in
+    L2, over the HBM rate."""
     flop = 2.0 * B * T * C * C * sum(6 * k for k in ks)
     n_weights = sum(6 * (k * C * C + C) for k in ks)
     nbytes = 4.0 * (2 * B * T * C + n_weights)
     t_ops, t_bytes = 3 * flop / TF32_FLOPS, nbytes / HBM_BYTES
+    chain_bytes = 4.0 * (CHAIN_PASSES * B * T * C + n_weights)
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flop,
-            max(flop / FP32_FLOPS, t_bytes) * 1e3)
+            max(flop / FP32_FLOPS, t_bytes) * 1e3,
+            chain_bytes / HBM_BYTES * 1e3)
 
 
 def phase_kernels(mrf_mod, dev):
     gen = torch.Generator(dev).manual_seed(1)
     stages, max_err = [], {"mrf_tc": 0.0, "mrf_conv": 0.0}
     inputs = {}
-    for B, T, C in STAGES + TRAIN_STAGES + RAGGED:
+    timed_shapes = STAGES + TRAIN_STAGES + CONV_STAGES
+    for B, T, C in STAGES + TRAIN_STAGES + RAGGED + CONV_STAGES + CONV_RAGGED:
         x = torch.randn(B, T, C, device=dev, generator=gen)
         w = random_mrf_weights(C, dev, gen)
         kernel = "mrf_tc" if mrf_mod.use_tensor_cores(C) else "mrf_conv"
@@ -189,21 +215,31 @@ def phase_kernels(mrf_mod, dev):
         if kernel == "mrf_tc":
             row["grid"] = list(mrf_mod.tc_grid(B, T, C))
             row["tile"] = list(mrf_mod.tc_tile(C))
-        if (B, T, C) not in RAGGED:
+        if (B, T, C) in timed_shapes:
             xc = x.transpose(1, 2).contiguous()
             tw = [tuple(t.permute(0, 3, 2, 1).contiguous()
                         if t.dim() == 4 else t
                         for t in (wd["w1"], wd["b1"], wd["w2"], wd["b2"]))
                   for wd in w]
-            bound_ms, bound_by, flop, fp32_bound_ms = mrf_bound(B, T, C)
+            bound_ms, bound_by, flop, fp32_bound_ms, chain_ms = mrf_bound(
+                B, T, C)
             row.update(
                 ms=cuda_ms(lambda: mrf_mod.mrf(x, w)),
                 plain_ms=cuda_ms(lambda: mrf_mod.mrf_plain(x, w)),
                 library_ms=cuda_ms(lambda: library_mrf(xc, tw)),
                 bound_ms=bound_ms, bound_by=bound_by,
-                fp32_fma_bound_ms=fp32_bound_ms, gflop=flop / 1e9)
+                fp32_fma_bound_ms=fp32_bound_ms,
+                chain_bytes_floor_ms=chain_ms, gflop=flop / 1e9)
+            if kernel == "mrf_tc" and C <= 64:
+                # the kernel these stages ran before, on the same inputs
+                conv = mrf_mod.mrf_cuda(x, w, route="conv")
+                row["conv_route_max_abs_err"] = (conv - ref).abs().max().item()
+                if not row["conv_route_max_abs_err"] <= 1e-4 * scale:
+                    raise AssertionError(f"mrf_conv disagrees at {(B, T, C)}")
+                row["conv_route_ms"] = cuda_ms(
+                    lambda: mrf_mod.mrf_cuda(x, w, route="conv"))
             row["tflops"] = flop / row["ms"] / 1e9
-            row["serving"] = (B, T, C) in STAGES
+            row["serving"] = (B, T, C) in STAGES + CONV_STAGES
             stages.append(row)
             inputs[(B, T, C)] = (x, w)
         log(row)
@@ -211,15 +247,15 @@ def phase_kernels(mrf_mod, dev):
 
 
 def phase_tc_tiles(mrf_mod, inputs):
-    """The tensor-core kernel's four tile shapes (TN, NWG) at the serving
-    stages it runs, each held to the same limit as the chosen one."""
+    """The tensor-core kernel's tile shapes (TN, NWG) at the serving stages
+    it runs, each held to the same limit as the chosen one."""
     for B, T, C in STAGES:
         if not mrf_mod.use_tensor_cores(C):
             continue
         x, w = inputs[(B, T, C)]
         ref = mrf_mod.mrf_plain(x, w)
         scale = ref.abs().max().item()
-        for tile in TC_TILES:
+        for tile in tc_tiles(C):
             err = (mrf_mod.mrf_cuda(x, w, tile) - ref).abs().max().item()
             if not err <= 1e-4 * scale:
                 raise AssertionError(f"mrf_tc tile {tile} disagrees at "
@@ -310,11 +346,11 @@ def phase_guard(mrf_mod, dev):
     w = random_mrf_weights(32, dev, gen)
     w[0]["w1"].requires_grad_(True)
     x = torch.randn(1, 256, 32, device=dev, generator=gen)
-    before = mrf_mod.mrf.launches
+    before = (mrf_mod.mrf.launches, mrf_mod.mrf.tc_launches)
     try:
         mrf_mod.mrf(x, w)
     except RuntimeError as e:
-        if mrf_mod.mrf.launches != before:
+        if (mrf_mod.mrf.launches, mrf_mod.mrf.tc_launches) != before:
             raise AssertionError("mrf launched before refusing") from e
         log({"phase": "mrf_grad_guard", "raised": str(e)})
         return
@@ -433,9 +469,8 @@ def phase_main_path(synth, mrf_mod, dev, power):
     if audio.shape != (1, MAX_FRAMES * hop) or not torch.isfinite(
             audio).all():
         raise AssertionError(f"bad flagship audio {tuple(audio.shape)}")
-    if launches != {"mrf_conv": 36 * n_generator_calls,
-                    "mrf_tc": 36 * n_generator_calls}:
-        raise AssertionError(f"MRF launches {launches} != 36 + 36 x "
+    if launches != {"mrf_conv": 0, "mrf_tc": 72 * n_generator_calls}:
+        raise AssertionError(f"MRF launches {launches} != 0 + 72 x "
                              f"{n_generator_calls} generator calls")
     med = {k: statistics.median(v) for k, v in times.items()}
     audio_s = MAX_FRAMES * hop / synth.sampling_rate
@@ -490,6 +525,7 @@ def profile_run(fn, top=12):
             "port_kernels": [{"name": n[:60], "count": c, "ms": ms}
                              for n, c, ms in kernels
                              if "mrf_conv_kernel" in n or "mrf_tc_kernel" in n
+                             or "mrf_tc_narrow_kernel" in n
                              or "mel_kernel" in n],
             "device_idle_share": (None if busy_ms is None
                                   else 1.0 - busy_ms / wall_ms),
@@ -557,8 +593,8 @@ def phase_training(mel_mod, mrf_mod, dev, data_config):
             if not all(np.isfinite(v) for v in h.values()):
                 raise AssertionError(f"non-finite training step {h}")
         if len(history) != TRAIN_STEPS or launches != {
-                "mel": 2 * TRAIN_STEPS, "mrf_conv": 36 * TRAIN_STEPS,
-                "mrf_tc": 36 * TRAIN_STEPS}:
+                "mel": 2 * TRAIN_STEPS, "mrf_conv": 0,
+                "mrf_tc": 72 * TRAIN_STEPS}:
             raise AssertionError(f"{len(history)} steps, launches {launches}")
         tag = f"{TRAIN_STEPS:08d}"
         generator_from_reference(torch.load(os.path.join(
@@ -716,9 +752,13 @@ def main():
                  "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
                            if "registers" in ln or "spill" in ln
                            or "arning" in ln]})
+    tc_lib = mrf_mod._tc_lib
     log({"phase": "mrf_tc_smem", "bytes_per_block": {
-        f"{tn}x{nwg}": mrf_mod._tc_lib.radtts_mrf_tc_smem_bytes(tn, nwg)
-        for tn, nwg in TC_TILES}})
+        f"C{C}:{tn}x{nwg}": tc_lib.radtts_mrf_tc_smem_bytes(C, tn, nwg)
+        for C in (256, 64, 32) for tn, nwg in tc_tiles(C)},
+        "narrow_weight_stages": {
+            f"C{C}:{C}x{nwg}": tc_lib.radtts_mrf_tc_weight_stages(C, nwg)
+            for C in (64, 32) for nwg in (1, 2)}})
 
     stages, max_err, inputs = phase_kernels(mrf_mod, dev)
     phase_tc_tiles(mrf_mod, inputs)
@@ -775,24 +815,32 @@ def main():
             "bound_by": ("operations" if all(
                 s["bound_by"] == "operations" for s in serving) else "bytes"),
             "fp32_fma_bound_ms": total("fp32_fma_bound_ms"),
+            "chain_bytes_floor_ms": total("chain_bytes_floor_ms"),
             "library_ms": total("library_ms"),
-            "note": "sums over the kernel's MRF stages of one 608-frame "
-                    "utterance; bound_ms at the 3xTF32 rate (495/3 "
-                    "TFLOP/s), fp32_fma_bound_ms at 67 TFLOP/s",
             "stages": [{k: s[k] for k in (
                 "shape", "grid", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "fp32_fma_bound_ms", "max_abs_err") if k in s}
+                "bound_by", "fp32_fma_bound_ms", "chain_bytes_floor_ms",
+                "conv_route_ms", "max_abs_err") if k in s}
                 for s in stages if s["kernel"] == kernel],
         }
 
     train_row = mel_rows[0]   # (16, 8192): the training step's shape
     log({"kernels": [
-        mrf_entry("mrf_tc", "radtts_tpu_torch/csrc/mrf_tc.cu",
-                  "radtts_tpu/ops/pallas_mrf.py:177",
-                  ["radtts_tpu/ops/pallas_mrf.py:121 (at C=128)"]),
-        mrf_entry("mrf_conv", "radtts_tpu_torch/csrc/mrf.cu",
-                  "radtts_tpu/ops/pallas_mrf.py:121",
-                  ["radtts_tpu/ops/pallas_mrf.py:231"]), {
+        dict(mrf_entry("mrf_tc", "radtts_tpu_torch/csrc/mrf_tc.cu",
+                       "radtts_tpu/ops/pallas_mrf.py:177",
+                       ["radtts_tpu/ops/pallas_mrf.py:121 (at C=128, 64)",
+                        "radtts_tpu/ops/pallas_mrf.py:231 (C=32)"]),
+             note="sums over the four MRF stages of one 608-frame "
+                  "utterance; bound_ms at the 3xTF32 rate (495/3 TFLOP/s), "
+                  "fp32_fma_bound_ms at 67 TFLOP/s"),
+        dict(mrf_entry("mrf_conv", "radtts_tpu_torch/csrc/mrf.cu",
+                       "radtts_tpu/ops/pallas_mrf.py:121",
+                       ["radtts_tpu/ops/pallas_mrf.py:231"]),
+             note="no HiFi-GAN v1 stage runs it (0 launches on both "
+                  "paths); times summed over C=16 at 77824 frames and C=8 "
+                  "at 155648 frames, the last stages of a vocoder with "
+                  "upsample_initial_channel 128; bounds at the 3xTF32 and "
+                  "fp32-FMA rates"), {
         "name": "mel",
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mel.cu",

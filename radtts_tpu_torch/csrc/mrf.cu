@@ -2,10 +2,13 @@
 // resblock chain, channels-last, fp32, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of radtts_tpu/ops/pallas_mrf.py: pallas_mrf
-// (C=128/64), pallas_mrf_wide (C=256, there with bf16 weight storage to fit
-// VMEM; here fp32) and pallas_mrf_folded (C=32, there with 4 frames folded
-// into 128 lanes to fill the MXU; here unfolded). The host wrapper
-// (radtts_tpu_torch/ops/mrf.py:mrf) chains 18 launches per stage:
+// and pallas_mrf_folded (there with 4 frames folded into 128 lanes to fill
+// the MXU; here unfolded) at the widths csrc/mrf_tc.cu does not take: C not
+// 32, 64 or a multiple of 64 from 128, such as the C=16 and C=8 stages of
+// smaller vocoders (the routing rule is ops/mrf.py:use_tensor_cores; every
+// HiFi-GAN v1 stage runs csrc/mrf_tc.cu). It takes any C % 4 == 0. The
+// host wrapper (radtts_tpu_torch/ops/mrf.py:mrf) chains 18 launches per
+// stage:
 //
 //   for k in (3, 7, 11), d in (1, 3, 5):
 //       xt = conv_{k,d}(lrelu(xr)) + b1              (out = xt)
@@ -20,8 +23,8 @@
 // acc += acc_scale * y (if given). res may alias out (each element is read
 // and written by the same thread); x never aliases out.
 //
-// Bound: 2*T*C^2*126 FLOP per stage (361 GFLOP per 608-frame utterance)
-// against <= 20 MB of activations per stage, so it is compute-bound. This
+// Bound: 2*T*C^2*126 FLOP per stage against its activations; at C=16 and
+// C=8 the chain's bytes (49 passes of the (B, T, C) tensor) bound it. This
 // first design does its products in fp32 FMA on the CUDA cores: a block owns
 // a (TT time x CO_TILE channel) output tile held in registers (8 x 4 per
 // thread), and walks C_in in chunks of CI channels, staging lrelu(x) for the

@@ -1,11 +1,16 @@
 // One fused convolution of the HiFi-GAN multi-receptive-field (MRF)
 // resblock chain on Hopper's tensor cores, channels-last, fp32-accurate,
-// for sm_90a. It serves the C=256 and C=128 stages; csrc/mrf.cu serves
-// C=64 and C=32 (the routing rule is ops/mrf.py:use_tensor_cores).
+// for sm_90a. It serves the C=256, 128, 64 and 32 stages; csrc/mrf.cu
+// serves the widths that are not one of those (C=16, 8; the routing rule
+// is ops/mrf.py:use_tensor_cores). Two kernels: mrf_tc_kernel for C=256
+// and C=128 (the design below), mrf_tc_narrow_kernel for C=64 and C=32
+// (its own section further down).
 //
 // Replaces the TPU kernels of radtts_tpu/ops/pallas_mrf.py: pallas_mrf_wide
-// (C=256, there with bf16 weight storage; here fp32-accurate) and
-// pallas_mrf (at C=128). The host wrapper (radtts_tpu_torch/ops/mrf.py:mrf)
+// (C=256, there with bf16 weight storage; here fp32-accurate), pallas_mrf
+// (at C=128 and C=64) and pallas_mrf_folded (C=32, there with 4 frames
+// folded into 128 lanes; here unfolded). The host wrapper
+// (radtts_tpu_torch/ops/mrf.py:mrf)
 // chains 18 launches per stage, exactly as for csrc/mrf.cu, and one launch
 // computes the same function as mrf_conv_kernel there:
 //
@@ -46,16 +51,16 @@
 //    offset j*d, applies leaky ReLU (lrelu(0) = 0 keeps the padding zero)
 //    and splits it into hi/lo.
 //  - B (weights) must be K-major: per tap (C_out, C_in), as hi and lo
-//    planes. The wrapper repacks w (k, C_in, C_out) on every call
-//    (ops/mrf.py:tc_pack), so weights that change every training step are
-//    never stale, into the order in which the kernel streams it: per
-//    (tap, C_out tile, C_in chunk) one contiguous block of two planes, each
-//    in wgmma's no-swizzle core-matrix layout (8 rows x 16 bytes per core
-//    matrix; K-direction stride LBO = TN * 16 bytes, 8-row-group stride
-//    SBO = 128 bytes). The producer fetches each block with one bulk copy
-//    (cp.async.bulk) that completes on an mbarrier. All taps' planes of a
-//    chunk at C=256, k=11 would exceed shared memory, so B streams per
-//    (chunk, tap).
+//    planes. The wrapper packs w (k, C_in, C_out) once per weight version
+//    (ops/mrf.py:stage_pack, tc_pack), so weights that change every
+//    training step are never stale, into the order in which the kernel
+//    streams it: per (tap, C_out tile, C_in chunk) one contiguous block of
+//    two planes, each in wgmma's no-swizzle core-matrix layout (8 rows x 16
+//    bytes per core matrix; K-direction stride LBO = TN * 16 bytes,
+//    8-row-group stride SBO = 128 bytes). The producer fetches each block
+//    with one bulk copy (cp.async.bulk) that completes on an mbarrier. All
+//    taps' planes of a chunk at C=256, k=11 would exceed shared memory, so
+//    B streams per (chunk, tap).
 //  - Per tap, each consumer thread loads and splits all of its A fragments
 //    (kCK / 8 k-steps) before the tap's first wgmma, issues the tap's
 //    3 * kCK / 8 wgmmas as one group, and waits for that group before it
@@ -171,6 +176,16 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
       : "memory");
 }
 
+// shared -> global, completion tracked by this thread's bulk async-groups
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t tf32_rna(float v) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
@@ -268,6 +283,148 @@ __device__ __forceinline__ void wgmma(float (&d)[TN / 2], const uint32_t (&a)[4]
     wgmma_n128(d, a, desc_b);
   else
     wgmma_n64(d, a, desc_b);
+}
+
+// The same products with A from shared memory too (both descriptors).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b) {
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, desc_a, desc_b);
+  else if constexpr (N == 64)
+    wgmma_ss_n64(d, desc_a, desc_b);
+  else
+    wgmma_ss_n32(d, desc_a, desc_b);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Epilogue of a TM x C tile (the narrow kernel): y = frag + bias (+ res);
+// out = y, or acc += acc_scale * y. frag[4 jn + 2 h + e] is row r0 + 8 h of
+// the tile, channel 8 jn + 2 tig + e. The tile is staged row-major in
+// shared memory: the store warp fills it with the tile's rows of res (when
+// the launch has one) before the consumers get there and writes it out
+// with one bulk copy after them, so res and the output move by bulk copies
+// that overlap the products. acc_old, only in the launch that accumulates,
+// is read into registers (load_acc; rows at and past T read as 0).
+template <int C>
+struct AccInputs {
+  float2 v[C / 8][2];
+};
+
+template <int C>
+__device__ __forceinline__ void load_acc(AccInputs<C>& in, const float* acc,
+                                         int b, int T, int t0, int r0,
+                                         int tig) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + r0 + 8 * h;
+#pragma unroll
+    for (int jn = 0; jn < C / 8; ++jn) {
+      const size_t idx = ((size_t)b * T + t) * C + 8 * jn + 2 * tig;
+      in.v[jn][h] = t < T ? *reinterpret_cast<const float2*>(&acc[idx])
+                          : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void stage_tile(
+    const float (&frag)[C / 2], const AccInputs<C>& in,
+    const float* __restrict__ bias, float* staged, bool add_res,
+    bool accumulate, float acc_scale, int r0, int tig) {
+#pragma unroll
+  for (int jn = 0; jn < C / 8; ++jn) {
+    const float2 bv = *reinterpret_cast<const float2*>(&bias[8 * jn + 2 * tig]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2* p = reinterpret_cast<float2*>(
+          &staged[(r0 + 8 * h) * C + 8 * jn + 2 * tig]);
+      float2 y = make_float2(frag[4 * jn + 2 * h] + bv.x,
+                             frag[4 * jn + 2 * h + 1] + bv.y);
+      if (add_res) {
+        const float2 rv = *p;
+        y.x += rv.x;
+        y.y += rv.y;
+      }
+      if (accumulate)
+        y = make_float2(fmaf(acc_scale, y.x, in.v[jn][h].x),
+                        fmaf(acc_scale, y.y, in.v[jn][h].y));
+      *p = y;
+    }
+  }
 }
 
 template <int TN, int NWG>
@@ -445,24 +602,402 @@ int launch(const float* x, const float* wp, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The narrow stages, C=64 and C=32: mrf_tc_narrow_kernel.
+//
+// The same implicit GEMM and 3xTF32 split, with N = TN = C (one block reads
+// its slab once for all output channels) and K = all of C_in resident at
+// once. What mrf_tc_kernel does per tap, this does once:
+//  - Activations are split once per slab, not once per tap. A slab warp
+//    stages the tile's rows [t0 - pad, t0 + TM + pad) x C into a raw buffer:
+//    one bulk copy of the rows inside [0, T) of the item, and zeros for the
+//    rest (the conv's padding). The consumer threads then apply leaky ReLU
+//    and the hi/lo split to each element once and write two planes, hi and
+//    lo, in wgmma's no-swizzle K-major layout with all rows of a 4-channel
+//    group contiguous: the 16-byte unit (group g, slab row i) at (g*kR +
+//    i)*16 bytes. A core matrix is then any 8 consecutive rows, so tap j's
+//    operand, the slab shifted by j * d rows, is a descriptor whose start is
+//    16 * j * d bytes further (LBO = kR * 16 between channel groups, SBO =
+//    128 between 8-row groups), and A is read from shared memory by the
+//    tensor cores: no per-tap fragment loads, conversions or register
+//    hazards. kR is odd, so the split's 16-byte stores of 8 neighbouring
+//    groups hit 8 distinct bank quads.
+//  - Weights: the k taps of the conv in (tap, chunk) units, fetched by a
+//    weight warp with bulk copies. A unit is one K-major operand of 2C rows,
+//    w's hi plane in rows [0, C) and its lo plane in [C, 2C)
+//    (ops/mrf.py:tc_pack_narrow). Per k-step one m64n(2C)k8 multiplies A's
+//    hi plane by both (hi*hi and hi*lo, in accumulator columns [0, C) and
+//    [C, 2C)), and one m64nCk8 multiplies A's lo plane by the first C rows
+//    (lo*hi, a second accumulator; wgmma orders accumulator chains only
+//    between instructions of one shape). Against three m64nCk8 that is one
+//    read of A's hi plane fewer per k-step: at C=32 the three products would
+//    read 9 KB of shared memory for 48 tensor-core cycles, 72 cycles at
+//    128 B per clock, and now read 7 KB. Where all of a conv's units fit
+//    (C=32: 11 x 8 KB; C=64 at k=3 with NWG=1) they are loaded once per
+//    block and stay; otherwise (C=64) they stream through a ring per tile,
+//    as above.
+//  - Persistent blocks: min(tiles, SMs x blocks per SM) blocks walk the
+//    (item, time tile) tiles, so resident weights are fetched once per
+//    block (at C=32 the 88 KB per conv, once per 1216-tile launch, would
+//    otherwise be read 1216 times from L2), and the slab warp fetches the
+//    next tile's raw slab while the consumers multiply the current one.
+//    Where two pairs of planes fit (C=32), the consumers also split the
+//    next slab while the tensor cores work through the current tile.
+//  - wgmma groups: one per (tap, chunk) unit, committed as issued; with
+//    streamed weights the previous unit's stage is released once
+//    wait_group 1 shows its group complete, and each tile ends with
+//    wait_group 0 before the accumulators are read. A and B both come from
+//    shared memory, so no register that an in-flight wgmma reads is ever
+//    written; the planes are rewritten only after every consumer warpgroup
+//    has waited for all of its groups (a named barrier), and the split's
+//    generic-proxy stores are fenced (fence.proxy.async) before the tensor
+//    cores read them.
+
+constexpr int kSmemLimit = 232448;      // per block, sm_90
+
+template <int C, int NWG>
+struct NarrowLayout {
+  static constexpr int TM = 64 * NWG;
+  static constexpr int kConsumers = 128 * NWG;
+  static constexpr int kThreads = kConsumers + 96;   // + slab, weight, store
+  static constexpr int kChunks = C / kCK;
+  static constexpr int kRawRows = TM + kMaxHalo;
+  static constexpr int kR = TM + kMaxHalo + 1;       // plane rows (odd)
+  static constexpr int kRawFloats = kRawRows * C;
+  static constexpr int kPlaneFloats = kR * C;        // one of hi, lo
+  static constexpr int kOutFloats = TM * C;          // the staged tile
+  static constexpr int kUnitFloats = 2 * C * kCK;    // one (tap, chunk)
+  static constexpr int kMaxUnits = kMaxTaps * kChunks;
+  static constexpr int kBarBytes = 8 * (4 + 2 * kMaxUnits);
+  static constexpr int kOtherFloats = kRawFloats + kOutFloats;
+  // two plane buffers (the next tile split while this one multiplies)
+  // where they fit beside every weight unit of a conv; else one
+  static constexpr int kBufs =
+      (4 * kPlaneFloats + kOtherFloats + kMaxUnits * kUnitFloats) * 4 +
+                  kBarBytes <= kSmemLimit ? 2 : 1;
+  static constexpr int kFixedBytes =
+      (kOtherFloats + 2 * kBufs * kPlaneFloats) * 4 + kBarBytes;
+  static constexpr int kFit = (kSmemLimit - kFixedBytes) / (kUnitFloats * 4);
+  static constexpr int kStages = kFit < kMaxUnits ? kFit : kMaxUnits;
+  static constexpr size_t kBytes =
+      (size_t)(kStages * kUnitFloats + 2 * kBufs * kPlaneFloats +
+               kOtherFloats) * 4 +
+      sizeof(uint64_t) * (4 + 2 * kStages);
+  static_assert(kStages >= 2, "the weight ring needs two stages");
+};
+
+__device__ __forceinline__ void consumer_sync(int n_threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n_threads) : "memory");
+}
+
+template <int C, int NWG>
+__global__ void __launch_bounds__(NarrowLayout<C, NWG>::kThreads, 1)
+mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+                     const float* __restrict__ bias, const float* res,
+                     float* out, float* acc, float acc_scale, int B, int T,
+                     int k, int d, float slope) {
+  using L = NarrowLayout<C, NWG>;
+  constexpr int TM = L::TM;
+  constexpr int kGroups = C / 4;              // 16-byte units per slab row
+  extern __shared__ __align__(128) float smem[];
+  float* w_ring = smem;
+  float* planes = w_ring + L::kStages * L::kUnitFloats;  // [buf][hi, lo]
+  float* raw = planes + 2 * L::kBufs * L::kPlaneFloats;
+  float* staged = raw + L::kRawFloats;                  // TM x C, row-major
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(staged + L::kOutFloats);
+  uint64_t* raw_empty = raw_full + 1;
+  uint64_t* out_full = raw_empty + 1;      // consumers staged the tile
+  uint64_t* out_ready = out_full + 1;      // staging free (and holds res)
+  uint64_t* w_full = out_ready + 1;
+  uint64_t* w_empty = w_full + L::kStages;
+
+  const int pad = (k - 1) / 2 * d;
+  const int rows = TM + 2 * pad;
+  const int n_tt = (T + TM - 1) / TM;
+  const int n_tiles = B * n_tt;
+  const int units = k * L::kChunks;
+  const bool resident = units <= L::kStages;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(raw_full, 32);                  // every lane; + the bulk copy
+    mbar_init(raw_empty, L::kConsumers);
+    mbar_init(out_full, L::kConsumers);
+    mbar_init(out_ready, 1);                  // the store warp's lane 0
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&w_full[s], 1);               // expect_tx + the bulk copy
+      mbar_init(&w_empty[s], L::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {
+    // Slab warp: the raw slab of each of this block's tiles, one ahead of
+    // the consumers. Its rows inside [0, T) of the item are contiguous in
+    // x, so one bulk copy fetches them; rows outside (the conv's zero
+    // padding, at the first and last tile of an item) are zeroed by the
+    // lanes. Waits on "empty" start at parity 1, which passes.
+    int ph = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int b = tile / n_tt, t0 = (tile % n_tt) * TM;
+      const int lo_t = max(t0 - pad, 0), hi_t = min(t0 + TM + pad, T);
+      const int skip = lo_t - (t0 - pad);          // zero rows at the top
+      const int n_in = hi_t - lo_t;
+      mbar_wait(raw_empty, ph ^ 1);
+      for (int e = lane; e < (rows - n_in) * kGroups; e += 32) {
+        const int i = e / kGroups, g = e % kGroups;
+        const int row = i < skip ? i : i + n_in;
+        *reinterpret_cast<float4*>(raw + row * C + 4 * g) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      // order these stores before later bulk copies into the same rows
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (lane == 0) {
+        const uint32_t bytes = (uint32_t)n_in * C * 4;
+        mbar_expect_tx(raw_full, bytes);
+        bulk_copy(raw + skip * C, x + ((size_t)b * T + lo_t) * C, bytes,
+                  raw_full);
+      } else {
+        mbar_arrive(raw_full);
+      }
+      ph ^= 1;
+    }
+    return;
+  }
+  if (warp == 4 * NWG + 2) {
+    // Store warp: per tile, the tile's rows of res into the staging buffer
+    // (or just a release of it), then, once the consumers have staged the
+    // result, one bulk copy of it to out or acc (the launch writes one of
+    // them). Rows at and past T are neither read nor written.
+    float* dst = out != nullptr ? out : acc;
+    if (lane == 0) {
+      int ph = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int b = tile / n_tt, t0 = (tile % n_tt) * TM;
+        const size_t row0 = (size_t)b * T + t0;
+        const uint32_t bytes = (uint32_t)min(TM, T - t0) * C * 4;
+        if (res != nullptr) {
+          mbar_expect_tx(out_ready, bytes);
+          bulk_copy(staged, res + row0 * C, bytes, out_ready);
+        } else {
+          mbar_arrive(out_ready);
+        }
+        mbar_wait(out_full, ph);
+        bulk_store(dst + row0 * C, staged, bytes);
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        ph ^= 1;
+      }
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    }
+    return;
+  }
+  if (warp == 4 * NWG + 1) {
+    // Weight warp: unit u = (tap u / kChunks, chunk u % kChunks), each a
+    // contiguous block of wp. Resident: stage u holds unit u for every
+    // tile. Otherwise a ring, refilled per tile.
+    if (lane == 0) {
+      constexpr uint32_t kUnitBytes = L::kUnitFloats * 4;
+      if (resident) {
+        for (int u = 0; u < units; ++u) {
+          mbar_expect_tx(&w_full[u], kUnitBytes);
+          bulk_copy(w_ring + u * L::kUnitFloats,
+                    wp + (size_t)u * L::kUnitFloats, kUnitBytes, &w_full[u]);
+        }
+      } else {
+        int s = 0, ph = 0;
+        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+          for (int u = 0; u < units; ++u) {
+            mbar_wait(&w_empty[s], ph ^ 1);
+            mbar_expect_tx(&w_full[s], kUnitBytes);
+            bulk_copy(w_ring + s * L::kUnitFloats,
+                      wp + (size_t)u * L::kUnitFloats, kUnitBytes, &w_full[s]);
+            if (++s == L::kStages) { s = 0; ph ^= 1; }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: wg owns rows [64 wg, 64 wg + 64) of each tile.
+  const int wg = warp / 4, gid = lane / 4, tig = lane % 4;
+  const int r0 = 64 * wg + 16 * (warp % 4) + gid;
+  const uint32_t w_s = smem_u32(w_ring);
+  int ph = 0, s = 0, wph = 0, oph = 0;
+
+  // raw slab -> lrelu -> hi/lo planes of buffer buf, once per element
+  auto split = [&](int buf) {
+    float* hi = planes + 2 * buf * L::kPlaneFloats;
+    float* lo = hi + L::kPlaneFloats;
+    mbar_wait(raw_full, ph);
+    for (int e = threadIdx.x; e < rows * kGroups; e += L::kConsumers) {
+      const int i = e / kGroups, g = e % kGroups;
+      const float4 v = *reinterpret_cast<const float4*>(raw + i * C + 4 * g);
+      const float a[4] = {v.x >= 0.f ? v.x : slope * v.x,
+                          v.y >= 0.f ? v.y : slope * v.y,
+                          v.z >= 0.f ? v.z : slope * v.z,
+                          v.w >= 0.f ? v.w : slope * v.w};
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        h[q] = tf32_rna(a[q]);
+        l[q] = tf32_rna(a[q] - __uint_as_float(h[q]));
+      }
+      const int off = (g * L::kR + i) * 4;
+      *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+    mbar_arrive(raw_empty);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    ph ^= 1;
+  };
+
+  int buf = 0;
+  if (L::kBufs == 2 && (int)blockIdx.x < n_tiles) {
+    split(0);
+    consumer_sync(L::kConsumers);
+  }
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = tile / n_tt, t0 = (tile % n_tt) * TM;
+    if (L::kBufs == 1) {
+      // every warpgroup has waited for all wgmma groups of the last tile,
+      // so the planes are free
+      consumer_sync(L::kConsumers);
+      split(0);
+      consumer_sync(L::kConsumers);
+    }
+    AccInputs<C> in;
+    if (acc != nullptr) load_acc<C>(in, acc, b, T, t0, r0, tig);
+
+    const uint32_t hi_s = smem_u32(planes + 2 * buf * L::kPlaneFloats);
+    const uint32_t lo_s = hi_s + L::kPlaneFloats * 4;
+    // acc_w: columns [0, C) sum hi*hi, [C, 2C) hi*lo; acc_l: lo*hi
+    float acc_w[C], acc_l[C / 2];
+#pragma unroll
+    for (int i = 0; i < C; ++i) acc_w[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) acc_l[i] = 0.f;
+    fence_operand(acc_w);
+    fence_operand(acc_l);
+    int prev = -1;
+    for (int u = 0; u < units; ++u) {
+      const int j = u / L::kChunks, c = u % L::kChunks;
+      const int st = resident ? u : s;
+      mbar_wait(&w_full[st], resident ? 0 : wph);
+      const uint32_t b_s = w_s + st * L::kUnitFloats * 4;
+      const uint32_t a_row = (64 * wg + j * d) * 16;
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < kCK / 8; ++q) {
+        // k-step q: channel groups 8c + 2q and 8c + 2q + 1
+        const uint32_t a_off = (8 * c + 2 * q) * L::kR * 16 + a_row;
+        const uint64_t da_hi = make_desc(hi_s + a_off, L::kR * 16, 128);
+        const uint64_t da_lo = make_desc(lo_s + a_off, L::kR * 16, 128);
+        const uint64_t db = make_desc(b_s + q * C * 64, C * 32, 128);
+        wgmma_ss<2 * C>(acc_w, da_hi, db);
+        wgmma_ss<C>(acc_l, da_lo, db);      // the first C rows: hi
+      }
+      wgmma_commit();
+      // with two buffers, the next tile's split runs while the tensor
+      // cores work through the first unit's group
+      if (L::kBufs == 2 && u == 0 && tile + (int)gridDim.x < n_tiles)
+        split(buf ^ 1);
+      if (!resident) {
+        wgmma_wait<1>();          // the previous unit's group is complete
+        if (prev >= 0) mbar_arrive(&w_empty[prev]);
+        prev = s;
+        if (++s == L::kStages) { s = 0; wph ^= 1; }
+      }
+    }
+    wgmma_wait<0>();
+    fence_operand(acc_w);
+    fence_operand(acc_l);
+    if (prev >= 0) mbar_arrive(&w_empty[prev]);
+    // acc_w[i + C / 2] is the same row and channel as acc_w[i] and acc_l[i]
+    float frag[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i)
+      frag[i] = acc_w[i] + (acc_w[i + C / 2] + acc_l[i]);
+    mbar_wait(out_ready, oph);    // the last tile's store has read it
+    stage_tile<C>(frag, in, bias, staged, res != nullptr, acc != nullptr,
+                  acc_scale, r0, tig);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(out_full);
+    oph ^= 1;
+    if (L::kBufs == 2) {
+      // this tile's planes are free (every group waited for) and the next
+      // tile's are written and fenced
+      consumer_sync(L::kConsumers);
+      buf ^= 1;
+    }
+  }
+}
+
+template <int C, int NWG>
+int launch_narrow(const float* x, const float* wp, const float* bias,
+                  const float* res, float* out, float* acc, float acc_scale,
+                  int B, int T, int k, int d, float slope,
+                  cudaStream_t stream) {
+  using L = NarrowLayout<C, NWG>;
+  static int max_blocks = 0;     // SMs x resident blocks per SM
+  if (max_blocks == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        mrf_tc_narrow_kernel<C, NWG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mrf_tc_narrow_kernel<C, NWG>, L::kThreads, L::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    max_blocks = sms * per_sm;
+  }
+  const long long tiles = (long long)B * ((T + L::TM - 1) / L::TM);
+  const int grid = (int)(tiles < max_blocks ? tiles : max_blocks);
+  mrf_tc_narrow_kernel<C, NWG><<<grid, L::kThreads, L::kBytes, stream>>>(
+      x, wp, bias, res, out, acc, acc_scale, B, T, k, d, slope);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). Shapes: x, res,
 // out, acc (B, T, C) contiguous; wp the k packed taps of one conv
-// (ops/mrf.py:tc_pack with the same tn); bias (C,). Requires tn in {64,
-// 128}, nwg in {1, 2}, C % tn == 0, C % 32 == 0, k odd and <= 11,
-// (k - 1) * d <= 50, and 16-byte aligned x, wp, bias, res, out and acc.
+// (ops/mrf.py:tc_pack_narrow for the narrow kernel, else tc_pack with the
+// same tn); bias (C,). Requires either tn == C in {32, 64} with exactly one
+// of out and acc (mrf_tc_narrow_kernel), or tn in {64, 128} with C % tn ==
+// 0 and C >= 128 (mrf_tc_kernel); nwg in {1, 2}, k odd and <= 11, (k - 1) *
+// d <= 50, and 16-byte aligned x, wp, bias, res, out and acc.
 extern "C" int radtts_mrf_tc_conv(const float* x, const float* wp,
                                   const float* bias, const float* res,
                                   float* out, float* acc, float acc_scale,
                                   int B, int T, int C, int k, int d,
                                   float slope, int tn, int nwg,
                                   void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || C % kCK != 0 || (tn != 64 && tn != 128) ||
-      C % tn != 0 || (nwg != 1 && nwg != 2) || k <= 0 || k % 2 == 0 ||
-      k > kMaxTaps || d <= 0 || (k - 1) * d > kMaxHalo || B > 65535)
+  const bool narrow = tn == C && (C == 32 || C == 64) &&
+                      (out != nullptr) != (acc != nullptr);
+  if (B <= 0 || T <= 0 || C <= 0 ||
+      !(narrow || ((tn == 64 || tn == 128) && C % tn == 0 && C >= 128)) ||
+      (nwg != 1 && nwg != 2) || k <= 0 || k % 2 == 0 || k > kMaxTaps ||
+      d <= 0 || (k - 1) * d > kMaxHalo || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (narrow) {
+    if (C == 64)
+      return nwg == 2 ? launch_narrow<64, 2>(x, wp, bias, res, out, acc,
+                                             acc_scale, B, T, k, d, slope, s)
+                      : launch_narrow<64, 1>(x, wp, bias, res, out, acc,
+                                             acc_scale, B, T, k, d, slope, s);
+    return nwg == 2 ? launch_narrow<32, 2>(x, wp, bias, res, out, acc,
+                                           acc_scale, B, T, k, d, slope, s)
+                    : launch_narrow<32, 1>(x, wp, bias, res, out, acc,
+                                           acc_scale, B, T, k, d, slope, s);
+  }
   if (tn == 128 && nwg == 2)
     return launch<128, 2>(x, wp, bias, res, out, acc, acc_scale, B, T, C, k,
                           d, slope, s);
@@ -476,9 +1011,20 @@ extern "C" int radtts_mrf_tc_conv(const float* x, const float* wp,
                        slope, s);
 }
 
-// Dynamic shared memory of one block, in bytes (for the build report).
-extern "C" int radtts_mrf_tc_smem_bytes(int tn, int nwg) {
+// Dynamic shared memory of one block at width C and tile (tn, nwg), in
+// bytes, and the narrow kernel's weight stages (for the build report).
+extern "C" int radtts_mrf_tc_smem_bytes(int C, int tn, int nwg) {
+  if (tn == C && C == 64) return nwg == 2 ? (int)NarrowLayout<64, 2>::kBytes
+                                          : (int)NarrowLayout<64, 1>::kBytes;
+  if (tn == C && C == 32) return nwg == 2 ? (int)NarrowLayout<32, 2>::kBytes
+                                          : (int)NarrowLayout<32, 1>::kBytes;
   if (tn == 128) return nwg == 2 ? (int)Layout<128, 2>::kBytes
                                  : (int)Layout<128, 1>::kBytes;
   return nwg == 2 ? (int)Layout<64, 2>::kBytes : (int)Layout<64, 1>::kBytes;
+}
+
+extern "C" int radtts_mrf_tc_weight_stages(int C, int nwg) {
+  if (C == 64) return nwg == 2 ? NarrowLayout<64, 2>::kStages
+                               : NarrowLayout<64, 1>::kStages;
+  return nwg == 2 ? NarrowLayout<32, 2>::kStages : NarrowLayout<32, 1>::kStages;
 }

@@ -10,17 +10,19 @@ pallas_mrf_wide, pallas_mrf_folded: one function at four widths). On the
 card `mrf` chains 18 launches of one of two hand-written kernels (see
 their headers for the design and what bounds them): csrc/mrf_tc.cu, a
 3xTF32 implicit GEMM on the tensor cores, for the stages that
-`use_tensor_cores` picks (C=256 and C=128), and csrc/mrf.cu, fp32 FMA on
-the CUDA cores, for the others (C=64 and C=32). `mrf_plain` is the same
-function in plain PyTorch, which the CPU path, the tests and every pass
-that needs gradients use.
+`use_tensor_cores` picks (C=256, 128, 64 and 32), and csrc/mrf.cu, fp32
+FMA on the CUDA cores, for the other widths (C=16 and C=8 of smaller
+vocoders). `mrf_plain` is the same function in plain PyTorch, which the
+CPU path, the tests and every pass that needs gradients use.
 
 weights: one dict per resblock, {w1: (3, k, C, C), b1: (3, C), w2: (3, k, C,
 C), b2: (3, C)}, w*[i] being the dilation-i conv taps-major (k, C_in, C_out)
 as in the JAX package's packed layout.
 """
 
+import collections
 import ctypes
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -31,9 +33,11 @@ DILATIONS = (1, 3, 5)
 LRELU_SLOPE = 0.1
 
 TC_CK = 32            # input channels per chunk of csrc/mrf_tc.cu (kCK)
+PACK_CACHE_SIZE = 8   # packed stages kept (HiFi-GAN v1 has 4)
 
 _lib = None
 _tc_lib = None
+_packs = collections.OrderedDict()
 
 
 def _conv_plain(x, w_taps, b, d):
@@ -83,29 +87,36 @@ def build_tc():
                    + [ctypes.c_int] * 5 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.radtts_mrf_tc_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.radtts_mrf_tc_smem_bytes.restype = ctypes.c_int
+    for name, n_args in (("radtts_mrf_tc_smem_bytes", 3),
+                         ("radtts_mrf_tc_weight_stages", 2)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * n_args
+        getattr(lib, name).restype = ctypes.c_int
     _tc_lib = lib
     return lib, log, seconds
 
 
 def use_tensor_cores(C):
     """The routing rule: which stage widths run csrc/mrf_tc.cu on the card
-    (C=256 and C=128); the others run csrc/mrf.cu."""
-    return C >= 128 and C % 64 == 0
+    (C=256, 128, 64 and 32); the others run csrc/mrf.cu."""
+    return C in (32, 64) or (C >= 128 and C % 64 == 0)
 
 
 def tc_tile(C):
     """(TN, NWG) of csrc/mrf_tc.cu for width C: TN output channels and NWG
-    consumer warpgroups (64 NWG time rows) per block. The fastest of the
-    four on the H100 (chip_smoke.py's mrf_tc_tiles phase): 128 x 128 tiles
-    at C=256 (each weight stage feeds 128 rows; 76 blocks at 4864 frames
-    beat 152 smaller ones), 128 x 64 at C=128."""
+    consumer warpgroups (64 NWG time rows) per tile. The fastest on the
+    H100 (chip_smoke.py's mrf_tc_tiles phase): 128 x 128 tiles at C=256
+    (each weight stage feeds 128 rows; 76 blocks at 4864 frames beat 152
+    smaller ones), 128 x 64 at C=128, and TN = C at C=64 and C=32 (the
+    narrow kernel: every output channel in one tile)."""
+    if C <= 64:
+        return (C, 2)
     return (128, 2) if C >= 256 and C % 128 == 0 else (64, 2)
 
 
 def tc_grid(B, T, C, tile=None):
-    """The launch grid of csrc/mrf_tc.cu: (time tiles, C_out tiles, B)."""
+    """The tiles of csrc/mrf_tc.cu: (time tiles, C_out tiles, B). At C=256
+    and C=128 this is the launch grid; at C=64 and C=32 the narrow kernel
+    walks these tiles with min(tiles, SMs) persistent blocks."""
     tn, nwg = tile or tc_tile(C)
     return (-(-T // (64 * nwg)), C // tn, B)
 
@@ -137,6 +148,61 @@ def tc_pack(w, tn):
     p = p.reshape(*lead, 2, C // tn, tn // 8, 8, C // TC_CK, TC_CK // 4, 4)
     order = [n + 1, n + 4, n, n + 5, n + 2, n + 3, n + 6]
     return p.permute(*range(n), *order).contiguous()
+
+
+def tc_pack_narrow(w):
+    """Taps w (..., C, C) -> the order in which the narrow kernel of
+    csrc/mrf_tc.cu (C=64 and C=32, the tile holding every output channel)
+    reads them: (..., C/TC_CK, TC_CK/4, 2, C/8, 8, 4). Per (tap, C_in
+    chunk) one K-major operand of 2C rows, hi in rows [0, C) and lo in [C,
+    2C), in wgmma's core-matrix layout: element (co, ci) of plane p at
+    ((ci // 4) * C / 4 + (p * C + co) // 8) * 32 + (co % 8) * 4 + ci % 4,
+    ci counted within the chunk."""
+    p = torch.stack(tc_split(w), -3)             # (..., 2, C_out, C_in)
+    *lead, _, C, _ = p.shape
+    n = len(lead)
+    p = p.reshape(*lead, 2, C // 8, 8, C // TC_CK, TC_CK // 4, 4)
+    order = [n + 3, n + 4, n, n + 1, n + 2, n + 5]
+    return p.permute(*range(n), *order).contiguous()
+
+
+def narrow(C, tn):
+    """Whether tile width tn at width C runs the narrow kernel."""
+    return tn == C and C in (32, 64)
+
+
+def stage_pack(weights, tn):
+    """The packed taps of a stage (w1 then w2 of each resblock; tc_pack, or
+    tc_pack_narrow where narrow(C, tn)), kept per weight version: the key
+    is each weight tensor's identity (a weak reference, so a freed tensor
+    whose id is reused cannot hit), its _version, which in-place updates
+    (the optimizer's step, load_state_dict) advance, and its data pointer,
+    which Module.to() and a `.data` assignment change without a new
+    version. Serving packs once; training repacks after every update and
+    is never stale."""
+    ts = [wd[key] for wd in weights for key in ("w1", "w2")]
+    C = ts[0].shape[-1]
+
+    def pack():
+        with torch.no_grad():
+            taps = torch.cat([t.reshape(-1, C, C) for t in ts])
+            return (tc_pack_narrow(taps) if narrow(C, tn)
+                    else tc_pack(taps, tn))
+    if any(t.is_inference() for t in ts):    # no version counter
+        return pack()
+    key = (tuple(id(t) for t in ts), tn)
+    versions = tuple((t._version, t.data_ptr()) for t in ts)
+    hit = _packs.get(key)
+    if hit is not None and hit[1] == versions and all(
+            ref() is t for ref, t in zip(hit[0], ts)):
+        _packs.move_to_end(key)
+        return hit[2]
+    packed = pack()
+    _packs[key] = (tuple(weakref.ref(t) for t in ts), versions, packed)
+    _packs.move_to_end(key)
+    while len(_packs) > PACK_CACHE_SIZE:
+        _packs.popitem(last=False)
+    return packed
 
 
 def _ptr(t):
@@ -204,9 +270,10 @@ def mrf(x, weights):
     return mrf_cuda(x, weights)
 
 
-def mrf_cuda(x, weights, tile=None):
+def mrf_cuda(x, weights, tile=None, route=None):
     """The card's chain of mrf; `tile` overrides tc_tile(C) for the
-    tensor-core kernel."""
+    tensor-core kernel, and `route` ("tc" or "conv") overrides
+    use_tensor_cores(C), to time one kernel against the other."""
     B, T, C = x.shape
     _check("x", x, (B, T, C), x.device)
     if C % 4:
@@ -221,17 +288,14 @@ def mrf_cuda(x, weights, tile=None):
             _check(f"{key}[{m}]", wd[key], (n, k, C, C), x.device)
         for key in ("b1", "b2"):
             _check(f"{key}[{m}]", wd[key], (n, C), x.device)
+    if route not in (None, "tc", "conv"):
+        raise ValueError(f"mrf: unknown route {route!r}")
 
-    if use_tensor_cores(C):
+    if (use_tensor_cores(C) if route is None else route == "tc"):
         if _tc_lib is None:
             build_tc()
         tile = tile or tc_tile(C)
-        # every tap of the stage packed at once, on every call: the weights
-        # change every training step
-        with torch.no_grad():
-            packed = tc_pack(torch.cat([wd[key].reshape(-1, C, C)
-                                        for wd in weights
-                                        for key in ("w1", "w2")]), tile[0])
+        packed = stage_pack(weights, tile[0])
         first, n = {}, 0
         for m, wd in enumerate(weights):
             for key in ("w1", "w2"):

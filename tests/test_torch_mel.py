@@ -43,19 +43,63 @@ def test_filterbank_copy_is_exact(args):
                                   jax_mel_filterbank(*args))
 
 
+def _mel_float64(a):
+    """The log-mel in float64 NumPy: reflect pad, periodic Hann window,
+    rfft, magnitude, slaney filterbank, log(clamp(., 1e-5))."""
+    n_fft, hop = MEL_KW["filter_length"], MEL_KW["hop_length"]
+    x = np.pad(a.astype(np.float64), ((0, 0), (n_fft // 2, n_fft // 2)),
+               mode="reflect")
+    t = np.arange(1 + a.shape[1] // hop)[:, None] * hop + np.arange(n_fft)
+    window = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)
+    mag = np.abs(np.fft.rfft(x[:, t] * window, axis=-1))
+    fb = mel_filterbank(22050, n_fft, 80, 0.0, 8000.0).astype(np.float64)
+    return np.log(np.maximum(mag @ fb.T, 1e-5))
+
+
+@pytest.fixture(scope="module")
+def warm_paths():
+    """Each compared path run once on other audio first, so that no
+    comparison is a process's first JAX or torch computation."""
+    a = _audio((1, 2053), seed=1)
+    np.asarray(jax_mel_spectrogram(jnp.asarray(a), **MEL_KW))
+    np.asarray(mel_spectrogram_pallas(jnp.asarray(a), interpret=True,
+                                      **MEL_KW))
+    mel(torch.from_numpy(a), **MEL_KW)
+
+
 @pytest.mark.parametrize("shape", [(2, 9000), (2, 8192), (1, 2053),
                                    (3, 4097)])
-def test_mel_matches_jax(shape):
+def test_mel_matches_jax(shape, warm_paths):
     """mel on a CPU tensor (which runs mel_plain) against the JAX
-    mel_spectrogram and the Pallas kernel in interpret mode."""
+    mel_spectrogram and the Pallas kernel in interpret mode, and all three
+    against the same log-mel in float64.
+
+    Each fp32 path lands within ~2e-6 of float64 here. Once, in a 6-worker
+    run of the whole suite, the port and mel_spectrogram differed by up to
+    2.3e-4 in 82 of the 5760 values at shape (2, 9000), the corner values
+    of both arrays equal to their usual ones in all 7 printed digits. That
+    is ~100x what a different summation order gives at these mel values
+    (~0.07-1), so it is not rounding. That comparison was its worker's
+    first JAX and first torch computation, and the three later shapes in
+    the same process agreed; no test state, matmul precision setting,
+    thread count or compilation-cache state tried brings it back
+    (ROADMAP.md, section C). So the paths are run once first
+    (warm_paths), and the float64 reference names the side that moves if
+    it comes back."""
     a = _audio(shape)
     ref = np.asarray(jax_mel_spectrogram(jnp.asarray(a), **MEL_KW))
     pallas = np.asarray(mel_spectrogram_pallas(jnp.asarray(a), interpret=True,
                                                **MEL_KW))
     got = mel(torch.from_numpy(a), **MEL_KW).numpy()
+    exact = _mel_float64(a)
     assert got.shape == ref.shape == (a.shape[0], 1 + a.shape[1] // 256, 80)
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
-    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-4)
+    off = {name: float(np.abs(v - exact).max())
+           for name, v in (("port", got), ("jax", ref), ("pallas", pallas))}
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4,
+                               err_msg=f"max |. - float64|: {off}")
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-4,
+                               err_msg=f"max |. - float64|: {off}")
+    np.testing.assert_allclose(got, exact, rtol=0, atol=1e-4)
 
 
 def test_dynamic_range_compression_matches_jax():

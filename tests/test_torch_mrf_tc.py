@@ -6,8 +6,8 @@ arithmetic (3xTF32: operands rounded as cvt.rna.tf32.f32 rounds them, split
 hi/lo, the products hi*hi + hi*lo + lo*hi summed in fp32), emulated with
 numpy-rounded operands and F.conv1d. Limits: the emulated chain within
 1e-4 * max|plain| of mrf_plain (the kernel's limit on the card), and within
-rtol/atol 1e-5 of the JAX pallas_mrf in interpret mode, as
-tests/test_torch_ops.py holds mrf_plain.
+rtol/atol 1e-5 of the JAX pallas_mrf (C=128, 64) and pallas_mrf_folded
+(C=32) in interpret mode, as tests/test_torch_ops.py holds mrf_plain.
 """
 
 import numpy as np
@@ -17,12 +17,14 @@ import torch.nn.functional as F
 
 import jax.numpy as jnp
 
-from radtts_tpu.ops.pallas_mrf import pallas_mrf
+from radtts_tpu.ops.pallas_mrf import pallas_mrf, pallas_mrf_folded
 
 from radtts_tpu_torch.ops import mrf as mrf_mod
 from radtts_tpu_torch.ops.mrf import (DILATIONS, LRELU_SLOPE, TC_CK, mrf,
-                                      mrf_plain, tc_grid, tc_pack, tc_split,
-                                      tc_tile, tf32_round, use_tensor_cores)
+                                      mrf_cuda, mrf_plain, narrow,
+                                      stage_pack, tc_grid, tc_pack,
+                                      tc_pack_narrow, tc_split, tc_tile,
+                                      tf32_round, use_tensor_cores)
 
 
 def _weights(C, seed, std=0.03):
@@ -78,8 +80,8 @@ def _mrf_emulated(x, weights, passes=3):
     return (out / len(weights)).transpose(1, 2)
 
 
-@pytest.mark.parametrize("C,tc", [(256, True), (128, True), (64, False),
-                                  (32, False)])
+@pytest.mark.parametrize("C,tc", [(256, True), (128, True), (64, True),
+                                  (32, True), (16, False), (8, False)])
 def test_routing_rule(C, tc):
     assert use_tensor_cores(C) is tc
 
@@ -101,6 +103,28 @@ def test_tile_and_grid_at_serving_and_training_shapes():
     assert tc_grid(16, 256, 256) == (2, 2, 16)
     assert tc_grid(2, 997, 128) == (8, 2, 2)
     assert tc_grid(1, 4864, 256, tile=(64, 1)) == (76, 4, 1)
+
+
+@pytest.mark.parametrize("shape,grid", [
+    ((1, 77824, 64), (608, 1, 1)),      # serving stages
+    ((1, 155648, 32), (1216, 1, 1)),
+    ((16, 4096, 64), (32, 1, 16)),      # training discriminator pass
+    ((16, 8192, 32), (64, 1, 16)),
+    ((2, 997, 32), (8, 1, 2)),          # ragged: the last tile is partial
+])
+def test_narrow_tile_and_grid(shape, grid):
+    """At C=64 and C=32 one tile holds every output channel (TN = C), so a
+    block reads its slab once; 128 time rows per tile."""
+    B, T, C = shape
+    assert tc_tile(C) == (C, 2)
+    assert tc_grid(B, T, C) == grid
+    assert tc_grid(B, T, C, tile=(C, 1)) == (-(-T // 64), 1, B)
+
+
+def test_route_override_is_checked():
+    w = _weights(32, seed=2)
+    with pytest.raises(ValueError, match="unknown route"):
+        mrf_cuda(_x((1, 16, 32), 3), w, route="fma")
 
 
 def test_tf32_round_matches_cvt_rna():
@@ -126,7 +150,7 @@ def test_split_planes():
     assert (err <= 2.0 ** -22 * wt.double().abs()).all()
 
 
-@pytest.mark.parametrize("tn", [64, 128])
+@pytest.mark.parametrize("tn", [64, 128, 32])
 def test_pack_layout(tn):
     C, n_taps = 256, 5
     w = _x((n_taps, C, C), 5)
@@ -144,7 +168,35 @@ def test_pack_layout(tn):
         assert block[1, idx] == lo[j, co, ci]
 
 
-@pytest.mark.parametrize("B,T,C", [(1, 160, 256), (2, 97, 128)])
+@pytest.mark.parametrize("C", [64, 32])
+def test_narrow_pack_layout(C):
+    """The narrow kernel's unit: one operand of 2C rows per (tap, chunk),
+    hi in rows [0, C), lo in [C, 2C)."""
+    n_taps = 7
+    w = _x((n_taps, C, C), C + 5)
+    p = tc_pack_narrow(w)
+    assert p.shape == (n_taps, C // TC_CK, TC_CK // 4, 2, C // 8, 8, 4)
+    hi, lo = tc_split(w)
+    rng = np.random.default_rng(C)
+    for j, co, ci in zip(rng.integers(0, n_taps, 50),
+                         rng.integers(0, C, 50), rng.integers(0, C, 50)):
+        block = p[j, ci // TC_CK].reshape(-1)
+        kk = ci % TC_CK
+        for plane, ref in ((0, hi), (1, lo)):
+            n = plane * C + co
+            idx = ((kk // 4) * (C // 4) + n // 8) * 32 + (n % 8) * 4 + kk % 4
+            assert block[idx] == ref[j, co, ci]
+
+
+@pytest.mark.parametrize("C,tn,is_narrow", [(64, 64, True), (32, 32, True),
+                                            (128, 128, False),
+                                            (64, 32, False)])
+def test_narrow_rule(C, tn, is_narrow):
+    assert narrow(C, tn) is is_narrow
+
+
+@pytest.mark.parametrize("B,T,C", [(1, 160, 256), (2, 97, 128), (2, 97, 64),
+                                   (2, 101, 32)])
 def test_3xtf32_emulation_matches_plain(B, T, C):
     w = _weights(C, seed=T, std=0.01)
     x = _x((B, T, C), C)
@@ -166,3 +218,51 @@ def test_3xtf32_emulation_matches_pallas():
     ref = pallas_mrf(jnp.asarray(x.numpy()), jw, tile=128, interpret=True)
     np.testing.assert_allclose(_mrf_emulated(x, w).numpy(), np.asarray(ref),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("C", [64, 32])
+def test_3xtf32_emulation_matches_pallas_narrow(C):
+    """The narrow stages against the TPU kernels they replace: pallas_mrf
+    at C=64, pallas_mrf_folded (4 frames folded into 128 lanes) at C=32,
+    ragged T."""
+    B, T = 2, 101
+    w = _weights(C, seed=C + 1)
+    x = _x((B, T, C), C + 2)
+    jw = [{k: jnp.asarray(v.numpy()) for k, v in wd.items()} for wd in w]
+    if C == 32:
+        ref = pallas_mrf_folded(jnp.asarray(x.numpy()), jw, fold=4, tile=32,
+                                interpret=True)
+    else:
+        ref = pallas_mrf(jnp.asarray(x.numpy()), jw, tile=128, interpret=True)
+    np.testing.assert_allclose(_mrf_emulated(x, w).numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _fresh_pack(w, tn):
+    C = w[0]["w1"].shape[-1]
+    taps = torch.cat([wd[key].reshape(-1, C, C) for wd in w
+                      for key in ("w1", "w2")])
+    return tc_pack_narrow(taps) if narrow(C, tn) else tc_pack(taps, tn)
+
+
+@pytest.mark.parametrize("C", [64, 128])
+def test_stage_pack_is_kept_per_weight_version(C):
+    """The packed stage is reused while the weights are unchanged, and
+    rebuilt after an in-place update, a `.data` assignment, or for other
+    tensors with the same values. At C=64 with tn=64 it is the narrow
+    kernel's packing."""
+    w = _weights(C, seed=9)
+    first = stage_pack(w, 64)
+    torch.testing.assert_close(first, _fresh_pack(w, 64), rtol=0, atol=0)
+    assert stage_pack(w, 64) is first
+    w[0]["w1"].add_(1e-3)                      # an optimizer step, in place
+    second = stage_pack(w, 64)
+    assert second is not first
+    torch.testing.assert_close(second, _fresh_pack(w, 64), rtol=0, atol=0)
+    w[2]["w2"].data = 2 * w[2]["w2"]           # new storage, same version
+    third = stage_pack(w, 64)
+    assert third is not second
+    torch.testing.assert_close(third, _fresh_pack(w, 64), rtol=0, atol=0)
+    copy = [{k: v.clone() for k, v in wd.items()} for wd in w]
+    assert stage_pack(copy, 64) is not third
+    assert stage_pack(w, 32) is not third      # another tile width
