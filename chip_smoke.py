@@ -6,49 +6,63 @@
 Phases, each printing a JSON or text line:
   1. device: the card's name and power limit, torch/CUDA versions, the
      pinned TF32 flags;
-  2. build: nvcc of radtts_tpu_torch/csrc/mrf.cu, csrc/mrf_tc.cu and
-     csrc/mel.cu for sm_90a, all at once, with seconds and ptxas
-     register/spill lines;
+  2. build: nvcc of radtts_tpu_torch/csrc/mrf_tc.cu, csrc/mrf_stack.cu,
+     csrc/mrf.cu and csrc/mel.cu for sm_90a, all four at once, with seconds
+     and ptxas register/spill lines; then each kernel's shared memory per
+     block;
   3. MRF kernels vs plain: ops/mrf.py:mrf against mrf_plain on the card,
      within 1e-4 * max|plain| (fp32 sums in another order, TF32 off; the
-     tensor-core kernel in 3xTF32): csrc/mrf_tc.cu at all four HiFi-GAN v1
-     widths (the serving stages C=256, 128, 64, 32; the training
-     discriminator pass's (16, 256, 256), (16, 2048, 128), (16, 4096, 64),
-     (16, 8192, 32); ragged (2, 997, C)), csrc/mrf.cu at the widths it
-     still serves (C=16 and C=8 at the same frame counts, ragged (2, 997,
-     16)). With the kernel's, the plain version's and the cuDNN conv
-     chain's times, the launch grid, the bound at the 3xTF32 rate beside
-     the fp32-FMA one, and the chain's activation-bytes floor; at C=64 and
-     C=32 also csrc/mrf.cu's time on the same inputs (the kernel these
-     stages ran before). Then the tensor-core kernel's tile shapes at the
-     four serving stages;
-  4. mel kernel vs plain: ops/mel.py:mel against mel_plain at (16, 8192),
-     (1, 155648) and (3, 9001): log-mel within 1e-3 (fp32 sums over 1024
-     terms in another order, amplified by the log near the 1e-5 clamp),
-     the gradient through MelFunction within 1e-5 * max|plain grad|, with
-     the kernel's, the plain version's and the cuFFT composite's times and
-     the bound; then the MRF kernel must refuse a call whose output would
-     need a gradient;
+     tensor-core kernel in 3xTF32), on the route mrf_route(C) names:
+     csrc/mrf_tc.cu at all four HiFi-GAN v1 widths (the serving stages
+     C=256, 128, 64, 32; the training discriminator pass's (16, 256, 256),
+     (16, 2048, 128), (16, 4096, 64), (16, 8192, 32); ragged (2, 997, C)),
+     csrc/mrf_stack.cu at HiFi-GAN V2's last stages (1, 77824, 16) and
+     (1, 155648, 8), ragged (2, 997, 16) and (2, 997, 8), and T below one
+     tile (2, 50, 16); csrc/mrf.cu at a width only it takes (2, 997, 48).
+     With the kernel's, the plain version's and the cuDNN conv chain's
+     times, the launch grid, the bound at the 3xTF32 rate beside the
+     fp32-FMA one, and the 18-launch chain's activation-bytes floor; at
+     C=64, 32, 16 and 8 also csrc/mrf.cu's time on the same inputs
+     (route="conv", the kernel those stages ran before). Then the
+     tensor-core kernel's tile shapes at the v1 serving stages and the
+     stack kernel's tile rows at the V2 ones;
+  4. mel kernel vs plain: ops/mel.py:mel (the shared-memory real FFT)
+     against mel_plain at (16, 8192), (1, 155648) and (3, 9001): log-mel
+     within 1e-3 (fp32 sums in another order, amplified by the log near
+     the 1e-5 clamp), the gradient through MelFunction within 1e-5 *
+     max|plain grad|, with the kernel's, the plain version's and the cuFFT
+     composite's times, the bound and the kernel's own FLOP; then the MRF
+     kernel must refuse a call whose output would need a gradient;
   5. serving path: a Synthesizer at the flagship config_ljs_dap.json width
      plus HiFi-GAN v1 with random weights (seed 0; WN end convs perturbed
      to sd 0.002) answers three requests (one text, a batch of three, one
      with denoising_strength=0.1), then a fixed-duration 608-frame
      decode + vocoder + denoiser runs with stage times and the RTF.
-     mrf.tc_launches (csrc/mrf_tc.cu) must grow by 72 per generator call
-     and mrf.launches (csrc/mrf.cu) by 0. Outputs must be
-     finite and of the expected lengths; the decode and the vocoder of
+     mrf.tc_launches (csrc/mrf_tc.cu) must grow by 72 per generator call,
+     mrf.stack_launches and mrf.launches (csrc/mrf.cu) by 0. Outputs must
+     be finite and of the expected lengths; the decode and the vocoder of
      the 608-frame utterance are also held against the CPU plain path;
-  6. training path: python -m radtts_tpu_torch.train_vocoder's main runs 5
+  6. HiFi-GAN V2 serving: the generator of the public config_v2.json (v1
+     with upsample_initial_channel 128; random weights, seed 5) on a
+     seeded 608-frame mel, stages (1, 4864, 64), (1, 38912, 32), (1, 77824,
+     16), (1, 155648, 8): vocoder ms (median of 3, synchronised), device
+     time by kernel under the profiler; per generator call
+     mrf.tc_launches must grow by 36, mrf.stack_launches by 2 and
+     mrf.launches by 0; the waveform within 1e-3 * max of the CPU plain
+     path;
+  7. training path: python -m radtts_tpu_torch.train_vocoder's main runs 5
      steps of HiFi-GAN v1 with the full discriminators at batch 16,
      segment 8192, on 4 seeded 2 s wavs, and checkpoints at the last step.
      Per-step ms and the five losses are printed; the losses must be
      finite, mel.launches must grow by 2, mrf.tc_launches by 72 and
-     mrf.launches by 0 per step,
+     mrf.stack_launches and mrf.launches by 0 per step,
      and the checkpoints must reload. One more step runs under the
      profiler, and one step at batch 2 on the card is held against the
      same step on the CPU plain path from the same state (losses and
      updates) and its generator gradients against the step in float64;
-  7. the {"kernels": [...]} line with the three kernels.
+  8. the {"kernels": [...]} line with the four kernels (mrf_tc,
+     mrf_stack, mrf_conv, mel) and their launches by path (serve,
+     serve_v2, train).
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
@@ -79,14 +93,17 @@ HIFIGAN_V1 = {
     "resblock_kernel_sizes": [3, 7, 11],
     "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
 }
+# HiFi-GAN V2: jik876/hifi-gan config_v2.json, v1 with 128 initial channels
+HIFIGAN_V2 = dict(HIFIGAN_V1, upsample_initial_channel=128)
 MAX_FRAMES = 608            # 608 * 256 / 22050 Hz = 7.06 s of audio
 STAGES = [(1, 4864, 256), (1, 38912, 128), (1, 77824, 64), (1, 155648, 32)]
 TRAIN_STAGES = [(16, 256, 256), (16, 2048, 128),    # discriminator pass
                 (16, 4096, 64), (16, 8192, 32)]
 RAGGED = [(2, 997, 256), (2, 997, 128), (2, 997, 64), (2, 997, 32)]
-# csrc/mrf.cu's widths (HiFi-GAN v2's and smaller vocoders' last stages)
-CONV_STAGES = [(1, 77824, 16), (1, 155648, 8)]
-CONV_RAGGED = [(2, 997, 16)]
+# csrc/mrf_stack.cu's widths: HiFi-GAN V2's last two stages at 608 frames
+STACK_STAGES = [(1, 77824, 16), (1, 155648, 8)]
+STACK_RAGGED = [(2, 997, 16), (2, 997, 8), (2, 50, 16)]   # 50 < one tile
+CONV_ONLY = [(2, 997, 48)]       # a width that only csrc/mrf.cu takes
 MEL_SHAPES = [(16, 8192), (1, 155648), (3, 9001)]   # training, flagship
 TRAIN_STEPS, TRAIN_BATCH, SEGMENT = 5, 16, 8192      # train_vocoder.py CLI
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -167,6 +184,7 @@ def tc_tiles(C):
     return [(64, 1), (64, 2), (128, 1), (128, 2)]
 
 
+STACK_TILES = [200, 295, 352, 394, 400, 512]   # stack kernel tile rows
 CHAIN_PASSES = 49   # (B, T, C) passes of the 18-launch chain, see below
 
 
@@ -191,15 +209,21 @@ def mrf_bound(B, T, C, ks=(3, 7, 11)):
             chain_bytes / HBM_BYTES * 1e3)
 
 
+KERNEL_OF_ROUTE = {"tc": "mrf_tc", "stack": "mrf_stack", "conv": "mrf_conv"}
+
+
 def phase_kernels(mrf_mod, dev):
     gen = torch.Generator(dev).manual_seed(1)
-    stages, max_err = [], {"mrf_tc": 0.0, "mrf_conv": 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stages = []
+    max_err = {"mrf_tc": 0.0, "mrf_stack": 0.0, "mrf_conv": 0.0}
     inputs = {}
-    timed_shapes = STAGES + TRAIN_STAGES + CONV_STAGES
-    for B, T, C in STAGES + TRAIN_STAGES + RAGGED + CONV_STAGES + CONV_RAGGED:
+    timed_shapes = STAGES + TRAIN_STAGES + STACK_STAGES
+    for B, T, C in (STAGES + TRAIN_STAGES + RAGGED + STACK_STAGES
+                    + STACK_RAGGED + CONV_ONLY):
         x = torch.randn(B, T, C, device=dev, generator=gen)
         w = random_mrf_weights(C, dev, gen)
-        kernel = "mrf_tc" if mrf_mod.use_tensor_cores(C) else "mrf_conv"
+        kernel = KERNEL_OF_ROUTE[mrf_mod.mrf_route(C)]
         got = mrf_mod.mrf(x, w)
         ref = mrf_mod.mrf_plain(x, w)
         torch.cuda.synchronize()
@@ -215,6 +239,18 @@ def phase_kernels(mrf_mod, dev):
         if kernel == "mrf_tc":
             row["grid"] = list(mrf_mod.tc_grid(B, T, C))
             row["tile"] = list(mrf_mod.tc_tile(C))
+        elif kernel == "mrf_stack":
+            tile = mrf_mod.stack_tile(T, B, sms)
+            row["tile_rows"] = tile
+            row["grid"] = [-(-T // tile), B]
+        if C <= 64 and kernel != "mrf_conv":
+            # the kernel these stages ran before, on the same inputs
+            conv = mrf_mod.mrf_cuda(x, w, route="conv")
+            row["conv_route_max_abs_err"] = (conv - ref).abs().max().item()
+            max_err["mrf_conv"] = max(max_err["mrf_conv"],
+                                      row["conv_route_max_abs_err"])
+            if not row["conv_route_max_abs_err"] <= 1e-4 * scale:
+                raise AssertionError(f"mrf_conv disagrees at {(B, T, C)}")
         if (B, T, C) in timed_shapes:
             xc = x.transpose(1, 2).contiguous()
             tw = [tuple(t.permute(0, 3, 2, 1).contiguous()
@@ -230,41 +266,43 @@ def phase_kernels(mrf_mod, dev):
                 bound_ms=bound_ms, bound_by=bound_by,
                 fp32_fma_bound_ms=fp32_bound_ms,
                 chain_bytes_floor_ms=chain_ms, gflop=flop / 1e9)
-            if kernel == "mrf_tc" and C <= 64:
-                # the kernel these stages ran before, on the same inputs
-                conv = mrf_mod.mrf_cuda(x, w, route="conv")
-                row["conv_route_max_abs_err"] = (conv - ref).abs().max().item()
-                if not row["conv_route_max_abs_err"] <= 1e-4 * scale:
-                    raise AssertionError(f"mrf_conv disagrees at {(B, T, C)}")
+            if "conv_route_max_abs_err" in row:
                 row["conv_route_ms"] = cuda_ms(
                     lambda: mrf_mod.mrf_cuda(x, w, route="conv"))
             row["tflops"] = flop / row["ms"] / 1e9
-            row["serving"] = (B, T, C) in STAGES + CONV_STAGES
+            row["serving"] = (B, T, C) in STAGES + STACK_STAGES
             stages.append(row)
             inputs[(B, T, C)] = (x, w)
         log(row)
     return stages, max_err, inputs
 
 
-def phase_tc_tiles(mrf_mod, inputs):
-    """The tensor-core kernel's tile shapes (TN, NWG) at the serving stages
-    it runs, each held to the same limit as the chosen one."""
-    for B, T, C in STAGES:
-        if not mrf_mod.use_tensor_cores(C):
-            continue
+def phase_tiles(mrf_mod, inputs):
+    """The tensor-core kernel's tile shapes (TN, NWG) at the v1 serving
+    stages and the stack kernel's tile rows at the V2 ones, each held to
+    the same limit as the chosen one."""
+    sweeps = [(shape, "tc", tc_tiles(shape[2])) for shape in STAGES]
+    sweeps += [(shape, "stack", STACK_TILES) for shape in STACK_STAGES]
+    for (B, T, C), route, tiles in sweeps:
         x, w = inputs[(B, T, C)]
         ref = mrf_mod.mrf_plain(x, w)
         scale = ref.abs().max().item()
-        for tile in tc_tiles(C):
-            err = (mrf_mod.mrf_cuda(x, w, tile) - ref).abs().max().item()
+        chosen = (mrf_mod.tc_tile(C) if route == "tc" else mrf_mod.stack_tile(
+            T, B, torch.cuda.get_device_properties(x.device)
+            .multi_processor_count))
+        for tile in tiles:
+            err = (mrf_mod.mrf_cuda(x, w, tile, route) - ref).abs().max(
+                ).item()
             if not err <= 1e-4 * scale:
-                raise AssertionError(f"mrf_tc tile {tile} disagrees at "
+                raise AssertionError(f"{route} tile {tile} disagrees at "
                                      f"{(B, T, C)}: {err} > 1e-4 * {scale}")
-            log({"phase": "mrf_tc_tiles", "shape": [B, T, C],
-                 "tile": list(tile), "chosen": tile == mrf_mod.tc_tile(C),
-                 "grid": list(mrf_mod.tc_grid(B, T, C, tile)),
-                 "max_abs_err": err,
-                 "ms": cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, tile))})
+            row = {"phase": f"mrf_{route}_tiles", "shape": [B, T, C],
+                   "tile": tile, "chosen": tile == chosen,
+                   "max_abs_err": err,
+                   "ms": cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, tile, route))}
+            if route == "tc":
+                row["grid"] = list(mrf_mod.tc_grid(B, T, C, tile))
+            log(row)
 
 
 def mel_bound(B, n, fb_nnz, n_fft=1024, hop=256, n_mels=80):
@@ -274,23 +312,29 @@ def mel_bound(B, n, fb_nnz, n_fft=1024, hop=256, n_mels=80):
     filterbank's fb_nnz nonzeros and one log per mel, over the fp32 rate;
     against the audio, the window and the filterbank's nonzeros read once
     and the log-mel written once, over the HBM rate. Also returns the
-    kernel's own FLOP, a windowed DFT by products (2 n_fft (n_fft/2+1) 2
-    per frame) and a dense mel projection."""
+    kernel's own FLOP (csrc/mel.cu): n_fft window products, the Stockham
+    stages of the n_fft/2-point complex FFT (34 per radix-4 butterfly, 10
+    per radix-2), 16 per unpacked bin, the magnitudes, the sparse mel sums
+    and the logs."""
+    from radtts_tpu_torch.ops.mel import fft_radices
+
     frames = B * (1 + n // hop)
     n_freq = n_fft // 2 + 1
     flop = frames * (2.5 * n_fft * math.log2(n_fft) + 4.0 * n_freq
                      + 2.0 * fb_nnz + n_mels)
     nbytes = 4.0 * (B * n + n_fft + fb_nnz + frames * n_mels)
     t_ops, t_bytes = flop / FP32_FLOPS, nbytes / HBM_BYTES
-    design_flop = frames * (2.0 * n_fft * n_freq * 2 + 2.0 * n_freq * n_mels)
+    m = n_fft // 2
+    fft_flop = sum((m // r) * (34 if r == 4 else 10) for r in fft_radices(m))
+    design_flop = frames * (n_fft + fft_flop + 16.0 * (m - 1) + 4.0 * n_freq
+                            + 2.0 * fb_nnz + n_mels)
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", design_flop)
 
 
 def composite_mel(a, window, fb):
-    """The cuFFT composite: torch.stft + mel matmul + log(clamp). It does
-    ~20x fewer operations than the kernel's DFT by products; timed for
-    information."""
+    """The cuFFT composite: torch.stft + mel matmul (dense) + log(clamp),
+    three or more launches; timed for information."""
     spec = torch.stft(a, 1024, 256, 1024, window=window, center=True,
                       pad_mode="reflect", return_complex=True).abs()
     return torch.log(torch.clamp(fb @ spec, min=1e-5)).transpose(1, 2)
@@ -432,6 +476,7 @@ def phase_main_path(synth, mrf_mod, dev, power):
     n_generator_calls = 0
     mrf_mod.mrf.launches = 0
     mrf_mod.mrf.tc_launches = 0
+    mrf_mod.mrf.stack_launches = 0
     requests = [(TEXTS[0], {}), (TEXTS, {}),
                 (TEXTS[1], {"denoising_strength": 0.1, "sigma": 0.6})]
     for texts, kw in requests:
@@ -465,12 +510,14 @@ def phase_main_path(synth, mrf_mod, dev, power):
         profile = profile_run(utterance)
         n_generator_calls += len(runs) + 1
     launches = {"mrf_conv": mrf_mod.mrf.launches,
-                "mrf_tc": mrf_mod.mrf.tc_launches}
+                "mrf_tc": mrf_mod.mrf.tc_launches,
+                "mrf_stack": mrf_mod.mrf.stack_launches}
     if audio.shape != (1, MAX_FRAMES * hop) or not torch.isfinite(
             audio).all():
         raise AssertionError(f"bad flagship audio {tuple(audio.shape)}")
-    if launches != {"mrf_conv": 0, "mrf_tc": 72 * n_generator_calls}:
-        raise AssertionError(f"MRF launches {launches} != 0 + 72 x "
+    if launches != {"mrf_conv": 0, "mrf_tc": 72 * n_generator_calls,
+                    "mrf_stack": 0}:
+        raise AssertionError(f"MRF launches {launches} != 72 tc x "
                              f"{n_generator_calls} generator calls")
     med = {k: statistics.median(v) for k, v in times.items()}
     audio_s = MAX_FRAMES * hop / synth.sampling_rate
@@ -480,6 +527,53 @@ def phase_main_path(synth, mrf_mod, dev, power):
          "mrf_launches": launches, "generator_calls": n_generator_calls})
     log({"phase": "profile_608", **profile})
     return launches
+
+
+PORT_KERNELS = ("mrf_conv_kernel", "mrf_tc_kernel", "mrf_tc_narrow_kernel",
+                "mrf_stack_kernel", "mel_fft_kernel")
+
+
+def phase_serve_v2(mrf_mod, dev, power):
+    """HiFi-GAN V2 serving: the generator of config_v2.json (random
+    weights, seed 5) on a seeded 608-frame log-mel, counts set to 0 just
+    before and read just after; the waveform against the CPU plain path."""
+    from radtts_tpu_torch.models.hifigan import Generator
+
+    torch.manual_seed(5)
+    vocoder = Generator(HIFIGAN_V2).eval().requires_grad_(False)
+    gen = torch.Generator().manual_seed(6)
+    mel = 2.0 * torch.randn(1, MAX_FRAMES, 80, generator=gen) - 5.0
+    with torch.inference_mode():
+        wav_cpu = vocoder(mel)
+        vocoder.to(dev)
+        mel_dev = mel.to(dev)
+        mrf_mod.mrf.launches = 0
+        mrf_mod.mrf.tc_launches = 0
+        mrf_mod.mrf.stack_launches = 0
+        runs = [timed(lambda: vocoder(mel_dev)) for _ in range(4)]
+        profile = profile_run(lambda: timed(lambda: vocoder(mel_dev)))
+        n_calls = len(runs) + 1
+    launches = {"mrf_conv": mrf_mod.mrf.launches,
+                "mrf_tc": mrf_mod.mrf.tc_launches,
+                "mrf_stack": mrf_mod.mrf.stack_launches}
+    wav = runs[-1][0]
+    if wav.shape != (1, MAX_FRAMES * 256) or not torch.isfinite(wav).all():
+        raise AssertionError(f"bad V2 audio {tuple(wav.shape)}")
+    if launches != {"mrf_conv": 0, "mrf_tc": 36 * n_calls,
+                    "mrf_stack": 2 * n_calls}:
+        raise AssertionError(f"V2 MRF launches {launches} != 36 tc + 2 "
+                             f"stack x {n_calls} generator calls")
+    err = (wav.cpu() - wav_cpu).abs().max().item()
+    scale = wav_cpu.abs().max().item()
+    ms = [t for _, t in runs[1:]]     # the first call is the warm-up
+    log({"phase": "serve_v2_608", "card": power, "vocoder_ms": ms,
+         "vocoder_ms_median": statistics.median(ms),
+         "wav_max_abs_err": err, "wav_max_abs": scale,
+         "mrf_launches": launches, "generator_calls": n_calls})
+    log({"phase": "profile_v2_608", **profile})
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"V2 vocoder on the card vs CPU: {err}")
+    return launches, statistics.median(ms)
 
 
 def profile_run(fn, top=12):
@@ -524,9 +618,7 @@ def profile_run(fn, top=12):
                                for e in device_events}),
             "port_kernels": [{"name": n[:60], "count": c, "ms": ms}
                              for n, c, ms in kernels
-                             if "mrf_conv_kernel" in n or "mrf_tc_kernel" in n
-                             or "mrf_tc_narrow_kernel" in n
-                             or "mel_kernel" in n],
+                             if any(name in n for name in PORT_KERNELS)],
             "device_idle_share": (None if busy_ms is None
                                   else 1.0 - busy_ms / wall_ms),
             "top_kernels": [{"name": n[:90], "count": c, "ms": ms}
@@ -580,6 +672,7 @@ def phase_training(mel_mod, mrf_mod, dev, data_config):
         mel_mod.mel.launches = 0
         mrf_mod.mrf.launches = 0
         mrf_mod.mrf.tc_launches = 0
+        mrf_mod.mrf.stack_launches = 0
         history = train_main([
             "-c", config_path, "-k", hifigan_path, "-o", out,
             "--steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_BATCH),
@@ -587,14 +680,15 @@ def phase_training(mel_mod, mrf_mod, dev, data_config):
             "--seed", "0"])
         launches = {"mel": mel_mod.mel.launches,
                     "mrf_conv": mrf_mod.mrf.launches,
-                    "mrf_tc": mrf_mod.mrf.tc_launches}
+                    "mrf_tc": mrf_mod.mrf.tc_launches,
+                    "mrf_stack": mrf_mod.mrf.stack_launches}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         for h in history:
             if not all(np.isfinite(v) for v in h.values()):
                 raise AssertionError(f"non-finite training step {h}")
         if len(history) != TRAIN_STEPS or launches != {
                 "mel": 2 * TRAIN_STEPS, "mrf_conv": 0,
-                "mrf_tc": 72 * TRAIN_STEPS}:
+                "mrf_tc": 72 * TRAIN_STEPS, "mrf_stack": 0}:
             raise AssertionError(f"{len(history)} steps, launches {launches}")
         tag = f"{TRAIN_STEPS:08d}"
         generator_from_reference(torch.load(os.path.join(
@@ -742,26 +836,32 @@ def main():
          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = {name: pool.submit(fn) for name, fn in (
-            ("mrf_conv", mrf_mod.build), ("mrf_tc", mrf_mod.build_tc),
-            ("mel", mel_mod.build))}
+            ("mrf_tc", mrf_mod.build_tc), ("mrf_stack", mrf_mod.build_stack),
+            ("mrf_conv", mrf_mod.build), ("mel", mel_mod.build))}
         for name, fut in builds.items():
             _, nvcc_log, build_s = fut.result()
             log({"phase": "build", "kernel": name, "seconds": build_s,
                  "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
                            if "registers" in ln or "spill" in ln
-                           or "arning" in ln]})
+                           or "arning" in ln or "Compiling entry" in ln]})
     tc_lib = mrf_mod._tc_lib
-    log({"phase": "mrf_tc_smem", "bytes_per_block": {
+    log({"phase": "smem", "mrf_tc_bytes_per_block": {
         f"C{C}:{tn}x{nwg}": tc_lib.radtts_mrf_tc_smem_bytes(C, tn, nwg)
         for C in (256, 64, 32) for tn, nwg in tc_tiles(C)},
-        "narrow_weight_stages": {
+        "mrf_tc_narrow_weight_stages": {
             f"C{C}:{C}x{nwg}": tc_lib.radtts_mrf_tc_weight_stages(C, nwg)
-            for C in (64, 32) for nwg in (1, 2)}})
+            for C in (64, 32) for nwg in (1, 2)},
+        "mrf_stack_bytes_per_block": {
+            f"C{C}:{rows}": mrf_mod._stack_lib.radtts_mrf_stack_smem_bytes(
+                C, rows, 11) for C in (16, 8) for rows in STACK_TILES},
+        "mel_bytes_per_block": mel_mod._lib.radtts_mel_smem_bytes(
+            1024, mel_mod.kernel_constants(1024, 1024, 22050, 80, 0.0,
+                                           8000.0)[2].size)})
 
     stages, max_err, inputs = phase_kernels(mrf_mod, dev)
-    phase_tc_tiles(mrf_mod, inputs)
+    phase_tiles(mrf_mod, inputs)
     del inputs
     with open(CONFIG) as f:
         data_config = json.load(f)["data_config"]
@@ -790,26 +890,34 @@ def main():
 
     serve_launches = phase_main_path(synth, mrf_mod, dev, power)
     del synth, model, vocoder, denoiser
+    v2_launches, v2_ms = phase_serve_v2(mrf_mod, dev, power)
     train_launches = phase_training(mel_mod, mrf_mod, dev, data_config)
     phase_train_profile(dev, mel_kw)
     phase_train_vs_cpu(dev, mel_kw)
 
-    def mrf_entry(kernel, source, replaces, also_replaces):
-        serving = [s for s in stages if s["kernel"] == kernel and s["serving"]]
+    def mrf_entry(kernel, source, replaces, also_replaces, shapes=None,
+                  ms_key="ms"):
+        """Times summed over the serving stages the kernel runs (`shapes`:
+        over these stages, with its time under ms_key)."""
+        serving = [s for s in stages if (s["kernel"] == kernel and s["serving"]
+                                         if shapes is None
+                                         else tuple(s["shape"]) in shapes)]
 
         def total(key):
             return sum(s[key] for s in serving)
+        by_path = {"serve": serve_launches[kernel],
+                   "serve_v2": v2_launches[kernel],
+                   "train": train_launches[kernel]}
         return {
             "name": kernel,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
             "also_replaces": also_replaces,
-            "launches": serve_launches[kernel] + train_launches[kernel],
-            "launches_by_path": {"serve": serve_launches[kernel],
-                                 "train": train_launches[kernel]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max_err[kernel],
-            "ms": total("ms"),
+            "ms": total(ms_key),
             "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": ("operations" if all(
@@ -818,10 +926,10 @@ def main():
             "chain_bytes_floor_ms": total("chain_bytes_floor_ms"),
             "library_ms": total("library_ms"),
             "stages": [{k: s[k] for k in (
-                "shape", "grid", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "fp32_fma_bound_ms", "chain_bytes_floor_ms",
-                "conv_route_ms", "max_abs_err") if k in s}
-                for s in stages if s["kernel"] == kernel],
+                "shape", "grid", "tile_rows", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "fp32_fma_bound_ms",
+                "chain_bytes_floor_ms", "conv_route_ms", "max_abs_err")
+                if k in s} for s in serving],
         }
 
     train_row = mel_rows[0]   # (16, 8192): the training step's shape
@@ -830,23 +938,32 @@ def main():
                        "radtts_tpu/ops/pallas_mrf.py:177",
                        ["radtts_tpu/ops/pallas_mrf.py:121 (at C=128, 64)",
                         "radtts_tpu/ops/pallas_mrf.py:231 (C=32)"]),
-             note="sums over the four MRF stages of one 608-frame "
+             note="sums over the four v1 MRF stages of one 608-frame "
                   "utterance; bound_ms at the 3xTF32 rate (495/3 TFLOP/s), "
                   "fp32_fma_bound_ms at 67 TFLOP/s"),
+        dict(mrf_entry("mrf_stack", "radtts_tpu_torch/csrc/mrf_stack.cu",
+                       "radtts_tpu/ops/pallas_mrf.py:121 (at C=16, 8)", []),
+             note="sums over HiFi-GAN V2's C=16 and C=8 stages of one "
+                  "608-frame utterance, one launch each; bound_ms at the "
+                  "3xTF32 rate, fp32_fma_bound_ms at 67 TFLOP/s (its "
+                  "products are fp32 FMA); conv_route_ms per stage is "
+                  "csrc/mrf.cu on the same inputs", v2_vocoder_ms=v2_ms),
         dict(mrf_entry("mrf_conv", "radtts_tpu_torch/csrc/mrf.cu",
                        "radtts_tpu/ops/pallas_mrf.py:121",
-                       ["radtts_tpu/ops/pallas_mrf.py:231"]),
-             note="no HiFi-GAN v1 stage runs it (0 launches on both "
-                  "paths); times summed over C=16 at 77824 frames and C=8 "
-                  "at 155648 frames, the last stages of a vocoder with "
-                  "upsample_initial_channel 128; bounds at the 3xTF32 and "
-                  "fp32-FMA rates"), {
+                       ["radtts_tpu/ops/pallas_mrf.py:231"],
+                       shapes=STACK_STAGES, ms_key="conv_route_ms"),
+             note="runs no stage of HiFi-GAN v1 or V2 (0 launches on every "
+                  "path); it takes the widths no other kernel takes (held "
+                  "at (2, 997, 48)); times are route='conv' on the V2 "
+                  "C=16 and C=8 stages' inputs, summed, with their plain, "
+                  "library and bound times"), {
         "name": "mel",
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mel.cu",
         "replaces": "radtts_tpu/ops/pallas_mel.py:74",
         "launches": train_launches["mel"],
-        "launches_by_path": {"serve": 0, "train": train_launches["mel"]},
+        "launches_by_path": {"serve": 0, "serve_v2": 0,
+                             "train": train_launches["mel"]},
         "max_abs_err": mel_err,
         "ms": train_row["ms"],
         "plain_ms": train_row["plain_ms"],
@@ -854,13 +971,15 @@ def main():
         "bound_by": train_row["bound_by"],
         "library_ms": None,
         "composite_ms": train_row["composite_ms"],
+        "design_gflop": train_row["design_gflop"],
         "note": "times at (16, 8192), the training step's shape; no single "
                 "PyTorch call computes the log-mel: composite_ms is the "
                 "cuFFT composite (torch.stft + mel matmul + log(clamp)), "
-                "~20x fewer operations, timed for information",
+                "timed for information",
         "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
                                       "composite_ms", "bound_ms", "bound_by",
-                                      "max_abs_err", "grad_max_abs_err")}
+                                      "design_gflop", "max_abs_err",
+                                      "grad_max_abs_err")}
                    for r in mel_rows],
     }]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})

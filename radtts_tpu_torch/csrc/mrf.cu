@@ -3,12 +3,13 @@
 //
 // Replaces the TPU kernels of radtts_tpu/ops/pallas_mrf.py: pallas_mrf
 // and pallas_mrf_folded (there with 4 frames folded into 128 lanes to fill
-// the MXU; here unfolded) at the widths csrc/mrf_tc.cu does not take: C not
-// 32, 64 or a multiple of 64 from 128, such as the C=16 and C=8 stages of
-// smaller vocoders (the routing rule is ops/mrf.py:use_tensor_cores; every
-// HiFi-GAN v1 stage runs csrc/mrf_tc.cu). It takes any C % 4 == 0. The
-// host wrapper (radtts_tpu_torch/ops/mrf.py:mrf) chains 18 launches per
-// stage:
+// the MXU; here unfolded) at the widths no other kernel takes: C % 4 == 0
+// that is neither a csrc/mrf_tc.cu width (32, 64, multiples of 64 from
+// 128) nor a csrc/mrf_stack.cu width (C <= 16), e.g. C=48 or 96 (the
+// routing rule is ops/mrf.py:mrf_route). No HiFi-GAN v1 or V2 stage runs
+// it. It takes any C % 4 == 0, so `mrf_cuda(..., route="conv")` times it
+// against the other two on the same inputs. The host wrapper
+// (radtts_tpu_torch/ops/mrf.py:mrf) chains 18 launches per stage:
 //
 //   for k in (3, 7, 11), d in (1, 3, 5):
 //       xt = conv_{k,d}(lrelu(xr)) + b1              (out = xt)

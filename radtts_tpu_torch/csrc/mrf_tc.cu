@@ -1,8 +1,8 @@
 // One fused convolution of the HiFi-GAN multi-receptive-field (MRF)
 // resblock chain on Hopper's tensor cores, channels-last, fp32-accurate,
-// for sm_90a. It serves the C=256, 128, 64 and 32 stages; csrc/mrf.cu
-// serves the widths that are not one of those (C=16, 8; the routing rule
-// is ops/mrf.py:use_tensor_cores). Two kernels: mrf_tc_kernel for C=256
+// for sm_90a. It serves the C=256, 128, 64 and 32 stages; csrc/mrf_stack.cu
+// serves C <= 16 and csrc/mrf.cu the other widths (the routing rule is
+// ops/mrf.py:mrf_route). Two kernels: mrf_tc_kernel for C=256
 // and C=128 (the design below), mrf_tc_narrow_kernel for C=64 and C=32
 // (its own section further down).
 //

@@ -3,8 +3,9 @@ magnitude, slaney mel projection, log(clamp(., 1e-5)).
 
 Port of the TPU kernel radtts_tpu/ops/pallas_mel.py:mel_spectrogram_pallas.
 On the card `mel` launches the hand-written kernel in csrc/mel.cu once per
-call (see its header for the design and what bounds it); `mel_plain` is the
-same function in plain PyTorch, which the CPU path and the tests use.
+call: a real FFT of each frame in shared memory (see its header for the
+design and what bounds it); `mel_plain` is the same function in plain
+PyTorch (a matmul DFT), which the CPU path and the tests use.
 Gradients with respect to the audio go through mel_plain: the kernel has no
 backward, as the TPU kernel had none.
 """
@@ -41,37 +42,61 @@ def build():
     global _lib
     lib, log, seconds = build_library("mel")
     fn = lib.radtts_mel
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.radtts_mel_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.radtts_mel_smem_bytes.restype = ctypes.c_int
     _lib = lib
     return lib, log, seconds
+
+
+def fft_radices(m):
+    """The radices of csrc/mel.cu's Stockham stages for a complex FFT of
+    size m (a power of two): radix 4 while 4 divides what is left, then
+    one radix 2 (m = 512: 4, 4, 4, 4, 2)."""
+    radices = []
+    while m % 4 == 0:
+        radices.append(4)
+        m //= 4
+    if m == 2:
+        radices.append(2)
+    elif m != 1:
+        raise ValueError("fft_radices: size is not a power of two")
+    return radices
 
 
 @functools.lru_cache(maxsize=8)
 def kernel_constants(filter_length, win_length, sampling_rate, n_mels, fmin,
                      fmax):
-    """The kernel's constant inputs, float32/int32 numpy:
+    """The kernel's constant inputs, float32/int32 numpy, each rounded once
+    from float64:
 
-    bases (n_fft, n_fft//2, 2): the window folded into cos / sin rows,
-      bases[j, c] = w_j (cos, sin)(2 pi j c / n_fft); column 0 holds DC in
-      [..., 0] and Nyquist, w_j cos(pi j), in [..., 1];
-    fb (n_mels, n_fft//2+1): the slaney filterbank;
-    ranges (n_mels, 2): [first, last + 1) of each filter's nonzero bins."""
+    window (n_fft,): the periodic Hann window of win_length, zero-padded
+      to n_fft;
+    twiddles (n_fft, 2): W^e = exp(-2 pi i e / n_fft) as (cos, -sin), e <
+      n_fft, for the FFT of size n_fft/2 (W^{2e}) and the real-FFT
+      unpacking (W^k);
+    fb_packed (nnz,): the slaney filterbank's weights over each filter's
+      nonzero bins, one filter after another;
+    ranges (n_mels, 3): each filter's first and last + 1 nonzero bin and
+      the offset of its weights in fb_packed."""
     n_fft = filter_length
-    half = n_fft // 2
-    j = np.arange(n_fft, dtype=np.float64)[:, None]
-    ang = 2.0 * np.pi * j * np.arange(half)[None, :] / n_fft
-    w = hann_window(win_length, n_fft).astype(np.float64)[:, None]
-    bases = np.stack([np.cos(ang) * w, np.sin(ang) * w], axis=-1)
-    bases[:, 0, 1] = w[:, 0] * np.cos(np.pi * j[:, 0])
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    twiddles = np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
+    window = hann_window(win_length, n_fft).astype(np.float64)
     fb = mel_basis(sampling_rate, n_fft, n_mels, fmin, fmax)
     nz = fb != 0
     ranges = np.stack([nz.argmax(1), n_fft // 2 + 1 - nz[:, ::-1].argmax(1)],
                       axis=1)
     ranges[~nz.any(1)] = 0
-    return (bases.astype(np.float32), np.ascontiguousarray(fb, np.float32),
-            ranges.astype(np.int32))
+    lengths = ranges[:, 1] - ranges[:, 0]
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    fb_packed = np.concatenate([fb[m, lo:hi] for m, (lo, hi) in
+                                enumerate(ranges)]).astype(np.float32)
+    return (window.astype(np.float32), twiddles.astype(np.float32),
+            fb_packed, np.concatenate([ranges, offsets[:, None]],
+                                      axis=1).astype(np.int32))
 
 
 @functools.lru_cache(maxsize=8)
@@ -87,21 +112,24 @@ def _launch(audio, kw):
     if audio.dtype != torch.float32 or not audio.is_contiguous():
         raise ValueError("mel: audio must be contiguous float32, got "
                          f"{audio.dtype}")
-    if n_fft % 4 or hop % 4 or kw["win_length"] > n_fft:
-        raise ValueError(f"mel: n_fft={n_fft} and hop={hop} must be "
-                         "multiples of 4, win_length <= n_fft")
+    if n_fft < 16 or n_fft > 4096 or n_fft & (n_fft - 1) or hop <= 0 \
+            or kw["win_length"] > n_fft:
+        raise ValueError(f"mel: n_fft={n_fft} must be a power of two in "
+                         f"[16, 4096], hop={hop} positive, win_length <= "
+                         "n_fft")
     if n <= n_fft // 2:
         raise ValueError(f"mel: {n} samples do not cover the reflect pad of "
                          f"{n_fft // 2}")
     if _lib is None:
         build()
-    bases, fb, ranges = _device_constants(
+    window, twiddles, fb, ranges = _device_constants(
         audio.device, n_fft, kw["win_length"], kw["sampling_rate"], n_mels,
         kw["mel_fmin"], kw["mel_fmax"])
     out = torch.empty(B, 1 + n // hop, n_mels, device=audio.device)
     err = _lib.radtts_mel(
-        audio.data_ptr(), bases.data_ptr(), fb.data_ptr(), ranges.data_ptr(),
-        out.data_ptr(), B, n, n_fft, hop, n_mels, CLIP_VAL,
+        audio.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
+        fb.data_ptr(), ranges.data_ptr(), out.data_ptr(), B, n, n_fft, hop,
+        n_mels, fb.numel(), CLIP_VAL,
         torch.cuda.current_stream(audio.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mel: kernel launch failed with cudaError {err} "

@@ -6,14 +6,20 @@
 lrelu slope 0.1, every conv zero-padded at 0 and T.
 
 Port of the TPU kernels in radtts_tpu/ops/pallas_mrf.py (pallas_mrf,
-pallas_mrf_wide, pallas_mrf_folded: one function at four widths). On the
-card `mrf` chains 18 launches of one of two hand-written kernels (see
-their headers for the design and what bounds them): csrc/mrf_tc.cu, a
-3xTF32 implicit GEMM on the tensor cores, for the stages that
-`use_tensor_cores` picks (C=256, 128, 64 and 32), and csrc/mrf.cu, fp32
-FMA on the CUDA cores, for the other widths (C=16 and C=8 of smaller
-vocoders). `mrf_plain` is the same function in plain PyTorch, which the
-CPU path, the tests and every pass that needs gradients use.
+pallas_mrf_wide, pallas_mrf_folded: one function at every width). On the
+card `mrf` runs one of three hand-written kernels, by `mrf_route(C)` (see
+their headers for the design and what bounds them):
+  "tc"    csrc/mrf_tc.cu, a 3xTF32 implicit GEMM on the tensor cores, 18
+          launches per stage, at C=256, 128, 64 and 32 (every HiFi-GAN v1
+          stage), counted by mrf.tc_launches;
+  "stack" csrc/mrf_stack.cu, the whole stack in one launch with every
+          intermediate in shared memory, fp32 FMA, at C <= 16 (HiFi-GAN
+          V2's C=16 and C=8 stages), counted by mrf.stack_launches;
+  "conv"  csrc/mrf.cu, one fp32-FMA conv per launch, 18 per stage, at the
+          widths nothing else takes (e.g. C=48, 96), counted by
+          mrf.launches.
+`mrf_plain` is the same function in plain PyTorch, which the CPU path,
+the tests and every pass that needs gradients use.
 
 weights: one dict per resblock, {w1: (3, k, C, C), b1: (3, C), w2: (3, k, C,
 C), b2: (3, C)}, w*[i] being the dilation-i conv taps-major (k, C_in, C_out)
@@ -22,6 +28,7 @@ as in the JAX package's packed layout.
 
 import collections
 import ctypes
+import functools
 import weakref
 
 import torch
@@ -34,9 +41,13 @@ LRELU_SLOPE = 0.1
 
 TC_CK = 32            # input channels per chunk of csrc/mrf_tc.cu (kCK)
 PACK_CACHE_SIZE = 8   # packed stages kept (HiFi-GAN v1 has 4)
+STACK_MAX_TILE = 400  # rows per block of csrc/mrf_stack.cu (see stack_tile)
+STACK_WIDTHS = (4, 8, 12, 16)
+STACK_MAX_RESBLOCKS = 4
 
 _lib = None
 _tc_lib = None
+_stack_lib = None
 _packs = collections.OrderedDict()
 
 
@@ -95,10 +106,52 @@ def build_tc():
     return lib, log, seconds
 
 
-def use_tensor_cores(C):
-    """The routing rule: which stage widths run csrc/mrf_tc.cu on the card
-    (C=256, 128, 64 and 32); the others run csrc/mrf.cu."""
-    return C in (32, 64) or (C >= 128 and C % 64 == 0)
+def build_stack():
+    """Compile csrc/mrf_stack.cu and load it. Returns (library, nvcc
+    output, build seconds)."""
+    global _stack_lib
+    lib, log, seconds = build_library("mrf_stack")
+    fn = lib.radtts_mrf_stack
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.radtts_mrf_stack_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.radtts_mrf_stack_smem_bytes.restype = ctypes.c_int
+    _stack_lib = lib
+    return lib, log, seconds
+
+
+def mrf_route(C):
+    """The routing rule, the kernel a stage of width C runs on the card:
+    "tc" (csrc/mrf_tc.cu) at C=32, 64 and multiples of 64 from 128;
+    "stack" (csrc/mrf_stack.cu) at C=4, 8, 12, 16; "conv" (csrc/mrf.cu)
+    at the other multiples of 4."""
+    if C in (32, 64) or (C >= 128 and C % 64 == 0):
+        return "tc"
+    return "stack" if C in STACK_WIDTHS else "conv"
+
+
+def stack_tile(T, B=1, sms=None, max_rows=STACK_MAX_TILE):
+    """Rows per block of csrc/mrf_stack.cu: the fewest tiles of at most
+    max_rows rows, evened out (T=997: 3 tiles of 333); where the B * tiles
+    blocks fill the card's sms SMs at least once, as many more as make
+    their count a multiple of sms, so every SM gets as many blocks (on 132
+    SMs: T=77824, 264 tiles of 295, two blocks per SM, where 195 of 400
+    left 69 SMs one block; T=155648, 396 of 394). Each block also
+    computes a 6 (k_max - 1)-row halo a side; its 256 threads cover 512
+    rows per pass, so a tile of 400 plus the first conv's region (tile +
+    110 rows at k=11) takes one pass. chip_smoke.py's tile sweep measures
+    the choice."""
+    n = -(-T // max_rows)
+    if sms and B * n >= sms:
+        waves = -(-B * n // sms)
+        n = -(-waves * sms // B)
+    return -(-T // n)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def tc_tile(C):
@@ -171,26 +224,17 @@ def narrow(C, tn):
     return tn == C and C in (32, 64)
 
 
-def stage_pack(weights, tn):
-    """The packed taps of a stage (w1 then w2 of each resblock; tc_pack, or
-    tc_pack_narrow where narrow(C, tn)), kept per weight version: the key
-    is each weight tensor's identity (a weak reference, so a freed tensor
-    whose id is reused cannot hit), its _version, which in-place updates
-    (the optimizer's step, load_state_dict) advance, and its data pointer,
+def _cached_pack(ts, tag, pack):
+    """pack() of the weight tensors ts, kept per weight version: the key is
+    each tensor's identity (a weak reference, so a freed tensor whose id is
+    reused cannot hit), its _version, which in-place updates (the
+    optimizer's step, load_state_dict) advance, and its data pointer,
     which Module.to() and a `.data` assignment change without a new
     version. Serving packs once; training repacks after every update and
     is never stale."""
-    ts = [wd[key] for wd in weights for key in ("w1", "w2")]
-    C = ts[0].shape[-1]
-
-    def pack():
-        with torch.no_grad():
-            taps = torch.cat([t.reshape(-1, C, C) for t in ts])
-            return (tc_pack_narrow(taps) if narrow(C, tn)
-                    else tc_pack(taps, tn))
     if any(t.is_inference() for t in ts):    # no version counter
         return pack()
-    key = (tuple(id(t) for t in ts), tn)
+    key = (tuple(id(t) for t in ts), tag)
     versions = tuple((t._version, t.data_ptr()) for t in ts)
     hit = _packs.get(key)
     if hit is not None and hit[1] == versions and all(
@@ -203,6 +247,36 @@ def stage_pack(weights, tn):
     while len(_packs) > PACK_CACHE_SIZE:
         _packs.popitem(last=False)
     return packed
+
+
+def stage_pack(weights, tn):
+    """The packed taps of a stage for csrc/mrf_tc.cu (w1 then w2 of each
+    resblock; tc_pack, or tc_pack_narrow where narrow(C, tn)), kept per
+    weight version (_cached_pack)."""
+    ts = [wd[key] for wd in weights for key in ("w1", "w2")]
+    C = ts[0].shape[-1]
+
+    def pack():
+        with torch.no_grad():
+            taps = torch.cat([t.reshape(-1, C, C) for t in ts])
+            return (tc_pack_narrow(taps) if narrow(C, tn)
+                    else tc_pack(taps, tn))
+    return _cached_pack(ts, tn, pack)
+
+
+def stack_pack(weights):
+    """A stage's weights in the order csrc/mrf_stack.cu streams them, one
+    conv after another: per resblock and dilation i, w1[i] (k, C, C),
+    b1[i] (C), w2[i] (k, C, C), b2[i] (C), flat; kept per weight version
+    (_cached_pack)."""
+    ts = [wd[key] for wd in weights for key in ("w1", "b1", "w2", "b2")]
+
+    def pack():
+        with torch.no_grad():
+            return torch.cat([wd[key][i].reshape(-1) for wd in weights
+                              for i in range(len(DILATIONS))
+                              for key in ("w1", "b1", "w2", "b2")])
+    return _cached_pack(ts, "stack", pack)
 
 
 def _ptr(t):
@@ -249,12 +323,23 @@ def _tc_conv_launch(x, wp, k, b, d, res, out, acc, acc_scale, tile):
     mrf.tc_launches += 1
 
 
+def _stack_launch(x, packed, ks, out, tile):
+    B, T, C = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    k_args = list(ks) + [0] * (STACK_MAX_RESBLOCKS - len(ks))
+    err = _stack_lib.radtts_mrf_stack(
+        _ptr(x), _ptr(packed), _ptr(out), B, T, C, tile, *k_args, len(ks),
+        LRELU_SLOPE, stream)
+    if err != 0:
+        _raise(err, x, max(ks), DILATIONS)
+    mrf.stack_launches += 1
+
+
 def mrf(x, weights):
     """MRF mean of one stage. x: (B, T, C) float32 -> (B, T, C).
 
-    A CPU tensor runs mrf_plain. A CUDA tensor runs a hand-written kernel
-    (18 launches for three resblocks), or raises: csrc/mrf_tc.cu where
-    use_tensor_cores(C), else csrc/mrf.cu. The kernels have no
+    A CPU tensor runs mrf_plain. A CUDA tensor runs the hand-written
+    kernel that mrf_route(C) names, or raises. The kernels have no
     backward: with grad enabled and x or a weight requiring grad it raises,
     since its output would carry no gradient; differentiate mrf_plain."""
     if x.device.type == "cpu":
@@ -271,9 +356,10 @@ def mrf(x, weights):
 
 
 def mrf_cuda(x, weights, tile=None, route=None):
-    """The card's chain of mrf; `tile` overrides tc_tile(C) for the
-    tensor-core kernel, and `route` ("tc" or "conv") overrides
-    use_tensor_cores(C), to time one kernel against the other."""
+    """The card's kernels of mrf; `route` ("tc", "stack" or "conv")
+    overrides mrf_route(C), to time one kernel against another on the same
+    inputs, and `tile` overrides tc_tile(C) ((TN, NWG), route "tc") or
+    stack_tile(T) (rows, route "stack")."""
     B, T, C = x.shape
     _check("x", x, (B, T, C), x.device)
     if C % 4:
@@ -288,10 +374,24 @@ def mrf_cuda(x, weights, tile=None, route=None):
             _check(f"{key}[{m}]", wd[key], (n, k, C, C), x.device)
         for key in ("b1", "b2"):
             _check(f"{key}[{m}]", wd[key], (n, C), x.device)
-    if route not in (None, "tc", "conv"):
+    route = mrf_route(C) if route is None else route
+    if route not in ("tc", "stack", "conv"):
         raise ValueError(f"mrf: unknown route {route!r}")
 
-    if (use_tensor_cores(C) if route is None else route == "tc"):
+    if route == "stack":
+        if C not in STACK_WIDTHS or len(weights) > STACK_MAX_RESBLOCKS:
+            raise ValueError(f"mrf: the stack kernel takes C in "
+                             f"{STACK_WIDTHS} and at most "
+                             f"{STACK_MAX_RESBLOCKS} resblocks, got C={C}, "
+                             f"{len(weights)}")
+        if _stack_lib is None:
+            build_stack()
+        out = torch.empty_like(x)
+        _stack_launch(x, stack_pack(weights),
+                      [wd["w1"].shape[1] for wd in weights], out,
+                      tile or stack_tile(T, B, _sm_count(x.device)))
+        return out
+    if route == "tc":
         if _tc_lib is None:
             build_tc()
         tile = tile or tc_tile(C)
@@ -331,3 +431,4 @@ def mrf_cuda(x, weights, tile=None, route=None):
 
 mrf.launches = 0        # csrc/mrf.cu launches
 mrf.tc_launches = 0     # csrc/mrf_tc.cu launches
+mrf.stack_launches = 0  # csrc/mrf_stack.cu launches

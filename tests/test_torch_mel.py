@@ -1,7 +1,8 @@
 """The port's log-mel frontend against the JAX package on the CPU: the
 filterbank copy, mel (mel_plain on a CPU tensor) against both the JAX
 mel_spectrogram and the Pallas kernel in interpret mode, the gradient, and
-the host-side constants the CUDA kernel (csrc/mel.cu) reads.
+the CUDA kernel's (csrc/mel.cu) host-side constants and FFT factorisation,
+emulated in float32 numpy.
 
 Tolerance 1e-4 absolute on the log-mel, the JAX package's own between its
 two paths (tests/test_vocoder_audio.py): fp32 sums over 1024 samples in
@@ -23,7 +24,8 @@ from radtts_tpu.ops.stft import dynamic_range_compression as \
 from radtts_tpu.ops.stft import mel_spectrogram as jax_mel_spectrogram
 
 from radtts_tpu_torch.data.mel_filters import mel_filterbank
-from radtts_tpu_torch.ops.mel import kernel_constants, mel, mel_plain
+from radtts_tpu_torch.ops.mel import (fft_radices, kernel_constants, mel,
+                                      mel_plain)
 from radtts_tpu_torch.ops.stft import CLIP_VAL, dynamic_range_compression
 
 MEL_KW = dict(filter_length=1024, hop_length=256, win_length=1024,
@@ -135,36 +137,92 @@ def test_mel_gradient_matches_jax():
                                atol=1e-5 * np.abs(ref).max())
 
 
-def _kernel_emulation(a, consts, hop=256):
-    """The CUDA kernel's arithmetic in float64 numpy, on its packed bases:
-    reflect-indexed frames, DC and Nyquist unpacked from column 0, each
-    filter summed over its nonzero range only."""
-    bases, fb, ranges = consts
-    n_fft, half = bases.shape[0], bases.shape[1]
+def _fft_emulation(a, consts, hop=256):
+    """csrc/mel.cu's arithmetic in float32 numpy: reflect-indexed frames
+    windowed as they load, packed as z[m] = x[2m] + i x[2m+1], the Stockham
+    stages in the kernel's order (fft_radices) with its twiddle table, the
+    real-FFT unpacking with DC and Nyquist apart, each filter summed over
+    its nonzero range only."""
+    window, tw, fb_packed, ranges = consts
+    N = window.size
+    M = N // 2
+    W = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
     B, n = a.shape
     T = 1 + n // hop
-    xp = np.pad(a.astype(np.float64), ((0, 0), (half, half)), mode="reflect")
-    frames = xp[:, np.arange(T)[:, None] * hop + np.arange(n_fft)]
-    re, im = frames @ bases[..., 0], frames @ bases[..., 1]
-    mag = np.empty((B, T, half + 1))
-    mag[..., 1:half] = np.hypot(re[..., 1:], im[..., 1:])
-    mag[..., 0], mag[..., half] = np.abs(re[..., 0]), np.abs(im[..., 0])
-    out = np.empty((B, T, fb.shape[0]))
-    for m, (lo, hi) in enumerate(ranges):
-        out[..., m] = mag[..., lo:hi] @ fb[m, lo:hi]
-    return np.log(np.maximum(out, 1e-5))
+    xp = np.pad(a, ((0, 0), (M, M)), mode="reflect")
+    frames = xp[:, np.arange(T)[:, None] * hop + np.arange(N)] * window
+    x = (frames[..., 0::2] + 1j * frames[..., 1::2]).astype(np.complex64)
+    p = 1
+    for r in fft_radices(M):
+        L = M // r
+        i = np.arange(L)
+        k = i & (p - 1)
+        e = 2 * k * (M // (p * r))
+        u = [x[..., i]] + [x[..., i + q * L] * W[q * e] for q in range(1, r)]
+        j = (i - k) * r + k
+        y = np.empty_like(x)
+        if r == 4:
+            s02, d02 = u[0] + u[2], u[0] - u[2]
+            s13, d13 = u[1] + u[3], u[1] - u[3]
+            y[..., j], y[..., j + 2 * p] = s02 + s13, s02 - s13
+            y[..., j + p], y[..., j + 3 * p] = d02 - 1j * d13, d02 + 1j * d13
+        else:
+            y[..., j], y[..., j + p] = u[0] + u[1], u[0] - u[1]
+        x, p = y, p * r
+    k = np.arange(1, M)
+    zk, zc = x[..., k], np.conj(x[..., M - k])
+    spec = 0.5 * (zk + zc) + W[k] * (0.5 * (zk - zc) * np.complex64(-1j))
+    mag = np.empty((B, T, M + 1), np.float32)
+    mag[..., 1:M] = np.abs(spec)
+    mag[..., 0] = np.abs(x[..., 0].real + x[..., 0].imag)
+    mag[..., M] = np.abs(x[..., 0].real - x[..., 0].imag)
+    out = np.empty((B, T, len(ranges)), np.float32)
+    for m, (lo, hi, off) in enumerate(ranges):
+        out[..., m] = mag[..., lo:hi] @ fb_packed[off:off + hi - lo]
+    return np.log(np.maximum(out, np.float32(1e-5)))
+
+
+@pytest.mark.parametrize("m,radices", [(512, [4, 4, 4, 4, 2]),
+                                       (256, [4, 4, 4, 4]), (8, [4, 2])])
+def test_fft_radices(m, radices):
+    assert fft_radices(m) == radices
 
 
 def test_kernel_constants_give_the_mel():
     consts = kernel_constants(1024, 1024, 22050, 80, 0.0, 8000.0)
-    bases, fb, ranges = consts
-    assert bases.shape == (1024, 512, 2) and bases.dtype == np.float32
-    assert ranges.shape == (80, 2) and ranges.dtype == np.int32
-    # every nonzero of the filterbank lies inside its filter's range
-    cols = np.arange(fb.shape[1])
-    inside = (cols >= ranges[:, :1]) & (cols < ranges[:, 1:])
-    assert not fb[~inside].any()
+    window, tw, fb_packed, ranges = consts
+    assert window.shape == (1024,) and window.dtype == np.float32
+    assert tw.shape == (1024, 2) and tw.dtype == np.float32
+    assert ranges.shape == (80, 3) and ranges.dtype == np.int32
+    e = np.arange(1024) * 2 * np.pi / 1024
+    np.testing.assert_array_equal(tw[:, 0], np.cos(e).astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], (-np.sin(e)).astype(np.float32))
+    # the packed weights rebuild the filterbank: every nonzero lies inside
+    # its filter's range
+    fb = mel_filterbank(22050, 1024, 80, 0.0, 8000.0)
+    dense = np.zeros_like(fb)
+    for m, (lo, hi, off) in enumerate(ranges):
+        dense[m, lo:hi] = fb_packed[off:off + hi - lo]
+    np.testing.assert_array_equal(dense, fb)
+    assert fb_packed.size == np.count_nonzero(fb) == 727
     a = _audio((3, 9001), seed=5)
     ref = mel_plain(torch.from_numpy(a)).numpy()
-    np.testing.assert_allclose(_kernel_emulation(a, consts), ref, rtol=0,
+    np.testing.assert_allclose(_fft_emulation(a, consts), ref, rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(2, 9000), (2, 8192), (1, 2053),
+                                   (3, 4097)])
+def test_fft_emulation_matches_plain_and_jax(shape):
+    """The kernel's FFT factorisation against mel_plain (a matmul DFT) and
+    the JAX mel_spectrogram, at test_mel_matches_jax's shapes, within the
+    same 1e-4."""
+    a = _audio(shape, seed=11)
+    got = _fft_emulation(a, kernel_constants(1024, 1024, 22050, 80, 0.0,
+                                             8000.0))
+    plain = mel_plain(torch.from_numpy(a)).numpy()
+    ref = np.asarray(jax_mel_spectrogram(jnp.asarray(a), **MEL_KW))
+    assert got.shape == plain.shape
+    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, _mel_float64(a), rtol=0, atol=1e-4)

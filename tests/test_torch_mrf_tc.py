@@ -21,10 +21,10 @@ from radtts_tpu.ops.pallas_mrf import pallas_mrf, pallas_mrf_folded
 
 from radtts_tpu_torch.ops import mrf as mrf_mod
 from radtts_tpu_torch.ops.mrf import (DILATIONS, LRELU_SLOPE, TC_CK, mrf,
-                                      mrf_cuda, mrf_plain, narrow,
+                                      mrf_cuda, mrf_plain, mrf_route, narrow,
                                       stage_pack, tc_grid, tc_pack,
                                       tc_pack_narrow, tc_split, tc_tile,
-                                      tf32_round, use_tensor_cores)
+                                      tf32_round)
 
 
 def _weights(C, seed, std=0.03):
@@ -83,7 +83,10 @@ def _mrf_emulated(x, weights, passes=3):
 @pytest.mark.parametrize("C,tc", [(256, True), (128, True), (64, True),
                                   (32, True), (16, False), (8, False)])
 def test_routing_rule(C, tc):
-    assert use_tensor_cores(C) is tc
+    """Every HiFi-GAN v1 width goes to the tensor cores; C=16 and C=8 to
+    the stack kernel (tests/test_torch_mrf_stack.py has every width)."""
+    assert (mrf_route(C) == "tc") is tc
+    assert mrf_route(C) == ("tc" if tc else "stack")
 
 
 def test_cpu_tensor_takes_plain_path_at_tensor_core_width():
