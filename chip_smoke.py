@@ -68,6 +68,7 @@ exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
 """
 
+import base64
 import copy
 import json
 import math
@@ -104,6 +105,9 @@ RAGGED = [(2, 997, 256), (2, 997, 128), (2, 997, 64), (2, 997, 32)]
 STACK_STAGES = [(1, 77824, 16), (1, 155648, 8)]
 STACK_RAGGED = [(2, 997, 16), (2, 997, 8), (2, 50, 16)]   # 50 < one tile
 CONV_ONLY = [(2, 997, 48)]       # a width that only csrc/mrf.cu takes
+# a C <= 16 stage with more resblocks than csrc/mrf_stack.cu takes: routed
+# to csrc/mrf.cu
+CONV_RESBLOCKS = [((2, 997, 16), (3, 7, 11, 3, 7))]
 MEL_SHAPES = [(16, 8192), (1, 155648), (3, 9001)]   # training, flagship
 TRAIN_STEPS, TRAIN_BATCH, SEGMENT = 5, 16, 8192      # train_vocoder.py CLI
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -152,11 +156,11 @@ def timed(fn):
     return out, (time.perf_counter() - tic) * 1e3
 
 
-def random_mrf_weights(C, dev, gen):
+def random_mrf_weights(C, dev, gen, ks=(3, 7, 11)):
     def rnd(*shape):
         return 0.01 * torch.randn(*shape, device=dev, generator=gen)
     return [{"w1": rnd(3, k, C, C), "b1": rnd(3, C),
-             "w2": rnd(3, k, C, C), "b2": rnd(3, C)} for k in (3, 7, 11)]
+             "w2": rnd(3, k, C, C), "b2": rnd(3, C)} for k in ks]
 
 
 def library_mrf(xc, torch_weights):
@@ -219,11 +223,13 @@ def phase_kernels(mrf_mod, dev):
     max_err = {"mrf_tc": 0.0, "mrf_stack": 0.0, "mrf_conv": 0.0}
     inputs = {}
     timed_shapes = STAGES + TRAIN_STAGES + STACK_STAGES
-    for B, T, C in (STAGES + TRAIN_STAGES + RAGGED + STACK_STAGES
-                    + STACK_RAGGED + CONV_ONLY):
+    cases = [(shape, (3, 7, 11)) for shape in (
+        STAGES + TRAIN_STAGES + RAGGED + STACK_STAGES + STACK_RAGGED
+        + CONV_ONLY)] + CONV_RESBLOCKS
+    for (B, T, C), ks in cases:
         x = torch.randn(B, T, C, device=dev, generator=gen)
-        w = random_mrf_weights(C, dev, gen)
-        kernel = KERNEL_OF_ROUTE[mrf_mod.mrf_route(C)]
+        w = random_mrf_weights(C, dev, gen, ks)
+        kernel = KERNEL_OF_ROUTE[mrf_mod.mrf_route(C, len(ks))]
         got = mrf_mod.mrf(x, w)
         ref = mrf_mod.mrf_plain(x, w)
         torch.cuda.synchronize()
@@ -234,7 +240,7 @@ def phase_kernels(mrf_mod, dev):
             raise AssertionError(f"{kernel} disagrees at {(B, T, C)}: "
                                  f"max|k-p| {err} > 1e-4 * {scale}")
         row = {"phase": "kernel_vs_plain", "kernel": kernel,
-               "shape": [B, T, C], "max_abs_err": err,
+               "shape": [B, T, C], "resblocks": len(ks), "max_abs_err": err,
                "max_abs_plain": scale}
         if kernel == "mrf_tc":
             row["grid"] = list(mrf_mod.tc_grid(B, T, C))
@@ -526,6 +532,204 @@ def phase_main_path(synth, mrf_mod, dev, power):
          "rtf": sum(med.values()) / 1e3 / audio_s,
          "mrf_launches": launches, "generator_calls": n_generator_calls})
     log({"phase": "profile_608", **profile})
+    return launches
+
+
+LONG_TEXT = ("Printing, in the only sense with which we are at present "
+             "concerned, differs from most if not from all the arts and "
+             "crafts represented in the Exhibition. It is well known that "
+             "deep generative models have a rich latent space; it is "
+             "possible to synthesize speech with controllable attributes.")
+FILES_CHUNK = 40          # --long_text_chunk of the serving-from-files phase
+FILES_BATCH = 4           # --batch_size of its inference CLI run
+
+
+def _http(base, path, body=None, timeout=120):
+    """GET (body None) or POST JSON; (status, content type, bytes)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def _check_wav(data, what):
+    """A 22.05 kHz float32 WAV (bytes or path) that is finite and not
+    silent; returns its samples."""
+    import io
+
+    from scipy.io import wavfile
+
+    sr, audio = wavfile.read(io.BytesIO(data) if isinstance(data, bytes)
+                             else data)
+    if sr != 22050 or audio.dtype != np.float32 or audio.ndim != 1 or \
+            not np.isfinite(audio).all() or not np.abs(audio).max() > 1e-3:
+        raise AssertionError(f"bad wav {what}: sr {sr}, {audio.dtype}, "
+                             f"{audio.shape}, max {np.abs(audio).max()}")
+    return audio
+
+
+def phase_serve_files(synth, mrf_mod, dev, power):
+    """Serving from checkpoint files, at the flagship width: the in-memory
+    model and vocoder written by the port's writers, then read by the
+    inference CLI (python -m radtts_tpu_torch.inference) and by the daemon
+    (radtts_tpu_torch.serve.build_server, in a thread on a free port),
+    counts set to 0 just before the CLI and read just after the daemon's
+    last request. The file-loaded model is then held against the
+    in-memory one on the 608-frame utterance."""
+    import threading
+
+    from radtts_tpu_torch.export import export_torch_checkpoint
+    from radtts_tpu_torch.inference import main as inference_main
+    from radtts_tpu_torch.models.hifigan import generator_to_reference
+    from radtts_tpu_torch.models.radtts import radtts_infer
+    from radtts_tpu_torch.serve import build_server
+    from radtts_tpu_torch.text.chunking import split_text_to_chunks
+
+    lines = TEXTS + [LONG_TEXT]
+
+    def n_chunks(text):
+        return len(split_text_to_chunks(
+            text, lambda t: len(synth.encode(t)), FILES_CHUNK))
+
+    with tempfile.TemporaryDirectory() as root:
+        paths = {k: os.path.join(root, name) for k, name in (
+            ("radtts", "radtts.pt"), ("vocoder", "hifigan.pt"),
+            ("vocoder_config", "hifigan.json"), ("text", "lines.txt"),
+            ("out", "out"))}
+        tic = time.perf_counter()
+        export_torch_checkpoint(paths["radtts"], synth.model)
+        t_radtts = time.perf_counter() - tic
+        torch.save({"generator": generator_to_reference(synth.vocoder)},
+                   paths["vocoder"])
+        with open(paths["vocoder_config"], "w") as f:
+            json.dump(HIFIGAN_V1, f)
+        with open(paths["text"], "w") as f:
+            f.write("\n".join(lines) + "\n")
+        files = ["-c", CONFIG, "-r", paths["radtts"], "-v", paths["vocoder"],
+                 "-k", paths["vocoder_config"], "-s", "ljs", "--seed", "0"]
+
+        mrf_mod.mrf.launches = 0
+        mrf_mod.mrf.tc_launches = 0
+        mrf_mod.mrf.stack_launches = 0
+        tic = time.perf_counter()
+        written = inference_main(files + [
+            "-t", paths["text"], "-o", paths["out"], "--batch_size",
+            str(FILES_BATCH), "--long_text_chunk", str(FILES_CHUNK)])
+        cli_s = time.perf_counter() - tic
+        n_items = sum(n_chunks(t) for t in lines)
+        # the denoiser's bias call at load, then one call per batch
+        generator_calls = 1 + -(-n_items // FILES_BATCH)
+        if len(written) != len(lines) or n_items <= len(lines):
+            raise AssertionError(f"CLI wrote {len(written)} wavs from "
+                                 f"{n_items} chunks of {len(lines)} lines")
+        for path in written:
+            _check_wav(path, path)
+
+        server, file_synth, state = build_server(
+            files + ["--port", "0", "--batch_wait_ms", "5"])
+        generator_calls += 1                    # the denoiser's bias call
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = "http://%s:%d" % server.server_address[:2]
+        try:
+            health = json.loads(_http(base, "/healthz")[2])
+            if not health["ok"]:
+                raise AssertionError(f"/healthz {health}")
+            latency_ms = []
+            for _ in range(2):      # the first request, then a warm one
+                tic = time.perf_counter()
+                _, ctype, body = _http(base, "/tts", {"text": TEXTS[1]})
+                latency_ms.append((time.perf_counter() - tic) * 1e3)
+                if ctype != "audio/wav":
+                    raise AssertionError(f"/tts answered {ctype}")
+                _check_wav(body, "/tts single")
+            _, _, body = _http(base, "/tts", {"texts": TEXTS})
+            batch = json.loads(body)
+            if len(batch["wavs"]) != len(TEXTS):
+                raise AssertionError(f"/tts texts: {len(batch['wavs'])}")
+            for b64 in batch["wavs"]:
+                _check_wav(base64.b64decode(b64), "/tts texts")
+            tic = time.perf_counter()
+            _, _, body = _http(base, "/tts", {
+                "text": LONG_TEXT, "stream": True,
+                "long_text_chunk": FILES_CHUNK})
+            stream_ms = (time.perf_counter() - tic) * 1e3
+            pcm = np.frombuffer(body[44:], "<f4")
+            if len(body) <= 44 or not np.isfinite(pcm).all() or \
+                    not np.abs(pcm).max() > 1e-3:
+                raise AssertionError(f"stream: {len(body)} bytes")
+            parts = n_chunks(LONG_TEXT)
+            generator_calls += 2 + 1 + 1 + (parts > 1)
+            before = json.loads(_http(base, "/healthz")[2])
+
+            def single(i, out, barrier):
+                barrier.wait(timeout=60)
+                out[i] = _http(base, "/tts", {"text": TEXTS[i]})[2]
+
+            out, barrier = [None] * len(TEXTS), threading.Barrier(len(TEXTS))
+            threads = [threading.Thread(target=single,
+                                        args=(i, out, barrier))
+                       for i in range(len(TEXTS))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            if any(t.is_alive() for t in threads) or None in out:
+                raise AssertionError("a concurrent request did not finish")
+            for body in out:
+                _check_wav(body, "/tts concurrent")
+            after = json.loads(_http(base, "/healthz")[2])
+            dispatches = (after["batched_dispatches"]
+                          - before["batched_dispatches"])
+            generator_calls += dispatches
+            if not 1 <= dispatches < len(TEXTS):
+                raise AssertionError(f"{len(TEXTS)} concurrent singles took "
+                                     f"{dispatches} dispatches")
+            launches = {"mrf_conv": mrf_mod.mrf.launches,
+                        "mrf_tc": mrf_mod.mrf.tc_launches,
+                        "mrf_stack": mrf_mod.mrf.stack_launches}
+            if launches != {"mrf_conv": 0, "mrf_tc": 72 * generator_calls,
+                            "mrf_stack": 0}:
+                raise AssertionError(f"MRF launches {launches} != 72 tc x "
+                                     f"{generator_calls} generator calls")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+
+    # the file-loaded model and vocoder against the in-memory ones
+    with torch.inference_mode():
+        text, dur = (t.to(dev) for t in flagship_input(synth))
+        meta = synth.model.meta
+        g = meta["n_group_size"]
+        res = torch.randn(1, MAX_FRAMES // g, meta["n_mel_channels"] * g,
+                          generator=torch.Generator().manual_seed(3)) * 0.8
+        spk = torch.zeros(1, dtype=torch.int64, device=dev)
+        mels, wavs = [], []
+        for s in (synth, file_synth):
+            mels.append(radtts_infer(s.model, spk, text, 0.8, MAX_FRAMES,
+                                     dur=dur, residual=res.to(dev))["mel"])
+            wavs.append(s.vocoder(mels[-1]))
+    errs = {k: ((a - b).abs().max().item(), b.abs().max().item())
+            for k, (a, b) in (("mel", mels), ("wav", wavs))}
+    log({"phase": "serve_files", "card": power,
+         "checkpoint_write_s": t_radtts,
+         "load_phases_s": file_synth.load_phases,
+         "cli_s": cli_s, "cli_wavs": len(written), "cli_chunks": n_items,
+         "first_request_ms": latency_ms[0], "warm_request_ms": latency_ms[1],
+         "stream_ms": stream_ms, "stream_chunks": parts,
+         "concurrent_singles": len(TEXTS), "batched_dispatches": dispatches,
+         "generator_calls": generator_calls, "mrf_launches": launches,
+         "requests": state["requests"],
+         "file_vs_memory": {k: {"max_abs_err": e, "max_abs": m}
+                            for k, (e, m) in errs.items()}})
+    for k, (e, m) in errs.items():
+        if not e <= 1e-4 * m:
+            raise AssertionError(f"file-loaded {k} vs in-memory: {e} > "
+                                 f"1e-4 * {m}")
     return launches
 
 
@@ -889,6 +1093,7 @@ def main():
         phase_reference(synth, dev)
 
     serve_launches = phase_main_path(synth, mrf_mod, dev, power)
+    files_launches = phase_serve_files(synth, mrf_mod, dev, power)
     del synth, model, vocoder, denoiser
     v2_launches, v2_ms = phase_serve_v2(mrf_mod, dev, power)
     train_launches = phase_training(mel_mod, mrf_mod, dev, data_config)
@@ -906,6 +1111,7 @@ def main():
         def total(key):
             return sum(s[key] for s in serving)
         by_path = {"serve": serve_launches[kernel],
+                   "serve_files": files_launches[kernel],
                    "serve_v2": v2_launches[kernel],
                    "train": train_launches[kernel]}
         return {
@@ -962,7 +1168,7 @@ def main():
         "source": "radtts_tpu_torch/csrc/mel.cu",
         "replaces": "radtts_tpu/ops/pallas_mel.py:74",
         "launches": train_launches["mel"],
-        "launches_by_path": {"serve": 0, "serve_v2": 0,
+        "launches_by_path": {"serve": 0, "serve_files": 0, "serve_v2": 0,
                              "train": train_launches["mel"]},
         "max_abs_err": mel_err,
         "ms": train_row["ms"],

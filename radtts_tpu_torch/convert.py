@@ -1,5 +1,5 @@
 """Carry weights from the JAX package's parameter trees into the port's
-modules.
+modules, and read reference RADTTS state dicts into such trees.
 
 Inputs are nested dicts and lists of numpy arrays, as radtts_init /
 hifigan_generator_init produce them with the `_meta` / `_kind` entries
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from radtts_tpu_torch.models.hifigan import Generator
-from radtts_tpu_torch.models.radtts import RADTTS
+from radtts_tpu_torch.models.radtts import RADTTS, _norm_kind
 from radtts_tpu_torch.ops.fold_norms import fold_norms
 from radtts_tpu_torch.train.vocoder_trainer import vocoder_train_init
 
@@ -146,3 +146,161 @@ def vocoder_train_from_jax(params_np, h):
                 _disc_conv(conv, cp, perm)
             _disc_conv(disc.post, dp["post"], perm)
     return models.train().requires_grad_(True)
+
+
+# ---------------------------------------------------------------------------
+# reference RADTTS state dict -> JAX-format tree
+# ---------------------------------------------------------------------------
+
+
+def _np(t):
+    return np.asarray(t.detach().cpu().numpy(), dtype=np.float32)
+
+
+def _np_t(t, axes=None):
+    """_np(t) transposed, laid out contiguously as the JAX tree's arrays
+    are, so that the folds reduce in the same order."""
+    return np.ascontiguousarray(np.transpose(_np(t), axes))
+
+
+def _conv_sd(sd, prefix, weight_norm=False):
+    """Conv1d (out, in, k) -> {w: (k, in, out), b}, or {v, g, b} when
+    weight-normed (weight_v, weight_g (out, 1, 1))."""
+    if weight_norm:
+        p = {"g": _np(sd[prefix + ".weight_g"]).reshape(-1),
+             "v": _np_t(sd[prefix + ".weight_v"], (2, 1, 0))}
+    else:
+        p = {"w": _np_t(sd[prefix + ".weight"], (2, 1, 0))}
+    p["b"] = _np(sd[prefix + ".bias"])
+    return p
+
+
+def _linear_sd(sd, prefix):
+    return {"w": _np_t(sd[prefix + ".weight"]),
+            "b": _np(sd[prefix + ".bias"])}
+
+
+def _lstm_cell_sd(sd, prefix, suffix, norm):
+    """One LSTM direction; the recurrent weight as stored: {w}, spectral
+    {sn_w, sn_u, sn_v} (weight_hh_l0_orig, _u, _v) or weight {wn_g, wn_v}
+    (weight_hh_l0_g, _v)."""
+    base = f"{prefix}.weight_hh_l0{suffix}"
+    if norm == "spectral":
+        hh = {"sn_w": _np(sd[base + "_orig"]), "sn_u": _np(sd[base + "_u"]),
+              "sn_v": _np(sd[base + "_v"])}
+    elif norm == "weight":
+        hh = {"wn_g": _np(sd[base + "_g"]).reshape(-1),
+              "wn_v": _np(sd[base + "_v"])}
+    else:
+        hh = {"w": _np(sd[base])}
+    return {"w_ih": _np_t(sd[f"{prefix}.weight_ih_l0{suffix}"]),
+            "b_ih": _np(sd[f"{prefix}.bias_ih_l0{suffix}"]),
+            "b_hh": _np(sd[f"{prefix}.bias_hh_l0{suffix}"]), "hh": hh}
+
+
+def _bilstm_sd(sd, prefix, norm):
+    return {"fwd": _lstm_cell_sd(sd, prefix, "", norm),
+            "bwd": _lstm_cell_sd(sd, prefix, "_reverse", norm)}
+
+
+def _check_dap(config):
+    if config["name"] != "dap":
+        raise NotImplementedError(f"{config['name']} attribute models are "
+                                  "not ported yet")
+    if config["hparams"].get("use_transformer", False):
+        raise NotImplementedError("DAP with use_transformer is not ported "
+                                  "yet")
+
+
+def _dap_sd(sd, prefix, config):
+    arch = config["hparams"]["arch_hparams"]
+    fp = prefix + ".feat_pred_fn"
+    feat = {"convs": [_conv_sd(sd, f"{fp}.convolutions.{i}", True)
+                      for i in range(arch["n_layers"])]}
+    lstm_type = arch.get("lstm_type", "bilstm")
+    if lstm_type == "bilstm":
+        feat["lstm"] = _bilstm_sd(sd, fp + ".bilstm", "spectral")
+    elif lstm_type:
+        feat["lstm"] = _lstm_cell_sd(sd, fp + ".bilstm", "", "spectral")
+    if arch.get("use_linear", True):
+        feat["dense"] = _linear_sd(sd, fp + ".dense")
+    return {"bottleneck": {"proj": _conv_sd(
+        sd, prefix + ".bottleneck_layer.projection_fn.conv", True)},
+        "feat": feat}
+
+
+def _flow_sd(sd, prefix, n_layers):
+    inv = {k: _np(sd[f"{prefix}.invtbl_conv.{k}"])
+           for k in ("p", "lower", "upper", "upper_diag")}
+    # the reference's unit diagonal of L, a constant buffer
+    diag_key = f"{prefix}.invtbl_conv.lower_diag"
+    if diag_key in sd and not (_np(sd[diag_key]) == 1.0).all():
+        raise ValueError(f"{diag_key} is not all ones")
+    wn = prefix + ".affine_tfn.affine_param_predictor"
+    pred = {"start": _conv_sd(sd, wn + ".start", True),
+            "end": _conv_sd(sd, wn + ".end"),
+            "in_layers": [_conv_sd(sd, f"{wn}.in_layers.{j}.conv", True)
+                          for j in range(n_layers)],
+            "res_skip": [_conv_sd(sd, f"{wn}.res_skip_layers.{j}", True)
+                         for j in range(n_layers)]}
+    return {"inv": inv, "affine": {"pred": pred}}
+
+
+def radtts_from_torch(sd, model_config):
+    """A reference RADTTS state dict (the reference checkpoint's
+    'state_dict') as the JAX-format numpy tree radtts_from_jax takes, for
+    the modules RADTTS(model_config) builds, their norm factorizations
+    kept. The attention.* entries are training-only and are not read. A
+    configuration the port cannot build raises by name before anything is
+    read."""
+    cfg = dict(model_config)
+    g = cfg.get
+    include = g("include_modules", "dec")
+    if "dec" in include:
+        if g("matrix_decomposition", "") != "LUS":
+            raise NotImplementedError("only the LUS 1x1 convolution is "
+                                      "ported")
+        if g("affine_model", "simple_conv") != "wavenet":
+            raise NotImplementedError(f"{g('affine_model', 'simple_conv')} "
+                                      "affine model is not ported yet")
+    if "apm" in include and g("use_first_order_features", False):
+        raise NotImplementedError("use_first_order_features is not ported "
+                                  "yet")
+    use_unvoiced_bias = bool(g("decoder_use_unvoiced_bias", True)
+                             or g("ap_use_unvoiced_bias", True))
+    voiced_embeddings = g("ap_use_voiced_embeddings", True)
+    attributes = []   # (module name, its config key)
+    if "dpm" in include:
+        attributes.append(("dur_pred_layer", "dur_model_config"))
+    if voiced_embeddings or use_unvoiced_bias or "vpred" in include:
+        attributes.append(("v_pred_module", "v_model_config"))
+    if "apm" in include:
+        attributes += [("f0_pred_module", "f0_model_config"),
+                       ("energy_pred_module", "energy_model_config")]
+    for _, key in attributes:
+        _check_dap(cfg[key])
+
+    p = {"speaker_embedding": {"table": _np(sd["speaker_embedding.weight"])},
+         "embedding": {"table": _np(sd["embedding.weight"])},
+         "encoder": {
+             "convs": [_conv_sd(sd, f"encoder.convolutions.{i}.0.conv")
+                       for i in range(3)],
+             "norms": [{"gamma": _np(sd[f"encoder.convolutions.{i}.1.weight"]),
+                        "beta": _np(sd[f"encoder.convolutions.{i}.1.bias"])}
+                       for i in range(3)],
+             "lstm": _bilstm_sd(sd, "encoder.lstm",
+                                _norm_kind(g("text_encoder_lstm_norm")))}}
+    if g("use_context_lstm", False):
+        p["context_lstm"] = _bilstm_sd(sd, "context_lstm",
+                                       _norm_kind(g("context_lstm_norm")))
+    if "dec" in include:
+        p["flows"] = [_flow_sd(sd, f"flows.{i}", cfg["n_conv_layers_per_step"])
+                      for i in range(cfg["n_flows"])]
+    for name, key in attributes:
+        p[name] = _dap_sd(sd, name, cfg[key])
+    if use_unvoiced_bias:
+        p["unvoiced_bias"] = _linear_sd(
+            sd, "unvoiced_bias_module.0.linear_layer")
+    if voiced_embeddings and "v_pred_module" in p:
+        p["v_embeddings"] = {"table": _np(sd["v_embeddings.weight"])}
+    return p

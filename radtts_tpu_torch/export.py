@@ -1,0 +1,122 @@
+"""The port's RADTTS module -> a reference checkpoint (the JAX package's
+radtts_tpu/export.py), under the names convert.radtts_from_torch reads.
+
+The port holds every weight folded (norm factorizations collapsed at load),
+so each factorization is written as one that collapses back to the weight:
+a weight-normed conv as weight_v = w and weight_g = ||w|| over every dim
+but the first; a spectral-normed LSTM recurrent weight as _orig = W with
+_u, _v its top singular pair from a float64 SVD, v divided by sigma_1, so
+that u . (W v) = 1; a weight-normed one as _v = W and _g = its row norms.
+The JAX package's fold and the reference in eval mode both give back W,
+up to fp32 rounding.
+
+The writer emits no attention.* keys: the port has no ConvAttention yet
+(it is training-only), so the reference loads the file only with
+strict=False, and the JAX package's reader needs those keys merged in.
+"""
+
+import numpy as np
+import torch
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def _np(t):
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _conv(sd, prefix, conv, weight_norm=False):
+    w = _np(conv.weight)                                  # (out, in, k)
+    if weight_norm:
+        sd[prefix + ".weight_g"] = _t(np.sqrt(
+            (w.astype(np.float64) ** 2).sum(axis=(1, 2), keepdims=True)))
+        sd[prefix + ".weight_v"] = _t(w)
+    else:
+        sd[prefix + ".weight"] = _t(w)
+    sd[prefix + ".bias"] = _t(_np(conv.bias))
+
+
+def _linear(sd, prefix, linear):
+    sd[prefix + ".weight"] = _t(_np(linear.weight))
+    sd[prefix + ".bias"] = _t(_np(linear.bias))
+
+
+def _lstm(sd, prefix, mod):
+    """A MaskedLSTM, its recurrent weights factorized as mod.norm says."""
+    for sfx in ("", "_reverse") if mod.lstm.bidirectional else ("",):
+        for name in ("weight_ih_l0", "bias_ih_l0", "bias_hh_l0"):
+            sd[f"{prefix}.{name}{sfx}"] = _t(_np(
+                getattr(mod.lstm, name + sfx)))
+        w = _np(getattr(mod.lstm, "weight_hh_l0" + sfx))
+        base = f"{prefix}.weight_hh_l0{sfx}"
+        if mod.norm == "spectral":
+            u, s, vt = np.linalg.svd(w.astype(np.float64),
+                                     full_matrices=False)
+            sd[base + "_orig"] = _t(w)
+            sd[base + "_u"] = _t(u[:, 0])
+            sd[base + "_v"] = _t(vt[0] / s[0])
+        elif mod.norm == "weight":
+            sd[base + "_g"] = _t(np.sqrt(
+                (w.astype(np.float64) ** 2).sum(axis=1, keepdims=True)))
+            sd[base + "_v"] = _t(w)
+        else:
+            sd[base] = _t(w)
+
+
+def _dap(sd, prefix, dap):
+    _conv(sd, prefix + ".bottleneck_layer.projection_fn.conv",
+          dap.bottleneck.proj, weight_norm=True)
+    fp = prefix + ".feat_pred_fn"
+    for i, conv in enumerate(dap.feat.convs):
+        _conv(sd, f"{fp}.convolutions.{i}", conv, weight_norm=True)
+    if dap.feat.lstm is not None:
+        _lstm(sd, fp + ".bilstm", dap.feat.lstm)
+    if dap.feat.dense is not None:
+        _linear(sd, fp + ".dense", dap.feat.dense)
+
+
+def radtts_to_torch(model):
+    """A RADTTS module as a reference state dict (CPU fp32 tensors)."""
+    sd = {"speaker_embedding.weight": _t(_np(model.speaker_embedding.weight)),
+          "embedding.weight": _t(_np(model.embedding.weight))}
+    enc = model.encoder
+    for i, (conv, norm) in enumerate(zip(enc.convs, enc.norms)):
+        _conv(sd, f"encoder.convolutions.{i}.0.conv", conv)
+        sd[f"encoder.convolutions.{i}.1.weight"] = _t(_np(norm.gamma))
+        sd[f"encoder.convolutions.{i}.1.bias"] = _t(_np(norm.beta))
+    _lstm(sd, "encoder.lstm", enc.lstm)
+    if model.context_lstm is not None:
+        _lstm(sd, "context_lstm", model.context_lstm)
+    for i, flow in enumerate(model.flows):
+        inv = f"flows.{i}.invtbl_conv"
+        for name in ("p", "lower", "upper", "upper_diag"):
+            sd[f"{inv}.{name}"] = _t(_np(getattr(flow.inv, name)))
+        sd[f"{inv}.lower_diag"] = torch.ones(flow.inv.p.shape[0])
+        wn, pred = f"flows.{i}.affine_tfn.affine_param_predictor", \
+            flow.affine.pred
+        _conv(sd, wn + ".start", pred.start, weight_norm=True)
+        _conv(sd, wn + ".end", pred.end)
+        for j, conv in enumerate(pred.in_layers):
+            _conv(sd, f"{wn}.in_layers.{j}.conv", conv, weight_norm=True)
+        for j, conv in enumerate(pred.res_skip):
+            _conv(sd, f"{wn}.res_skip_layers.{j}", conv, weight_norm=True)
+    for name in ("dur_pred_layer", "v_pred_module", "f0_pred_module",
+                 "energy_pred_module"):
+        if getattr(model, name) is not None:
+            _dap(sd, name, getattr(model, name))
+    if model.unvoiced_bias is not None:
+        _linear(sd, "unvoiced_bias_module.0.linear_layer",
+                model.unvoiced_bias)
+    if model.v_embeddings is not None:
+        sd["v_embeddings.weight"] = _t(_np(model.v_embeddings.weight))
+    return sd
+
+
+def export_torch_checkpoint(path, model, iteration=0, learning_rate=0.0):
+    """torch.save the reference checkpoint format: {'state_dict',
+    'iteration', 'learning_rate'}."""
+    torch.save({"state_dict": radtts_to_torch(model),
+                "iteration": int(iteration),
+                "learning_rate": float(learning_rate)}, path)

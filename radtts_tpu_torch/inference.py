@@ -1,0 +1,230 @@
+"""Text -> waveform inference CLI of the PyTorch port: the repository's
+inference.py with the same flags, config JSONs, filelists and output files,
+on one CUDA device (or the CPU with --device cpu).
+
+    python -m radtts_tpu_torch.inference -c CONFIG -r RADTTS_CKPT \\
+        -v HIFIGAN_CKPT -k HIFIGAN_CONFIG -t TEXT_FILE -s SPEAKER \\
+        [-o results] [--batch_size N] [--long_text_chunk N] [--device cpu]
+
+-r takes a reference torch checkpoint ({'state_dict': ...}) or the JAX
+package's .npz. Each line of the text file (lines starting with '#' are
+skipped) gives one wav, peak-normalised; --long_text_chunk splits long
+lines at sentence boundaries and joins the chunks' audio with
+--chunk_gap_ms of silence.
+
+The port runs in fp32 only, on one device. Flags the JAX CLI takes for
+what the port does not have are refused with an error, never ignored:
+--use_amp and --weight_dtype bfloat16 (reduced precision), --data_parallel
+above 1 (more than one device) and --matmul_precision other than
+'highest'. --aot_dir (the XLA executable store) is accepted and has no
+effect.
+"""
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from radtts_tpu_torch.config import update_params
+from radtts_tpu_torch.text.chunking import split_text_to_chunks
+from radtts_tpu_torch.text.processing import lines_to_list
+
+
+def add_port_flags(parser):
+    """The flags both CLIs share with the JAX ones but the port refuses or
+    ignores (see refuse_unsupported), and --device."""
+    parser.add_argument("--data_parallel", default=1, type=int,
+                        help="refused above 1: the port runs on one device")
+    parser.add_argument("--weight_dtype", default="auto",
+                        choices=["auto", "float32", "bfloat16"],
+                        help="refused at bfloat16: the port stores fp32")
+    parser.add_argument("--aot_dir", default="",
+                        help="the JAX package's XLA executable store; no "
+                             "effect here")
+    parser.add_argument("--use_amp", action="store_true",
+                        help="refused: the port runs in fp32 only")
+    parser.add_argument("--matmul_precision", default=None,
+                        choices=["default", "high", "highest"],
+                        help="only 'highest' (fp32) is accepted")
+    parser.add_argument("--device", default=None,
+                        help="torch device; default CUDA, which must be "
+                             "present ('cpu' runs the plain path)")
+
+
+def refuse_unsupported(parser, args):
+    """parser.error (exit 2) on a flag the port cannot honour; one line
+    for --aot_dir, which has no effect."""
+    if args.use_amp:
+        parser.error("--use_amp is not supported: the port runs in fp32 "
+                     "only")
+    if args.weight_dtype == "bfloat16":
+        parser.error("--weight_dtype bfloat16 is not supported: the port "
+                     "stores fp32 weights")
+    if args.data_parallel > 1:
+        parser.error("--data_parallel > 1 is not supported: the port runs "
+                     "on one device")
+    if args.matmul_precision not in (None, "highest"):
+        parser.error(f"--matmul_precision {args.matmul_precision} is not "
+                     "supported: the port computes in fp32 ('highest')")
+    if args.aot_dir:
+        print(f"--aot_dir {args.aot_dir}: no effect (XLA only)", flush=True)
+
+
+def infer(synth, text_list, speaker, speaker_text, speaker_attributes,
+          sigma, sigma_tkndur, sigma_f0, sigma_energy, token_dur_scaling,
+          denoising_strength, n_takes, output_dir, plot, batch_size=1,
+          long_text_chunk=0, chunk_gap_ms=120.0):
+    """Synthesize every line of text_list (skipping '#' lines) and write
+    one wav per line and take; returns the paths written."""
+    sr = synth.sampling_rate
+    os.makedirs(output_dir, exist_ok=True)
+
+    items = []   # (line_idx, part_idx, n_parts, text)
+    for i, t in enumerate(text_list):
+        if t.startswith("#"):
+            continue
+        parts = [t]
+        if long_text_chunk and long_text_chunk > 0:
+            parts = split_text_to_chunks(
+                t, lambda s: len(synth.encode(s)), long_text_chunk)
+            if len(parts) > 1:
+                print(f"{i}: split into {len(parts)} chunks "
+                      f"(<= {long_text_chunk} tokens each)")
+        items.extend((i, p, len(parts), text)
+                     for p, text in enumerate(parts))
+    gap = np.zeros(int(sr * chunk_gap_ms / 1000.0), np.float32)
+    pending = {}  # (line_idx, take) -> [part wavs]
+    written = []
+    for b0 in range(0, len(items), max(1, batch_size)):
+        chunk = items[b0:b0 + max(1, batch_size)]
+        for i, p, n_parts, text in chunk:
+            tag = f" [part {p + 1}/{n_parts}]" if n_parts > 1 else ""
+            print(f"{i}/{len(text_list)}{tag}: {text}")
+
+        for take in range(n_takes):
+            wavs, aux = synth.synthesize(
+                [text for _, _, _, text in chunk], speaker,
+                speaker_text=speaker_text,
+                speaker_attributes=speaker_attributes, sigma=sigma,
+                sigma_tkndur=sigma_tkndur, sigma_f0=sigma_f0,
+                sigma_energy=sigma_energy,
+                denoising_strength=denoising_strength)
+
+            from scipy.io.wavfile import write
+            for j, (i, p, n_parts, _) in enumerate(chunk):
+                wav = wavs[j]
+                suffix_path = ("{}_{}_{}_durscaling{}_sigma{}_sigmatext{}_"
+                               "sigmaf0{}_sigmaenergy{}").format(
+                    i, take, speaker, token_dur_scaling, sigma,
+                    sigma_tkndur, sigma_f0, sigma_energy)
+                if plot:
+                    # per part, before the join below: a chunked line gets
+                    # one features PNG per chunk, named _partK
+                    import matplotlib
+                    matplotlib.use("Agg")
+                    import matplotlib.pylab as plt
+                    fig, axes = plt.subplots(2, 1, figsize=(10, 6))
+                    axes[0].plot(aux["f0"][j], label="f0")
+                    axes[1].plot(aux["energy_avg"][j], label="energy_avg")
+                    for ax in axes:
+                        ax.legend(loc="best")
+                    plt.tight_layout()
+                    part_tag = f"_part{p + 1}" if n_parts > 1 else ""
+                    fig.savefig(f"{output_dir}/{suffix_path}{part_tag}"
+                                "_features.png")
+                    plt.close("all")
+
+                if n_parts > 1:
+                    # collect a chunked line's parts; join and normalise once
+                    parts = pending.setdefault((i, take), [None] * n_parts)
+                    parts[p] = wav
+                    if any(w is None for w in parts):
+                        continue
+                    joined = [parts[0]]
+                    for w in parts[1:]:
+                        joined += [gap, w]
+                    wav = np.concatenate(joined)
+                    del pending[(i, take)]
+                wav = wav / np.max(np.abs(wav))
+                path = "{}/{}_denoised_{}.wav".format(
+                    output_dir, suffix_path, denoising_strength)
+                write(path, sr, wav.astype(np.float32))
+                written.append(path)
+    return written
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        prog="python -m radtts_tpu_torch.inference")
+    parser.add_argument('-c', '--config', type=str, required=True,
+                        help='JSON file config')
+    parser.add_argument('-k', '--config_vocoder', type=str, required=True,
+                        help='vocoder JSON file config')
+    parser.add_argument('-p', '--params', nargs='+', default=[])
+    parser.add_argument('-r', '--radtts_path', type=str, required=True)
+    parser.add_argument('-v', '--vocoder_path', type=str, required=True)
+    parser.add_argument('-t', '--text_path', type=str, required=True)
+    parser.add_argument('-s', '--speaker', type=str, required=True)
+    parser.add_argument('--speaker_text', type=str, default=None)
+    parser.add_argument('--speaker_attributes', type=str, default=None)
+    parser.add_argument('-d', '--denoising_strength', type=float,
+                        default=0.0)
+    parser.add_argument('-o', "--output_dir", default="results")
+    parser.add_argument("--sigma", default=0.8, type=float)
+    parser.add_argument("--sigma_tkndur", default=0.666, type=float)
+    parser.add_argument("--sigma_f0", default=1.0, type=float)
+    parser.add_argument("--sigma_energy", default=1.0, type=float)
+    parser.add_argument("--f0_mean", default=0.0, type=float)
+    parser.add_argument("--f0_std", default=0.0, type=float)
+    parser.add_argument("--energy_mean", default=0.0, type=float)
+    parser.add_argument("--energy_std", default=0.0, type=float)
+    parser.add_argument("--token_dur_scaling", default=1.00, type=float)
+    parser.add_argument("--n_takes", default=1, type=int)
+    parser.add_argument("--batch_size", default=1, type=int,
+                        help="synthesize this many lines per batch "
+                             "(padded to 16-token buckets)")
+    parser.add_argument("--long_text_chunk", default=0, type=int,
+                        help="split lines longer than this many encoded "
+                             "tokens at sentence boundaries, synthesize "
+                             "the chunks (batched), and rejoin the audio; "
+                             "0 disables")
+    parser.add_argument("--chunk_gap_ms", default=120.0, type=float,
+                        help="silence inserted between rejoined chunks")
+    parser.add_argument("--plot", action="store_true")
+    parser.add_argument("--seed", default=1234, type=int)
+    add_port_flags(parser)
+    return parser
+
+
+def main(argv=None):
+    """Run the CLI on argv (default sys.argv[1:]); returns the wav paths
+    written."""
+    from radtts_tpu_torch.synthesizer import Synthesizer
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    refuse_unsupported(parser, args)
+    with open(args.config) as f:
+        config = json.load(f)
+    update_params(config, args.params)
+
+    synth = Synthesizer(
+        config, args.radtts_path, args.vocoder_path, args.config_vocoder,
+        seed=args.seed, token_dur_scaling=args.token_dur_scaling,
+        f0_mean=args.f0_mean, f0_std=args.f0_std,
+        energy_mean=args.energy_mean, energy_std=args.energy_std,
+        device=args.device)
+    print(f"Loaded checkpoint '{args.radtts_path}'")
+    return infer(synth, lines_to_list(args.text_path), args.speaker,
+                 args.speaker_text, args.speaker_attributes, args.sigma,
+                 args.sigma_tkndur, args.sigma_f0, args.sigma_energy,
+                 args.token_dur_scaling, args.denoising_strength,
+                 args.n_takes, args.output_dir, args.plot,
+                 batch_size=args.batch_size,
+                 long_text_chunk=args.long_text_chunk,
+                 chunk_gap_ms=args.chunk_gap_ms)
+
+
+if __name__ == "__main__":
+    main()

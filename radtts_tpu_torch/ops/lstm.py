@@ -43,6 +43,7 @@ class MaskedLSTM(nn.Module):
         super().__init__()
         self.lstm = nn.LSTM(input_size, hidden_size, batch_first=True,
                             bidirectional=bidirectional)
+        self.norm = norm    # the factorization a checkpoint stores
         if norm == "spectral":
             # a converged spectral norm: largest singular value 1
             with torch.no_grad():

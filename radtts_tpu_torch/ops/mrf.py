@@ -7,14 +7,15 @@ lrelu slope 0.1, every conv zero-padded at 0 and T.
 
 Port of the TPU kernels in radtts_tpu/ops/pallas_mrf.py (pallas_mrf,
 pallas_mrf_wide, pallas_mrf_folded: one function at every width). On the
-card `mrf` runs one of three hand-written kernels, by `mrf_route(C)` (see
+card `mrf` runs one of three hand-written kernels, by `mrf_route` (see
 their headers for the design and what bounds them):
   "tc"    csrc/mrf_tc.cu, a 3xTF32 implicit GEMM on the tensor cores, 18
           launches per stage, at C=256, 128, 64 and 32 (every HiFi-GAN v1
           stage), counted by mrf.tc_launches;
   "stack" csrc/mrf_stack.cu, the whole stack in one launch with every
-          intermediate in shared memory, fp32 FMA, at C <= 16 (HiFi-GAN
-          V2's C=16 and C=8 stages), counted by mrf.stack_launches;
+          intermediate in shared memory, fp32 FMA, at C <= 16 with at most
+          4 resblocks (HiFi-GAN V2's C=16 and C=8 stages), counted by
+          mrf.stack_launches;
   "conv"  csrc/mrf.cu, one fp32-FMA conv per launch, 18 per stage, at the
           widths nothing else takes (e.g. C=48, 96), counted by
           mrf.launches.
@@ -121,14 +122,17 @@ def build_stack():
     return lib, log, seconds
 
 
-def mrf_route(C):
-    """The routing rule, the kernel a stage of width C runs on the card:
-    "tc" (csrc/mrf_tc.cu) at C=32, 64 and multiples of 64 from 128;
-    "stack" (csrc/mrf_stack.cu) at C=4, 8, 12, 16; "conv" (csrc/mrf.cu)
+def mrf_route(C, n_resblocks=3):
+    """The routing rule, the kernel a stage of width C with n_resblocks
+    resblocks runs on the card: "tc" (csrc/mrf_tc.cu) at C=32, 64 and
+    multiples of 64 from 128; "stack" (csrc/mrf_stack.cu) at C=4, 8, 12,
+    16 with at most STACK_MAX_RESBLOCKS resblocks; "conv" (csrc/mrf.cu)
     at the other multiples of 4."""
     if C in (32, 64) or (C >= 128 and C % 64 == 0):
         return "tc"
-    return "stack" if C in STACK_WIDTHS else "conv"
+    if C in STACK_WIDTHS and n_resblocks <= STACK_MAX_RESBLOCKS:
+        return "stack"
+    return "conv"
 
 
 def stack_tile(T, B=1, sms=None, max_rows=STACK_MAX_TILE):
@@ -339,7 +343,7 @@ def mrf(x, weights):
     """MRF mean of one stage. x: (B, T, C) float32 -> (B, T, C).
 
     A CPU tensor runs mrf_plain. A CUDA tensor runs the hand-written
-    kernel that mrf_route(C) names, or raises. The kernels have no
+    kernel that mrf_route names, or raises. The kernels have no
     backward: with grad enabled and x or a weight requiring grad it raises,
     since its output would carry no gradient; differentiate mrf_plain."""
     if x.device.type == "cpu":
@@ -357,7 +361,7 @@ def mrf(x, weights):
 
 def mrf_cuda(x, weights, tile=None, route=None):
     """The card's kernels of mrf; `route` ("tc", "stack" or "conv")
-    overrides mrf_route(C), to time one kernel against another on the same
+    overrides mrf_route, to time one kernel against another on the same
     inputs, and `tile` overrides tc_tile(C) ((TN, NWG), route "tc") or
     stack_tile(T) (rows, route "stack")."""
     B, T, C = x.shape
@@ -374,7 +378,7 @@ def mrf_cuda(x, weights, tile=None, route=None):
             _check(f"{key}[{m}]", wd[key], (n, k, C, C), x.device)
         for key in ("b1", "b2"):
             _check(f"{key}[{m}]", wd[key], (n, C), x.device)
-    route = mrf_route(C) if route is None else route
+    route = mrf_route(C, len(weights)) if route is None else route
     if route not in ("tc", "stack", "conv"):
         raise ValueError(f"mrf: unknown route {route!r}")
 

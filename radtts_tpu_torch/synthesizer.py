@@ -8,11 +8,17 @@ matmuls): the 1024-wide WN couplings compound reduced-precision error over
 the 8 inverse flows.
 """
 
+import time
+
 import numpy as np
 import torch
 
+from radtts_tpu_torch.data.dataset import data_factory
 from radtts_tpu_torch.models.hifigan import denoiser_apply
 from radtts_tpu_torch.models.radtts import infer_durations, radtts_infer
+from radtts_tpu_torch.text.chunking import split_text_to_chunks
+from radtts_tpu_torch.train.checkpoint import load_radtts_for_inference
+from radtts_tpu_torch.vocoder_io import load_vocoder
 
 
 def frame_budget(n_frames, group_size, multiple=16):
@@ -34,19 +40,74 @@ def resolve_device(device=None):
 
 class Synthesizer:
     """One loaded model + vocoder + denoiser; `synthesize()` per request
-    batch. Build with `from_parts`."""
+    batch. Built from checkpoint files, or by `from_parts` from modules in
+    memory."""
+
+    def __init__(self, config, radtts_path, vocoder_path,
+                 vocoder_config_path, *, seed=1234, token_dur_scaling=1.0,
+                 token_duration_max=100, f0_mean=0.0, f0_std=0.0,
+                 energy_mean=0.0, energy_std=0.0, bucket_single=False,
+                 device=None):
+        """Load the HiFi-GAN checkpoint and its JSON config, the RADTTS
+        checkpoint (a reference state dict or the JAX package's .npz) and
+        the speaker table and text frontend of config's training
+        filelists, then set up as from_parts does."""
+        model_config = config["model_config"]
+        data_config = config["data_config"]
+        device = resolve_device(device)
+        tic = time.perf_counter()
+        vocoder, denoiser = load_vocoder(vocoder_path, vocoder_config_path,
+                                         device=device)
+        t_voc = time.perf_counter()
+        model, _ = load_radtts_for_inference(radtts_path, model_config)
+        t_ck = time.perf_counter()
+        trainset = data_factory(data_config, "training_files")
+        t_data = time.perf_counter()
+        self._setup(
+            model_config, model, vocoder, denoiser,
+            encode_fn=trainset.get_text,
+            speaker_id_fn=trainset.get_speaker_id,
+            sampling_rate=data_config["sampling_rate"],
+            hop_length=data_config["hop_length"], seed=seed,
+            token_dur_scaling=token_dur_scaling,
+            token_duration_max=token_duration_max, f0_mean=f0_mean,
+            f0_std=f0_std, energy_mean=energy_mean, energy_std=energy_std,
+            bucket_single=bucket_single, device=device)
+        self.trainset = trainset
+        self.load_phases = {"vocoder": t_voc - tic,
+                            "checkpoint": t_ck - t_voc,
+                            "dataset": t_data - t_ck, **self.load_phases}
+        print("[synthesizer] load phases: " + ", ".join(
+            f"{k.replace('_', ' ')} {v:.1f}s"
+            for k, v in self.load_phases.items()), flush=True)
 
     @classmethod
     def from_parts(cls, model_config, model, vocoder, denoiser, *,
                    encode_fn, speaker_id_fn, sampling_rate=22050,
                    hop_length=256, seed=1234, token_dur_scaling=1.0,
                    token_duration_max=100, f0_mean=0.0, f0_std=0.0,
-                   bucket_single=False, device=None):
+                   energy_mean=0.0, energy_std=0.0, bucket_single=False,
+                   device=None):
         """Build from in-memory modules (no checkpoint files).
         `encode_fn(text) -> int array`; `speaker_id_fn(name) -> int`.
         The modules are moved to `device`."""
-        self = cls()
-        self.device = resolve_device(device)
+        self = object.__new__(cls)
+        self.trainset = None
+        self._setup(model_config, model, vocoder, denoiser,
+                    encode_fn=encode_fn, speaker_id_fn=speaker_id_fn,
+                    sampling_rate=sampling_rate, hop_length=hop_length,
+                    seed=seed, token_dur_scaling=token_dur_scaling,
+                    token_duration_max=token_duration_max, f0_mean=f0_mean,
+                    f0_std=f0_std, energy_mean=energy_mean,
+                    energy_std=energy_std, bucket_single=bucket_single,
+                    device=resolve_device(device))
+        return self
+
+    def _setup(self, model_config, model, vocoder, denoiser, *, encode_fn,
+               speaker_id_fn, sampling_rate, hop_length, seed,
+               token_dur_scaling, token_duration_max, f0_mean, f0_std,
+               energy_mean, energy_std, bucket_single, device):
+        self.device = device
         self.model_config = model_config
         self.group_size = model_config["n_group_size"]
         self.sampling_rate = sampling_rate
@@ -54,16 +115,22 @@ class Synthesizer:
         self.token_dur_scaling = token_dur_scaling
         self.token_duration_max = token_duration_max
         self.f0_mean, self.f0_std = f0_mean, f0_std
+        # stored for the JAX engine's signature: its radtts_infer takes
+        # energy_mean/std and never reads them, so they change nothing
+        self.energy_mean, self.energy_std = energy_mean, energy_std
         # pad single-text requests to the batched path's 16-token buckets
         # (padded == exact, tested)
         self.bucket_single = bucket_single
+        tic = time.perf_counter()
         self.model = model.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
         self.denoiser = denoiser.to(self.device).eval()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.load_phases = {"to_device": time.perf_counter() - tic}
         self._encode_fn = encode_fn
         self._speaker_id_fn = speaker_id_fn
         self.generator = torch.Generator(self.device).manual_seed(seed)
-        return self
 
     def encode(self, text):
         return np.asarray(self._encode_fn(text))
@@ -77,16 +144,18 @@ class Synthesizer:
 
     @torch.inference_mode()
     def synthesize(self, texts, speaker, *, speaker_text=None,
-                   speaker_attributes=None, sigma=0.8, denoising_strength=0.0,
+                   speaker_attributes=None, sigma=0.8, sigma_tkndur=0.666,
+                   sigma_f0=1.0, sigma_energy=1.0, denoising_strength=0.0,
                    trim=True):
         """Synthesize a batch of texts for one speaker.
 
         Returns (wavs, aux): `wavs` is a list of float32 numpy arrays (one
         per text, trimmed to its own duration unless trim=False); `aux` has
         per-item 'f0', 'energy_avg', 'dur', 'n_frames'. Batches pad to a
-        16-token bucket. `sigma` scales the decoder's noise; the DAP
-        attribute models are deterministic, so the JAX engine's
-        sigma_tkndur/sigma_f0/sigma_energy have no counterpart here."""
+        16-token bucket. `sigma` scales the decoder's noise. sigma_tkndur,
+        sigma_f0 and sigma_energy take the JAX engine's defaults and, as
+        there, change nothing: the DAP attribute models the port builds
+        are deterministic."""
         if isinstance(texts, str):
             texts = [texts]
         encs = [self.encode(t) for t in texts]
@@ -141,3 +210,24 @@ class Synthesizer:
             if out[k] is not None:
                 aux[k] = out[k].cpu().numpy()
         return wavs, aux
+
+    def synthesize_long(self, text, speaker, *, max_tokens, gap_ms=120.0,
+                        **kwargs):
+        """Synthesize one text of unbounded length: split at sentence
+        boundaries into chunks of <= max_tokens encoded symbols
+        (text/chunking.py, the splitter of the inference CLI's
+        --long_text_chunk), run the chunks as one batch, and join the
+        trimmed waveforms with `gap_ms` of silence. Returns (wav, aux)
+        where aux carries the batched per-chunk arrays plus 'n_chunks'."""
+        parts = split_text_to_chunks(
+            text, lambda s: len(self.encode(s)), max_tokens)
+        wavs, aux = self.synthesize(parts, speaker, **kwargs)
+        aux["n_chunks"] = len(parts)
+        gap = np.zeros(int(self.sampling_rate * gap_ms / 1000.0),
+                       np.float32)
+        joined = []
+        for j, w in enumerate(wavs):
+            joined.append(w)
+            if j < len(wavs) - 1:
+                joined.append(gap)
+        return np.concatenate(joined), aux

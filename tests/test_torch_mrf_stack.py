@@ -96,6 +96,37 @@ def test_route(C, route):
     assert mrf_route(C) == route
 
 
+@pytest.mark.parametrize("C,n_rb,route", [
+    (16, 1, "stack"), (16, 4, "stack"), (16, 5, "conv"), (8, 6, "conv"),
+    (4, 5, "conv"), (32, 5, "tc"), (48, 5, "conv")])
+def test_route_by_resblock_count(C, n_rb, route):
+    """A C <= 16 stage with more resblocks than the stack kernel takes
+    goes to csrc/mrf.cu, which takes any count; mrf_cuda routes by the
+    weights it is given."""
+    assert mrf_route(C, n_rb) == route
+
+
+@pytest.mark.parametrize("n_rb,build", [(5, "build"), (3, "build_stack")])
+def test_mrf_cuda_routes_by_resblock_count(monkeypatch, n_rb, build):
+    """At C=16 mrf_cuda builds csrc/mrf.cu for 5 resblocks and the stack
+    kernel for 3 (each build is stubbed to stop there)."""
+    class Built(Exception):
+        pass
+
+    def stub(name):
+        def fn():
+            raise Built(name)
+        return fn
+
+    for name in ("build", "build_tc", "build_stack"):
+        monkeypatch.setattr(mrf_mod, name, stub(name))
+    monkeypatch.setattr(mrf_mod, "_lib", None)
+    monkeypatch.setattr(mrf_mod, "_stack_lib", None)
+    w = _weights(16, seed=8, ks=(3,) * n_rb)
+    with pytest.raises(Built, match=f"^{build}$"):
+        mrf_cuda(_x((1, 16, 16), 9), w)
+
+
 def test_route_at_every_width():
     """Every multiple of 4 up to 1024 has exactly one route; the stack
     kernel takes exactly C <= 16."""
