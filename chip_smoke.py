@@ -60,9 +60,35 @@ Phases, each printing a JSON or text line:
      profiler, and one step at batch 2 on the card is held against the
      same step on the CPU plain path from the same state (losses and
      updates) and its generator gradients against the step in float64;
-  8. the {"kernels": [...]} line with the four kernels (mrf_tc,
-     mrf_stack, mrf_conv, mel) and their launches by path (serve,
-     serve_v2, train).
+  8. MAS kernel vs plain: ops/mas.py:mas (csrc/mas.cu) against mas_plain
+     on the card at (16, 512, 112), the flagship training batch, ragged
+     (3, 997, 61), an item with in_len > out_len, and (2, 2500, 100), whose
+     choices go to global scratch: the hard alignments must be equal; the
+     kernel's and the plain version's times and the bytes floor;
+  9. RADTTS training path: python -m radtts_tpu_torch.train's main on a
+     seeded dataset (16 training and 2 validation int16 wavs of 2-6 s,
+     texts from filelists/): config_ljs_decoder.json at its published
+     widths, 4 steps across both curriculum points with a validation and
+     a checkpoint at steps 0 and 3, one step resumed from model_3,
+     config_ljs_dap.json (use_amp=false) warm-started from it for 2 steps
+     with the decoder frozen (every other parameter equal to the warm
+     start's), and one text served from that checkpoint by
+     python -m radtts_tpu_torch.inference's main. Losses must be finite;
+     mas launches once per binarized step and validation batch, the MRF
+     and mel kernels never (the serving after it is counted apart: 72
+     mrf_tc launches per generator call);
+ 10. RADTTS step time: the config_ljs_dap.json model, every module
+     trainable, binarize and KL on, fp32, at bench_train.py's (16, 112,
+     512): step ms (median of steps 2-5), mel frames/s, peak memory and a
+     profiled step (device busy and idle share, top kernels);
+ 11. RADTTS card against CPU: one step at batch 2 from the same state on
+     the card, the CPU and the CPU in float64 (the CPU steps take the
+     card's alignment, which must equal mas_plain's on the CPU's soft
+     attention, or the near-tie is reported): losses within rtol 1e-3,
+     gradients no further from float64 than max(1e-3, 2x the CPU's);
+ 12. the {"kernels": [...]} line with the five kernels (mrf_tc,
+     mrf_stack, mrf_conv, mel, mas) and their launches by path (serve,
+     serve_files, serve_v2, train, train_radtts).
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
@@ -734,7 +760,7 @@ def phase_serve_files(synth, mrf_mod, dev, power):
 
 
 PORT_KERNELS = ("mrf_conv_kernel", "mrf_tc_kernel", "mrf_tc_narrow_kernel",
-                "mrf_stack_kernel", "mel_fft_kernel")
+                "mrf_stack_kernel", "mel_fft_kernel", "mas_kernel")
 
 
 def phase_serve_v2(mrf_mod, dev, power):
@@ -1012,6 +1038,442 @@ def phase_train_vs_cpu(dev, mel_kw, lr=2e-4):
                 and u["share_over_lr_10"] <= 1e-3):
             raise AssertionError(f"{name} update differs: {u}")
 
+# ---------------------------------------------------------------------------
+# RADTTS training: the MAS kernel, the training CLI at full
+# width, its step time, and one step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+DECODER_CONFIG = os.path.join(REPO, "configs", "config_ljs_decoder.json")
+MAS_SHAPES = [((16, 512, 112), None),          # the flagship training batch
+              ((3, 997, 61), ([997, 640, 180], [61, 40, 17])),   # ragged
+              ((2, 120, 90), ([120, 50], [90, 90])),   # in_len > out_len
+              ((2, 2500, 100), ([2500, 1700], [100, 64]))]  # choices global
+RADTTS_STEP = (16, 112, 512)       # bench_train.py's (B, N, T)
+RADTTS_TRAIN_WAVS, RADTTS_VAL_WAVS = 16, 2
+
+
+def soft_attention(shape, lens, seed):
+    """Soft attention as ConvAttention gives it: a softmax over each item's
+    valid tokens of seeded logits, zero past them (CPU float32)."""
+    B, T, N = shape
+    rng = np.random.default_rng(seed)
+    out_lens, in_lens = lens if lens else ([T] * B, [N] * B)
+    logits = rng.normal(size=(B, T, N)) * 3.0
+    pad = np.arange(N)[None, :] >= np.asarray(in_lens)[:, None]
+    logits = np.where(pad[:, None, :], -np.inf, logits)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return (torch.from_numpy((e / e.sum(-1, keepdims=True))
+                             .astype(np.float32)),
+            torch.as_tensor(out_lens), torch.as_tensor(in_lens))
+
+
+def phase_mas_kernel(mas_mod, dev):
+    """csrc/mas.cu against mas_plain on the card: the hard alignments must
+    be equal. Times of both (CUDA events); the bound is the bytes floor
+    (B*T*N fp32 read and written at 3.35 TB/s; ~4 operations a cell are
+    far below it), though what bounds the kernel is the dependence over
+    frames."""
+    rows = []
+    for i, (shape, lens) in enumerate(MAS_SHAPES):
+        attn, out_lens, in_lens = soft_attention(shape, lens, 20 + i)
+        attn, out_lens, in_lens = (attn.to(dev), out_lens.to(dev),
+                                   in_lens.to(dev))
+        got = mas_mod.mas(attn, out_lens, in_lens)
+        want = mas_mod.mas_plain(attn, out_lens, in_lens)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        B, T, N = shape
+        t_bytes = 2 * 4.0 * B * T * N / HBM_BYTES
+        t_ops = 4.0 * B * T * N / FP32_FLOPS
+        row = {"phase": "mas_kernel_vs_plain", "shape": list(shape),
+               "in_smem": mas_mod._lib.radtts_mas_smem_bytes(T, N) > 0,
+               "cells_different": n_diff,
+               "ones": int(want.sum()),
+               "max_abs_err": (got - want).abs().max().item(),
+               "ms": cuda_ms(lambda: mas_mod.mas(attn, out_lens, in_lens)),
+               "plain_ms": cuda_ms(lambda: mas_mod.mas_plain(
+                   attn, out_lens, in_lens), reps=3, warmup=1),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes_floor_ms": t_bytes * 1e3}
+        log(row)
+        rows.append(row)
+        if n_diff:
+            raise AssertionError(f"mas kernel differs from mas_plain at "
+                                 f"{shape} in {n_diff} cells")
+    return rows
+
+
+def write_train_dataset(root, seed=0):
+    """RADTTS_TRAIN_WAVS + RADTTS_VAL_WAVS seeded int16 wavs of 2-6 s (a
+    voiced tone with a glide, plus noise), their lengths ~0.065 s per
+    character of texts from filelists/ (the first rows of the LJS training
+    list), and both filelists under root. Returns the training_files and
+    validation_files entries."""
+    from scipy.io import wavfile
+
+    sr = 22050
+    os.makedirs(os.path.join(root, "wavs"))
+    with open(os.path.join(REPO, "filelists",
+                           "ljs_audiopath_text_speaker_train_filelist.txt"),
+              encoding="utf-8") as f:
+        texts = [line.split("|")[1] for line in f][
+            :RADTTS_TRAIN_WAVS + RADTTS_VAL_WAVS]
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i, text in enumerate(texts):
+        seconds = float(np.clip(0.065 * len(text), 2.0, 6.0))
+        t = np.arange(int(seconds * sr)) / sr
+        hz = 110.0 + 15.0 * i + 30.0 * np.sin(2 * np.pi * 0.5 * t)
+        w = (0.3 * np.sin(2 * np.pi * np.cumsum(hz) / sr)
+             * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t))
+             + 0.02 * rng.standard_normal(t.size))
+        wavfile.write(os.path.join(root, "wavs", f"{i}.wav"), sr,
+                      (w * 32767).astype(np.int16))
+        rows.append(f"{i}.wav|{text}|ljs\n")
+    files = {}
+    for key, name, part in (
+            ("training_files", "train.txt", rows[:RADTTS_TRAIN_WAVS]),
+            ("validation_files", "val.txt", rows[RADTTS_TRAIN_WAVS:])):
+        with open(os.path.join(root, name), "w") as f:
+            f.writelines(part)
+        files[key] = {"LJS": {"basedir": root, "audiodir": "wavs",
+                              "filelist": name, "lmdbpath": ""}}
+    return files
+
+
+def _counts(mas_mod, mel_mod, mrf_mod):
+    return {"mas": mas_mod.mas.launches, "mel": mel_mod.mel.launches,
+            "mrf_tc": mrf_mod.mrf.tc_launches,
+            "mrf_stack": mrf_mod.mrf.stack_launches,
+            "mrf_conv": mrf_mod.mrf.launches}
+
+
+def _reset_counts(mas_mod, mel_mod, mrf_mod):
+    mas_mod.mas.launches = 0
+    mel_mod.mel.launches = 0
+    mrf_mod.mrf.tc_launches = 0
+    mrf_mod.mrf.stack_launches = 0
+    mrf_mod.mrf.launches = 0
+
+
+def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power):
+    """python -m radtts_tpu_torch.train's main at full width, on a seeded
+    dataset written here: config_ljs_decoder.json (8 flows, 1024-wide WN,
+    batch 16) for 4 steps across both curriculum points (binarize from
+    step 1, the KL loss from step 2), validating and checkpointing at
+    steps 0 and 3; one step resumed from model_3; config_ljs_dap.json
+    (use_amp=false, batch 16: the dataset holds 16 wavs) warm-started from
+    model_3 for 2 steps with its unfreeze_modules durf0energyvpred, every
+    other parameter checked equal to the warm start's; then one text
+    served from that checkpoint by python -m radtts_tpu_torch.inference.
+    The counts are set to 0 just before the first training run and read
+    just after the last; mas must launch once per binarized step and per
+    validation batch, the MRF and mel kernels never. The serving that
+    follows is counted apart."""
+    from radtts_tpu_torch.inference import main as inference_main
+    from radtts_tpu_torch.models.hifigan import (Generator,
+                                                 generator_to_reference)
+    from radtts_tpu_torch.train import main as train_main
+
+    unfrozen = ("dur_pred_layer", "f0_pred_module", "energy_pred_module",
+                "v_pred_module", "v_embeddings")
+    with tempfile.TemporaryDirectory() as root:
+        files = write_train_dataset(os.path.join(root, "data"))
+        configs = {}
+        for name, path in (("decoder", DECODER_CONFIG), ("dap", CONFIG)):
+            with open(path) as f:
+                config = json.load(f)
+            config["data_config"].update(
+                files, betabinom_cache_path=os.path.join(root, "cache"))
+            configs[name] = os.path.join(root, f"{name}.json")
+            with open(configs[name], "w") as f:
+                json.dump(config, f)
+        out = {k: os.path.join(root, k) for k in ("dec", "res", "dap")}
+        common = ["train_config.seed=0", "train_config.batch_size=16"]
+        curriculum = ["train_config.binarization_start_iter=1",
+                      "train_config.kl_loss_start_iter=2",
+                      "train_config.iters_per_checkpoint=3"]
+        runs = {}
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(mas_mod, mel_mod, mrf_mod)
+        tic = time.perf_counter()
+        runs["decoder"] = train_main([
+            "-c", configs["decoder"], "-p",
+            f"train_config.output_directory={out['dec']}",
+            "train_config.epochs=4", *common, *curriculum])
+        runs["resume"] = train_main([
+            "-c", configs["decoder"], "-p",
+            f"train_config.output_directory={out['res']}",
+            "train_config.epochs=5", *common, *curriculum,
+            f"train_config.checkpoint_path={out['dec']}/model_3"])
+        runs["dap"] = train_main([
+            "-c", configs["dap"], "-p",
+            f"train_config.output_directory={out['dap']}",
+            "train_config.epochs=2", "train_config.use_amp=false",
+            *common,
+            f"train_config.warmstart_checkpoint_path={out['dec']}/model_3"])
+        train_s = time.perf_counter() - tic
+        launches = _counts(mas_mod, mel_mod, mrf_mod)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        # serve one text from the trained checkpoint: a serving path, with
+        # counts of its own (72 mrf_tc launches per generator call: the
+        # denoiser's bias call at load, then the text)
+        _reset_counts(mas_mod, mel_mod, mrf_mod)
+        torch.manual_seed(7)
+        vocoder = Generator(HIFIGAN_V1)
+        voc = os.path.join(root, "hifigan.pt")
+        torch.save({"generator": generator_to_reference(vocoder)}, voc)
+        voc_cfg = os.path.join(root, "hifigan.json")
+        with open(voc_cfg, "w") as f:
+            json.dump(HIFIGAN_V1, f)
+        text = os.path.join(root, "text.txt")
+        with open(text, "w") as f:
+            f.write(TEXTS[1] + "\n")
+        tic = time.perf_counter()
+        written = inference_main([
+            "-c", configs["dap"], "-r", f"{out['dap']}/model_0", "-v", voc,
+            "-k", voc_cfg, "-t", text, "-s", "ljs", "-o",
+            os.path.join(root, "wavs_out"), "--seed", "0"])
+        serve_s = time.perf_counter() - tic
+        serve_launches = _counts(mas_mod, mel_mod, mrf_mod)
+        audio = _check_wav(written[0], written[0])
+
+        src = torch.load(f"{out['dec']}/model_3", map_location="cpu",
+                         weights_only=True)["model"]
+        got = torch.load(f"{out['dap']}/model_0", map_location="cpu",
+                         weights_only=True)["model"]
+        frozen_equal = moved = 0
+        for k, v in got.items():
+            if k.split(".")[0] in unfrozen or k not in src:
+                moved += int(k in src and not torch.equal(v, src[k]))
+                continue
+            if "sn_u" in k or "sn_v" in k or k.endswith(".p"):
+                continue     # buffers: the power iteration moves sn_u, sn_v
+            if not torch.equal(v, src[k]):
+                raise AssertionError(f"{k} moved in the frozen DAP run")
+            frozen_equal += 1
+
+    history = [dict(h, run=name) for name, hs in runs.items() for h in hs]
+    for h in history:
+        vals = [v for v in h.values() if isinstance(v, float)]
+        if not all(np.isfinite(vals)):
+            raise AssertionError(f"non-finite step {h}")
+    # binarized steps: decoder iterations 1-3, the resumed 4, both DAP steps;
+    # validations: decoder at 0 and 3, DAP at 0, one batch each
+    want_mas = 3 + 1 + 2 + 3
+    curr = [(h["binarize"], h["use_kl"]) for h in runs["decoder"]]
+    if (curr != [(False, False), (True, False), (True, True), (True, True)]
+            or [h["iteration"] for h in runs["resume"]] != [4]
+            or len(runs["dap"]) != 2
+            or launches != {"mas": want_mas, "mel": 0, "mrf_tc": 0,
+                            "mrf_stack": 0, "mrf_conv": 0}
+            or serve_launches != {"mas": 0, "mel": 0, "mrf_tc": 2 * 72,
+                                  "mrf_stack": 0, "mrf_conv": 0}
+            or frozen_equal < 100):
+        raise AssertionError(f"curriculum {curr}, launches {launches}, "
+                             f"serving {serve_launches}, {frozen_equal} "
+                             "frozen parameters equal")
+    log({"phase": "train_radtts", "card": power,
+         "steps": [{k: h[k] for k in ("run", "iteration", "ms", "total",
+                                      "grad_norm", "binarize", "use_kl",
+                                      "loss_mel", "loss_ctc",
+                                      "binarization_loss")}
+                   for h in history],
+         "steady_step_ms_decoder": statistics.median(
+             h["ms"] for h in runs["decoder"][1:]),
+         "dap_step_ms": [h["ms"] for h in runs["dap"]],
+         "validation": {name: [h["validation"] for h in hs
+                               if "validation" in h]
+                        for name, hs in runs.items()},
+         "cli_seconds": train_s, "serve_seconds": serve_s,
+         "served_samples": int(audio.size),
+         "dap_parameters_moved": moved,
+         "frozen_parameters_equal": frozen_equal,
+         "launches": launches, "serve_launches": serve_launches,
+         "peak_allocated_gib": peak_gib})
+    return launches
+
+
+def radtts_step_batch(B, N, T, n_mel, seed, in_lens=None, out_lens=None):
+    """bench_train.py's batch (seeded numpy: random mel, text, f0 and
+    voicing, energy; every item N tokens and T frames unless lengths are
+    given) with a beta-binomial prior over each item's valid region in
+    place of its random one."""
+    from radtts_tpu_torch.data.dataset import \
+        beta_binomial_prior_distribution
+
+    r = np.random.default_rng(seed)
+    in_lens = np.full((B,), N, np.int64) if in_lens is None else \
+        np.asarray(in_lens, np.int64)
+    out_lens = np.full((B,), T, np.int64) if out_lens is None else \
+        np.asarray(out_lens, np.int64)
+    f0 = (r.random((B, T)) * 300 + 100).astype(np.float32)
+    voiced = (r.random((B, T)) > 0.3).astype(np.float32)
+    prior = np.zeros((B, T, N), np.float32)
+    for b, (n, t) in enumerate(zip(in_lens, out_lens)):
+        prior[b, :t, :n] = beta_binomial_prior_distribution(n, t, 1.0)
+    return {
+        "mel": r.standard_normal((B, T, n_mel)).astype(np.float32),
+        "speaker_ids": np.zeros((B,), np.int64),
+        "text": r.integers(1, 180, (B, N)).astype(np.int64),
+        "input_lengths": in_lens, "output_lengths": out_lens,
+        "attn_prior": prior, "f0": f0 * voiced, "voiced_mask": voiced,
+        "energy_avg": r.random((B, T)).astype(np.float32)}
+
+
+def _radtts_trainer(model_config, dev, seed, lr=1e-4):
+    from radtts_tpu_torch.train.trainer import (apply_trainable_mask,
+                                                build_trainable_mask,
+                                                init_model)
+    from radtts_tpu_torch.train.optim import build_optimizer
+
+    model = init_model(model_config, seed, dev)
+    trainable = apply_trainable_mask(model, build_trainable_mask(model))
+    return model, trainable, build_optimizer(trainable, "RAdam", lr, 1e-6)
+
+
+def phase_radtts_step(mas_mod, dev, power):
+    """The config_ljs_dap.json model, every module trainable, binarize and
+    the KL loss on, fp32, at bench_train.py's (16, 112, 512): wall ms of a
+    step (host clock around the step and its synchronize; median of steps
+    2-5), mel frames per second, the peak memory, then one step under
+    torch.profiler (device busy and idle share, top kernels)."""
+    from radtts_tpu_torch.train.trainer import batch_to_device, train_step
+
+    with open(CONFIG) as f:
+        config = json.load(f)
+    mc, tc = config["model_config"], config["train_config"]
+    B, N, T = RADTTS_STEP
+    model, trainable, opt = _radtts_trainer(mc, dev, seed=1)
+    batch = batch_to_device(radtts_step_batch(
+        B, N, T, mc["n_mel_channels"], 2), dev)
+
+    def one_step():
+        total, _, _ = train_step(model, opt, trainable, batch, mc,
+                                 tc["loss_weights"], 1.0, True, True,
+                                 tc["grad_clip_val"])
+        return float(total)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, totals = [], []
+    for _ in range(6):
+        total, t = timed(one_step)
+        ms.append(t)
+        totals.append(total)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches_before = mas_mod.mas.launches
+    profile = profile_run(one_step, top=15)
+    step_ms = statistics.median(ms[1:5])
+    log({"phase": "radtts_train_step", "card": power, "batch": [B, N, T],
+         "step_ms": ms, "median_step_ms_2_5": step_ms,
+         "mel_frames_per_s": B * T / (step_ms / 1e3),
+         "peak_allocated_gib": peak_gib, "losses": totals,
+         "profile": profile,
+         "mas_launches_in_profiled_step": mas_mod.mas.launches
+         - launches_before})
+    if not all(np.isfinite(totals)):
+        raise AssertionError(f"non-finite losses {totals}")
+    return step_ms
+
+
+def phase_radtts_vs_cpu(dev, lr=1e-4):
+    """One step at batch 2 of the config_ljs_dap.json model (full widths,
+    binarize and KL on) from the same state, on the card, on the CPU and on
+    the CPU in float64. The card's hard alignment (csrc/mas.cu) must equal
+    mas_plain's on the CPU's own soft attention, or the near-tie that
+    split them is reported; the CPU steps then take the card's alignment,
+    so that the gradients differ only by arithmetic. Limits: the losses
+    within rtol 1e-3 of the CPU's; each trainable gradient (the clipped
+    one the step applied) no further from the float64 step's, in norm,
+    than max(1e-3, twice the CPU fp32 step's own distance). The distance is
+    relative to the float64 gradient's norm, or to 1e-3 of the global
+    float64 norm where that is larger: some exact gradients are 0 (a conv
+    bias before an instance norm), and fp32 leaves rounding there."""
+    import radtts_tpu_torch.models.radtts as radtts_mod
+    from radtts_tpu_torch.ops.mas import mas_plain
+    from radtts_tpu_torch.train.trainer import train_step
+
+    with open(CONFIG) as f:
+        config = json.load(f)
+    mc, tc = config["model_config"], config["train_config"]
+    from radtts_tpu_torch.train.optim import build_optimizer
+
+    B, N, T = 2, 48, 192
+    batch = radtts_step_batch(B, N, T, mc["n_mel_channels"], 3, [48, 37],
+                              [192, 150])
+    cpu_model = _radtts_trainer(mc, "cpu", seed=4, lr=lr)[0]
+    runs = {"card": (copy.deepcopy(cpu_model).to(dev), torch.float32),
+            "cpu": (cpu_model, torch.float32),
+            "cpu64": (copy.deepcopy(cpu_model).double(), torch.float64)}
+    real_binarize = radtts_mod.binarize_attention
+    seen = {}
+    out = {}
+    for name, (model, dtype) in runs.items():
+        p0 = next(model.parameters())
+        trainable = [p for p in model.parameters() if p.requires_grad]
+        opt = build_optimizer(trainable, "RAdam", lr, 1e-6)
+        tb = {k: (torch.from_numpy(v).to(dtype) if v.dtype == np.float32
+                  else torch.from_numpy(v)).to(p0.device)
+              for k, v in batch.items()}
+
+        def binarize(attn_soft, in_lens, out_lens, name=name):
+            seen[name + "_soft"] = attn_soft.detach().float().cpu()
+            if name == "card":
+                hard = real_binarize(attn_soft, in_lens, out_lens)
+                seen["card_hard"] = hard.cpu()
+                return hard
+            return seen["card_hard"].to(attn_soft.device, attn_soft.dtype)
+
+        radtts_mod.binarize_attention = binarize
+        try:
+            tic = time.perf_counter()
+            total, loss_dict, _ = train_step(
+                model, opt, trainable, tb, mc, tc["loss_weights"], 1.0,
+                True, True, tc["grad_clip_val"])
+            out[name] = {k: float(v.detach()) for k, (v, _) in
+                         loss_dict.items()}
+            out[name]["total"] = float(total)
+            out[name + "_ms"] = (time.perf_counter() - tic) * 1e3
+        finally:
+            radtts_mod.binarize_attention = real_binarize
+    cpu_hard = mas_plain(seen["cpu_soft"], torch.from_numpy(
+        batch["output_lengths"]), torch.from_numpy(batch["input_lengths"]))
+    n_diff = int((cpu_hard != seen["card_hard"]).sum())
+    soft_diff = (seen["card_soft"] - seen["cpu_soft"]).abs().max().item()
+
+    ref = [q.grad for q in runs["cpu64"][0].parameters()]
+    floor = 1e-3 * torch.stack([g.norm() for g in ref]).norm()
+
+    def grad_dist(name):
+        model = runs[name][0]
+        return {k: ((p.grad.cpu().double() - q).norm()
+                    / torch.maximum(q.norm(), floor)).item()
+                for (k, p), q in zip(model.named_parameters(), ref)}
+
+    card, cpu = grad_dist("card"), grad_dist("cpu")
+    over = {k: (card[k], cpu[k]) for k in card
+            if card[k] > max(1e-3, 2 * cpu[k])}
+    worst = max(card, key=card.get)
+    log({"phase": "radtts_train_step_card_vs_cpu", **out,
+         "alignment_cells_different": n_diff,
+         "soft_attention_max_abs_diff": soft_diff,
+         "grad_worst_vs_float64": {"tensor": worst, "card": card[worst],
+                                   "cpu_fp32": cpu[worst]},
+         "grad_cpu_fp32_worst_vs_float64": max(cpu.values()),
+         "grad_tensors": len(card)})
+    if n_diff:
+        log({"phase": "radtts_alignment_near_tie", "cells": n_diff,
+             "soft_attention_max_abs_diff": soft_diff})
+    for k, v in out["cpu"].items():
+        if not abs(out["card"][k] - v) <= 1e-3 * abs(v) + 1e-6:
+            raise AssertionError(f"{k}: card {out['card'][k]} vs cpu {v}")
+    if over:
+        raise AssertionError(f"gradients off the float64 step (card, cpu "
+                             f"fp32): {over}")
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1022,6 +1484,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from radtts_tpu_torch.ops import mas as mas_mod
     from radtts_tpu_torch.ops import mel as mel_mod
     from radtts_tpu_torch.ops import mrf as mrf_mod
     from radtts_tpu_torch.synthesizer import Synthesizer, resolve_device
@@ -1040,10 +1503,11 @@ def main():
          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = {name: pool.submit(fn) for name, fn in (
             ("mrf_tc", mrf_mod.build_tc), ("mrf_stack", mrf_mod.build_stack),
-            ("mrf_conv", mrf_mod.build), ("mel", mel_mod.build))}
+            ("mrf_conv", mrf_mod.build), ("mel", mel_mod.build),
+            ("mas", mas_mod.build))}
         for name, fut in builds.items():
             _, nvcc_log, build_s = fut.result()
             log({"phase": "build", "kernel": name, "seconds": build_s,
@@ -1099,6 +1563,11 @@ def main():
     train_launches = phase_training(mel_mod, mrf_mod, dev, data_config)
     phase_train_profile(dev, mel_kw)
     phase_train_vs_cpu(dev, mel_kw)
+    mas_rows = phase_mas_kernel(mas_mod, dev)
+    radtts_launches = phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev,
+                                         power)
+    phase_radtts_step(mas_mod, dev, power)
+    phase_radtts_vs_cpu(dev)
 
     def mrf_entry(kernel, source, replaces, also_replaces, shapes=None,
                   ms_key="ms"):
@@ -1113,7 +1582,8 @@ def main():
         by_path = {"serve": serve_launches[kernel],
                    "serve_files": files_launches[kernel],
                    "serve_v2": v2_launches[kernel],
-                   "train": train_launches[kernel]}
+                   "train": train_launches[kernel],
+                   "train_radtts": radtts_launches[kernel]}
         return {
             "name": kernel,
             "route": "cuda",
@@ -1167,9 +1637,10 @@ def main():
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mel.cu",
         "replaces": "radtts_tpu/ops/pallas_mel.py:74",
-        "launches": train_launches["mel"],
+        "launches": train_launches["mel"] + radtts_launches["mel"],
         "launches_by_path": {"serve": 0, "serve_files": 0, "serve_v2": 0,
-                             "train": train_launches["mel"]},
+                             "train": train_launches["mel"],
+                             "train_radtts": radtts_launches["mel"]},
         "max_abs_err": mel_err,
         "ms": train_row["ms"],
         "plain_ms": train_row["plain_ms"],
@@ -1187,6 +1658,29 @@ def main():
                                       "design_gflop", "max_abs_err",
                                       "grad_max_abs_err")}
                    for r in mel_rows],
+    }, {
+        "name": "mas",
+        "route": "cuda",
+        "source": "radtts_tpu_torch/csrc/mas.cu",
+        "replaces": "radtts_tpu/ops/mas.py:70 (XLA scan, not Pallas)",
+        "launches": radtts_launches["mas"],
+        "launches_by_path": {"serve": 0, "serve_files": 0, "serve_v2": 0,
+                             "train": 0,
+                             "train_radtts": radtts_launches["mas"]},
+        "max_abs_err": max(r["max_abs_err"] for r in mas_rows),
+        "ms": mas_rows[0]["ms"],
+        "plain_ms": mas_rows[0]["plain_ms"],
+        "bound_ms": mas_rows[0]["bound_ms"],
+        "bound_by": mas_rows[0]["bound_by"],
+        "library_ms": None,
+        "note": "times at (16, 512, 112), the flagship training batch; no "
+                "PyTorch call computes MAS; bound_ms is the bytes floor, "
+                "but the dependence over frames (a chain of out_len steps "
+                "per block, B blocks) bounds the kernel",
+        "shapes": [{k: r[k] for k in ("shape", "in_smem", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "cells_different", "max_abs_err")}
+                   for r in mas_rows],
     }]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(power, flush=True)

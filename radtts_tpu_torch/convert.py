@@ -10,6 +10,11 @@ converted: conv kernels (K, C_in, C_out) -> (C_out, C_in, K); linear
 transposed-conv kernels (K, C_in, C_out) -> (C_in, C_out, K) unflipped.
 MRF resblock convs keep the taps-major (3, K, C_in, C_out) layout the
 kernel reads. The discriminators' kernels go to torch's conv layouts.
+
+`radtts_train_from_jax` carries the unfolded tree into the training form
+(RADTTS(..., factored=True)): weight-normed convs as weight_v / weight_g,
+recurrent weights as {sn_w, sn_u, sn_v} or {wn_v, wn_g}, the LU factors as
+parameters, with the same layout changes.
 """
 
 import numpy as np
@@ -17,7 +22,9 @@ import torch
 
 from radtts_tpu_torch.models.hifigan import Generator
 from radtts_tpu_torch.models.radtts import RADTTS, _norm_kind
+from radtts_tpu_torch.ops.conv import effective_weight
 from radtts_tpu_torch.ops.fold_norms import fold_norms
+from radtts_tpu_torch.ops.lstm import effective_hh
 from radtts_tpu_torch.train.vocoder_trainer import vocoder_train_init
 
 
@@ -31,7 +38,13 @@ def _set(param, array):
 
 
 def _conv(mod, p):
-    _set(mod.weight, np.transpose(p["w"], (2, 1, 0)))
+    """A conv node {w, b} or {v, g, b} into a conv: a weight-normed
+    ConvNorm keeps {v, g}; any other takes the effective weight."""
+    if getattr(mod, "weight_norm", False):
+        _set(mod.weight_v, np.transpose(p["v"], (2, 1, 0)))
+        _set(mod.weight_g, p["g"])
+    else:
+        _set(mod.weight, np.transpose(effective_weight(p), (2, 1, 0)))
     if "b" in p:
         _set(mod.bias, p["b"])
 
@@ -45,10 +58,19 @@ def _linear(mod, p):
 def _lstm(mod, p):
     cells = ([("", p["fwd"]), ("_reverse", p["bwd"])]
              if mod.lstm.bidirectional else [("", p)])
-    for sfx, cell in cells:
+    for d, (sfx, cell) in enumerate(cells):
         _set(getattr(mod.lstm, "weight_ih_l0" + sfx),
              np.asarray(cell["w_ih"]).T)
-        _set(getattr(mod.lstm, "weight_hh_l0" + sfx), cell["hh"]["w"])
+        if mod.factored:
+            hh = mod.hh[d]
+            if hh.norm == "spectral" and "sn_w" not in cell["hh"]:
+                raise ValueError("a spectral-normed LSTM needs {sn_w, sn_u, "
+                                 f"sn_v}}, got {sorted(cell['hh'])}")
+            for k, v in cell["hh"].items():
+                _set(getattr(hh, k), v)
+        else:
+            _set(getattr(mod.lstm, "weight_hh_l0" + sfx),
+                 effective_hh(cell["hh"]))
         _set(getattr(mod.lstm, "bias_ih_l0" + sfx), cell["b_ih"])
         _set(getattr(mod.lstm, "bias_hh_l0" + sfx), cell["b_hh"])
 
@@ -56,7 +78,8 @@ def _lstm(mod, p):
 def _invertible(mod, p):
     for name in ("p", "lower", "upper", "upper_diag"):
         _set(getattr(mod, name), p[name])
-    mod.precompute_inverse()
+    if not mod.trainable:
+        mod.precompute_inverse()
 
 
 def _dap(mod, p):
@@ -79,32 +102,81 @@ def _wn(mod, p):
         _conv(conv, cp)
 
 
+def _attention(mod, p):
+    for conv, cp in zip(mod.key_proj, p["key_proj"]):
+        _conv(conv, cp)
+    for conv, cp in zip(mod.query_proj, p["query_proj"]):
+        _conv(conv, cp)
+
+
 def radtts_from_jax(params_np, model_config):
     """RADTTS module (eval, no grad) holding the JAX tree's weights."""
-    p = fold_norms(params_np)
-    model = RADTTS(model_config)
-    _set(model.speaker_embedding.weight, p["speaker_embedding"]["table"])
-    _set(model.embedding.weight, p["embedding"]["table"])
-    for conv, cp in zip(model.encoder.convs, p["encoder"]["convs"]):
-        _conv(conv, cp)
-    for norm, npar in zip(model.encoder.norms, p["encoder"]["norms"]):
-        _set(norm.gamma, npar["gamma"])
-        _set(norm.beta, npar["beta"])
-    _lstm(model.encoder.lstm, p["encoder"]["lstm"])
+    model = _radtts_load(RADTTS(model_config), fold_norms(params_np))
+    return model.eval().requires_grad_(False)
+
+
+def radtts_train_from_jax(params_np, model_config, partial=False):
+    """The training-form RADTTS (train mode, grad on) holding the unfolded
+    JAX tree's weights and norm state. partial=True skips the top-level
+    modules the tree lacks and also returns the names of those loaded."""
+    model = RADTTS(model_config, factored=True)
+    loaded = _radtts_load(model, params_np, partial)
+    model.train().requires_grad_(True)
+    return (model, loaded) if partial else model
+
+
+def _radtts_load(model, p, partial=False):
+    """Fill model's modules from tree p; with partial, a top-level module
+    missing from p keeps its weights, and the set of top-level names read
+    is returned instead of the model."""
+    loaded = set()
+
+    def part(name, fn, *args):
+        if partial and name not in p:
+            return
+        fn(*args)
+        loaded.add(name)
+
+    def embeddings():
+        _set(model.speaker_embedding.weight, p["speaker_embedding"]["table"])
+
+    def encoder():
+        for conv, cp in zip(model.encoder.convs, p["encoder"]["convs"]):
+            _conv(conv, cp)
+        for norm, npar in zip(model.encoder.norms, p["encoder"]["norms"]):
+            _set(norm.gamma, npar["gamma"])
+            _set(norm.beta, npar["beta"])
+        _lstm(model.encoder.lstm, p["encoder"]["lstm"])
+
+    def flows():
+        for flow, fp in zip(model.flows, p["flows"]):
+            _invertible(flow.inv, fp["inv"])
+            _wn(flow.affine.pred, fp["affine"]["pred"])
+
+    def table(name):
+        _set(getattr(model, name).weight, p[name]["table"])
+
+    part("speaker_embedding", embeddings)
+    part("embedding", table, "embedding")
+    part("encoder", encoder)
+    # a file written before the port had ConvAttention holds none
+    if model.attention is not None and "attention" in p:
+        part("attention", _attention, model.attention, p["attention"])
     if model.context_lstm is not None:
-        _lstm(model.context_lstm, p["context_lstm"])
-    for flow, fp in zip(model.flows, p.get("flows", [])):
-        _invertible(flow.inv, fp["inv"])
-        _wn(flow.affine.pred, fp["affine"]["pred"])
+        part("context_lstm", lambda: _lstm(model.context_lstm,
+                                           p["context_lstm"]))
+    if len(model.flows):
+        part("flows", flows)
     for name in ("dur_pred_layer", "v_pred_module", "f0_pred_module",
                  "energy_pred_module"):
         if getattr(model, name) is not None:
-            _dap(getattr(model, name), p[name])
+            part(name, lambda n=name: _dap(getattr(model, n), p[n]))
     if model.unvoiced_bias is not None:
-        _linear(model.unvoiced_bias, p["unvoiced_bias"])
+        part("unvoiced_bias", lambda: _linear(model.unvoiced_bias,
+                                              p["unvoiced_bias"]))
     if model.v_embeddings is not None:
-        _set(model.v_embeddings.weight, p["v_embeddings"]["table"])
-    return model.eval().requires_grad_(False)
+        part("v_embeddings", table, "v_embeddings")
+    return loaded if partial else model
 
 
 def _generator(p, h):
@@ -250,7 +322,7 @@ def radtts_from_torch(sd, model_config):
     """A reference RADTTS state dict (the reference checkpoint's
     'state_dict') as the JAX-format numpy tree radtts_from_jax takes, for
     the modules RADTTS(model_config) builds, their norm factorizations
-    kept. The attention.* entries are training-only and are not read. A
+    kept, the alignment attention included where the file has it. A
     configuration the port cannot build raises by name before anything is
     read."""
     cfg = dict(model_config)
@@ -290,6 +362,14 @@ def radtts_from_torch(sd, model_config):
                        for i in range(3)],
              "lstm": _bilstm_sd(sd, "encoder.lstm",
                                 _norm_kind(g("text_encoder_lstm_norm")))}}
+    if ((("atn" in include or "dec" in include)
+         and g("learn_alignments", False))
+            and "attention.key_proj.0.conv.weight" in sd):
+        p["attention"] = {
+            "key_proj": [_conv_sd(sd, f"attention.key_proj.{i}.conv")
+                         for i in (0, 2)],
+            "query_proj": [_conv_sd(sd, f"attention.query_proj.{i}.conv")
+                           for i in (0, 2, 4)]}
     if g("use_context_lstm", False):
         p["context_lstm"] = _bilstm_sd(sd, "context_lstm",
                                        _norm_kind(g("context_lstm_norm")))

@@ -10,9 +10,10 @@ that u . (W v) = 1; a weight-normed one as _v = W and _g = its row norms.
 The JAX package's fold and the reference in eval mode both give back W,
 up to fp32 rounding.
 
-The writer emits no attention.* keys: the port has no ConvAttention yet
-(it is training-only), so the reference loads the file only with
-strict=False, and the JAX package's reader needs those keys merged in.
+The alignment attention's plain convs are written as attention.key_proj.
+{0,2}.conv and attention.query_proj.{0,2,4}.conv, so the reference loads
+the file with strict=True. A training-form model is folded first
+(models/radtts.py:fold_radtts).
 """
 
 import numpy as np
@@ -79,6 +80,9 @@ def _dap(sd, prefix, dap):
 
 def radtts_to_torch(model):
     """A RADTTS module as a reference state dict (CPU fp32 tensors)."""
+    if model.factored:
+        from radtts_tpu_torch.models.radtts import fold_radtts
+        model = fold_radtts(model)
     sd = {"speaker_embedding.weight": _t(_np(model.speaker_embedding.weight)),
           "embedding.weight": _t(_np(model.embedding.weight))}
     enc = model.encoder
@@ -87,6 +91,11 @@ def radtts_to_torch(model):
         sd[f"encoder.convolutions.{i}.1.weight"] = _t(_np(norm.gamma))
         sd[f"encoder.convolutions.{i}.1.bias"] = _t(_np(norm.beta))
     _lstm(sd, "encoder.lstm", enc.lstm)
+    if model.attention is not None:
+        for i, conv in zip((0, 2), model.attention.key_proj):
+            _conv(sd, f"attention.key_proj.{i}.conv", conv)
+        for i, conv in zip((0, 2, 4), model.attention.query_proj):
+            _conv(sd, f"attention.query_proj.{i}.conv", conv)
     if model.context_lstm is not None:
         _lstm(sd, "context_lstm", model.context_lstm)
     for i, flow in enumerate(model.flows):

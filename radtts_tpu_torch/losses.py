@@ -1,0 +1,129 @@
+"""RADTTS training losses (radtts_tpu/losses.py:17-166): the flow NLL, the
+masked regressions of the attribute predictors, the batched attention CTC
+and the binarization loss. Layouts: z and log_s channels-last (B, T, C),
+masks (B, T). Each returns what the JAX function returns, {name: (value,
+weight)} for radtts_loss."""
+
+import torch
+import torch.nn.functional as F
+
+from radtts_tpu_torch.ops.masking import sequence_mask
+
+
+def compute_flow_loss(z, log_det_W_list, log_s_list, n_elements, n_dims,
+                      mask, sigma=1.0):
+    """mask: (B, T, 1) float. Returns (loss, loss_prior)."""
+    log_s_total = 0.0
+    for log_s in log_s_list:
+        log_s_total = log_s_total + (log_s * mask).sum()
+    log_det_W_total = 0.0
+    if log_det_W_list:
+        for log_det_W in log_det_W_list:
+            log_det_W_total = log_det_W_total + log_det_W
+        log_det_W_total = log_det_W_total * n_elements
+    z = z * mask
+    prior_nll = (z * z).sum() / (2 * sigma * sigma)
+    loss = prior_nll - log_s_total - log_det_W_total
+    denom = n_elements * n_dims
+    return loss / denom, prior_nll / denom
+
+
+def compute_regression_loss(x_hat, x, mask, name=False):
+    """x_hat: (B, T, C); x: (B, T) or (B, T, C); mask: (B, T, 1) float."""
+    if x.ndim == 2:
+        x = x[:, :, None]
+    x = x * mask
+    x_hat = x_hat * mask
+    if name == "vpred":
+        loss = F.binary_cross_entropy_with_logits(x_hat, x, reduction="sum")
+    else:
+        loss = ((x_hat - x) ** 2).sum()
+    return {f"loss_{name}": loss / mask.sum()}
+
+
+def attribute_prediction_loss(name, model_output, lens, loss_weight,
+                              n_group_size=1, sigma=1.0):
+    """(reference: loss.py:74-108); the DAP's regression."""
+    lens_g = lens // n_group_size
+    mask = sequence_mask(lens_g, model_output["x_hat"].shape[1])
+    mask = mask.float()[:, :, None]
+    reg = compute_regression_loss(model_output["x_hat"], model_output["x"],
+                                  mask, name)
+    return {k: (v, loss_weight) for k, v in reg.items()}
+
+
+def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob=-1.0):
+    """CTC forcing a monotone pass over every text token, batched:
+    classes [blank] + text positions, item b's targets 1..in_lens[b]; the
+    classes above in_lens[b] are masked to -1e9 before the log_softmax,
+    as the JAX package masks them before optax.ctc_loss's own. Per-item
+    losses (infinite ones zeroed) are divided by in_lens, then averaged.
+    Needs out_lens[b] >= in_lens[b] for a finite loss."""
+    B, T_mel, T_text = attn_logprob.shape
+    logits = torch.cat([attn_logprob.new_full((B, T_mel, 1), blank_logprob),
+                        attn_logprob], dim=-1)
+    classes = torch.arange(T_text + 1, device=logits.device)
+    class_valid = classes[None, :] <= in_lens[:, None]
+    logits = logits.masked_fill(~class_valid[:, None, :], -1e9)
+    log_probs = F.log_softmax(logits, dim=-1).transpose(0, 1)  # (T, B, K)
+    targets = torch.arange(1, T_text + 1, device=logits.device).expand(
+        B, T_text)
+    per_item = F.ctc_loss(log_probs, targets, out_lens, in_lens, blank=0,
+                          reduction="none", zero_infinity=True)
+    return (per_item / in_lens.to(per_item.dtype)).mean()
+
+
+def attention_binarization_loss(hard_attention, soft_attention):
+    """(reference: loss.py:138-144)."""
+    log_sum = (torch.log(soft_attention.clamp(min=1e-12))
+               * hard_attention).sum()
+    return -log_sum / hard_attention.sum()
+
+
+def radtts_loss(model_output, in_lens, out_lens, *, sigma=1.0,
+                n_group_size=1, dur_model_config=None, f0_model_config=None,
+                energy_model_config=None, vpred_model_config=None,
+                loss_weights=None):
+    """The aggregate training loss as {name: (value, weight)}
+    (reference: loss.py:147-203)."""
+    loss_weights = loss_weights or {}
+    loss_dict = {}
+    z_mel = model_output.get("z_mel")
+    if z_mel is not None:
+        n_elements = out_lens.sum() // n_group_size
+        mask = sequence_mask(out_lens // n_group_size, z_mel.shape[1])
+        mask = mask.float()[:, :, None]
+        loss_mel, loss_prior_mel = compute_flow_loss(
+            z_mel, model_output["log_det_W_list"],
+            model_output["log_s_list"], n_elements, z_mel.shape[-1], mask,
+            sigma)
+        loss_dict["loss_mel"] = (loss_mel, 1.0)
+        loss_dict["loss_prior_mel"] = (loss_prior_mel, 0.0)
+
+    ctc_cost = attention_ctc_loss(
+        model_output["attn_logprob"], in_lens, out_lens,
+        blank_logprob=loss_weights.get("blank_logprob", -1))
+    loss_dict["loss_ctc"] = (ctc_cost, loss_weights.get("ctc_loss_weight",
+                                                        0.1))
+    attr_cfgs = {
+        "duration_model_outputs": ("duration", dur_model_config,
+                                   loss_weights.get("dur_loss_weight", 1.0),
+                                   "in"),
+        "f0_model_outputs": ("f0", f0_model_config,
+                             loss_weights.get("f0_loss_weight", 1.0), "out"),
+        "energy_model_outputs": ("energy", energy_model_config,
+                                 loss_weights.get("energy_loss_weight", 1.0),
+                                 "out"),
+        "vpred_model_outputs": ("vpred", vpred_model_config,
+                                loss_weights.get("vpred_loss_weight", 1.0),
+                                "out"),
+    }
+    for key, (name, cfg, weight, lens_kind) in attr_cfgs.items():
+        mout = model_output.get(key)
+        if cfg is None or not mout:
+            continue
+        t_lens = in_lens if lens_kind == "in" else out_lens
+        g = cfg.get("hparams", {}).get("n_group_size", 1)
+        loss_dict.update(attribute_prediction_loss(name, mout, t_lens,
+                                                   weight, n_group_size=g))
+    return loss_dict

@@ -1,25 +1,37 @@
-"""RADTTS inference: speaker/text embedding, duration prediction, attribute
-prediction, and the inverse flow decoder with early-exit replay.
+"""RADTTS: speaker/text embedding, the alignment attention, duration
+prediction, attribute prediction, and the flow decoder, forward (training)
+and inverse with early-exit replay (inference).
 
 `RADTTS(model_config)` builds the modules from a reference-format
-model_config (random init, usable for random flagship weights); the
-functions below mirror the JAX package's inference functions, taking the
+model_config (random init, usable for random flagship weights), in the
+inference form, whose norms are folded; `RADTTS(model_config,
+factored=True)` builds the training form, which holds the JAX package's
+factorizations ({v, g} weight norm, {sn_w, sn_u, sn_v} spectral norm, the
+LU factors) as parameters and buffers, and `fold_radtts` turns it into the
+inference form. The functions below mirror the JAX package's, taking the
 module where those take the params tree. Tensors are channels-last.
 """
+
+import copy
 
 import torch
 from torch import nn
 
+from radtts_tpu_torch.models.attention import ConvAttention
 from radtts_tpu_torch.models.attributes import (attribute_model,
                                                 attribute_model_infer,
+                                                dap_forward,
+                                                dap_forward_fused,
                                                 dap_infer_fused, fold_group,
                                                 unfold_group)
 from radtts_tpu_torch.models.coupling import AffineCoupling
 from radtts_tpu_torch.models.encoder import Encoder
+from radtts_tpu_torch.ops.conv import ConvNorm
 from radtts_tpu_torch.ops.invertible import InvConv1x1LUS
 from radtts_tpu_torch.ops.length_regulator import regulate_length
 from radtts_tpu_torch.ops.linear import LinearNorm
 from radtts_tpu_torch.ops.lstm import MaskedLSTM
+from radtts_tpu_torch.ops.mas import mas
 from radtts_tpu_torch.ops.masking import sequence_mask
 
 
@@ -41,8 +53,9 @@ class FlowStep(nn.Module):
 
 
 class RADTTS(nn.Module):
-    def __init__(self, model_config):
+    def __init__(self, model_config, factored=False):
         super().__init__()
+        self.factored = factored
         cfg = dict(model_config)
         g = cfg.get
         n_speaker_dim = cfg["n_speaker_dim"]
@@ -65,7 +78,16 @@ class RADTTS(nn.Module):
             nn.init.normal_(emb.weight)
         self.encoder = Encoder(
             encoder_embedding_dim=n_text_dim,
-            lstm_norm=_norm_kind(g("text_encoder_lstm_norm")))
+            lstm_norm=_norm_kind(g("text_encoder_lstm_norm")),
+            factored=factored)
+
+        self.attention = None
+        if (("atn" in include_modules or "dec" in include_modules)
+                and g("learn_alignments", False)):
+            self.attention = ConvAttention(
+                cfg["n_mel_channels"], n_text_dim
+                + (n_speaker_dim if g("use_speaker_emb_for_alignment", False)
+                   else 0))
 
         n_flowstep_cond_dims = (
             n_speaker_dim + (n_text_dim + n_f0_dims + n_energy_dims)
@@ -80,7 +102,8 @@ class RADTTS(nn.Module):
                 n_flowstep_cond_dims = (n_speaker_dim
                                         + n_text_dim * n_group_size)
             self.context_lstm = MaskedLSTM(
-                n_in, n_hidden, norm=_norm_kind(g("context_lstm_norm")))
+                n_in, n_hidden, norm=_norm_kind(g("context_lstm_norm")),
+                factored=factored)
 
         exit_steps = []
         self.flows = nn.ModuleList()
@@ -94,17 +117,18 @@ class RADTTS(nn.Module):
                     ch -= cfg["n_early_size"]
                     exit_steps.append(i)
                 self.flows.append(FlowStep(
-                    InvConv1x1LUS(ch),
+                    InvConv1x1LUS(ch, trainable=factored),
                     AffineCoupling(ch, n_flowstep_cond_dims,
                                    cfg["n_conv_layers_per_step"],
                                    affine_model=g("affine_model",
                                                   "simple_conv"),
-                                   n_hidden=g("affine_n_channels", 1024))))
+                                   n_hidden=g("affine_n_channels", 1024),
+                                   factored=factored)))
 
         self.dur_pred_layer = None
         if "dpm" in include_modules:
             self.dur_pred_layer = attribute_model(cfg["dur_model_config"],
-                                                  n_speaker_dim)
+                                                  n_speaker_dim, factored)
 
         use_unvoiced_bias = bool(decoder_use_unvoiced_bias
                                  or ap_use_unvoiced_bias)
@@ -120,7 +144,7 @@ class RADTTS(nn.Module):
         self.v_pred_module = self.v_embeddings = None
         if use_vpred_module:
             self.v_pred_module = attribute_model(cfg["v_model_config"],
-                                                 n_speaker_dim)
+                                                 n_speaker_dim, factored)
             if ap_use_voiced_embeddings:
                 self.v_embeddings = nn.Embedding(4, n_text_dim)
                 nn.init.normal_(self.v_embeddings.weight)
@@ -131,15 +155,21 @@ class RADTTS(nn.Module):
                 raise NotImplementedError("use_first_order_features is not "
                                           "ported yet")
             self.f0_pred_module = attribute_model(cfg["f0_model_config"],
-                                                  n_speaker_dim)
+                                                  n_speaker_dim, factored)
             self.energy_pred_module = attribute_model(
-                cfg["energy_model_config"], n_speaker_dim)
+                cfg["energy_model_config"], n_speaker_dim, factored)
 
         self.meta = dict(
             n_mel_channels=cfg["n_mel_channels"],
             n_group_size=n_group_size,
             n_early_size=cfg["n_early_size"],
             exit_steps=tuple(exit_steps),
+            include_modules=include_modules,
+            use_speaker_emb_for_alignment=bool(
+                g("use_speaker_emb_for_alignment", False)),
+            attn_straight_through_estimator=bool(
+                g("attn_straight_through_estimator", False)),
+            ap_use_unvoiced_bias=bool(ap_use_unvoiced_bias),
             scaling_fn=g("scaling_fn", "exp"),
             affine_activation=g("affine_activation", "softplus"),
             use_context_lstm=use_context_lstm,
@@ -171,9 +201,11 @@ def encode_speaker(model, spk_ids):
     return model.speaker_embedding(spk_ids)
 
 
-def encode_text(model, text, in_lens):
+def encode_text(model, text, in_lens, generator=None):
+    """(text encoding, embeddings); a generator draws the encoder's
+    training dropout."""
     emb = model.embedding(text)
-    return model.encoder(emb, in_lens), emb
+    return model.encoder(emb, in_lens, generator), emb
 
 
 def apply_voice_mask_to_text(model, text_enc, voiced_mask):
@@ -224,6 +256,33 @@ def is_attribute_unconditional(meta):
     return meta["n_f0_dims"] == 0 and meta["n_energy_avg_dims"] == 0
 
 
+def binarize_attention(attn_soft, in_lens, out_lens):
+    """MAS over the detached soft attention, without gradient
+    (ops/mas.py: the kernel on the card)."""
+    return mas(attn_soft.detach(), out_lens, in_lens)
+
+
+def get_first_order_features(feats, dilation=1):
+    """Symmetric first differences along time (reference:
+    radtts.py:336-349)."""
+    zeros = torch.zeros_like(feats[:, 0:dilation])
+    ext_r = torch.cat([feats, zeros], dim=1)
+    ext_l = torch.cat([zeros, feats], dim=1)
+    dr = ext_r[:, dilation:] - feats
+    dl = feats - ext_l[:, 0:feats.shape[1]]
+    return (dr + dl) * 0.5
+
+
+def _flow_step_forward(model, flow, z, context, mask):
+    meta = model.meta
+    z, log_det_W = flow.inv(z)
+    z, log_s = flow.affine(
+        z, context, scaling_fn=meta["scaling_fn"],
+        affine_activation=meta["affine_activation"], mask=mask,
+        use_partial_padding=meta["decoder_use_partial_padding"])
+    return z, log_det_W, log_s
+
+
 def _flow_step_inverse(model, flow, z, context, mask):
     meta = model.meta
     z = flow.affine.inverse(
@@ -231,6 +290,136 @@ def _flow_step_inverse(model, flow, z, context, mask):
         affine_activation=meta["affine_activation"], mask=mask,
         use_partial_padding=meta["decoder_use_partial_padding"])
     return flow.inv.inverse(z)
+
+
+# ---------------------------------------------------------------------------
+# training forward (radtts_tpu/models/radtts.py:386-545)
+# ---------------------------------------------------------------------------
+
+
+def radtts_forward(model, mel, speaker_ids, text, in_lens, out_lens, *,
+                   binarize_attention_flag=False, attn_prior=None, f0=None,
+                   energy_avg=None, voiced_mask=None, p_voiced=None,
+                   generator=None):
+    """mel: (B, T, n_mel); text: (B, N) int64. Returns the outputs dict of
+    the JAX package's radtts_forward. A generator draws the training
+    dropout (encoder, DAP fronts); None runs without dropout.
+    Stop-gradients sit where the JAX package puts them."""
+    meta = model.meta
+    sg = torch.Tensor.detach
+    speaker_vecs = encode_speaker(model, speaker_ids)
+    text_enc, text_emb = encode_text(model, text, in_lens, generator)
+    outputs = {
+        "z_mel": None, "log_det_W_list": [], "log_s_list": [],
+        "duration_model_outputs": None, "f0_model_outputs": None,
+        "energy_model_outputs": None, "vpred_model_outputs": None,
+        "attn_soft": None, "attn": None, "text_embeddings": text_emb,
+        "attn_logprob": None,
+    }
+    attn = attn_soft = attn_hard = context = None
+    include = meta["include_modules"]
+    if "atn" in include or "dec" in include:
+        keys = text_emb
+        if meta["use_speaker_emb_for_alignment"]:
+            keys = torch.cat([keys, sg(speaker_vecs)[:, None, :].expand(
+                -1, keys.shape[1], -1)], dim=-1)
+        attn_soft, attn_logprob = model.attention(mel, keys, in_lens,
+                                                  attn_prior=attn_prior)
+        outputs["attn_soft"] = attn_soft
+        outputs["attn_logprob"] = attn_logprob
+        if binarize_attention_flag:
+            attn = attn_hard = binarize_attention(attn_soft, in_lens,
+                                                  out_lens)
+            if meta["attn_straight_through_estimator"]:
+                attn_hard = attn_soft + sg(attn_hard - attn_soft)
+            attn = attn_hard
+        else:
+            attn = attn_soft
+        outputs["attn"] = attn
+        context = torch.bmm(attn, text_enc)
+
+    f0_bias = 0.0
+    if meta["use_unvoiced_bias"]:
+        f0_bias = _unvoiced_bias(model, context, voiced_mask)
+
+    if "dec" in include:
+        g = meta["n_group_size"]
+        mel_g = unfold_group(mel, g)
+        if f0 is None:
+            f0_aug = None
+        elif meta["decoder_use_unvoiced_bias"]:
+            f0_aug = f0 * voiced_mask + f0_bias
+        else:
+            f0_aug = f0 * voiced_mask
+        ctx = preprocess_context(model, context, speaker_vecs, out_lens,
+                                 f0_aug, energy_avg)
+        mask_g = sequence_mask(out_lens // g, mel_g.shape[1])
+        z_out = []
+        n_early = meta["n_early_size"]
+        for i, flow in enumerate(model.flows):
+            if i in meta["exit_steps"]:
+                z_out.append(mel_g[..., :n_early])
+                mel_g = mel_g[..., n_early:]
+            mel_g, log_det_W, log_s = _flow_step_forward(model, flow, mel_g,
+                                                         ctx, mask_g)
+            outputs["log_s_list"].append(log_s)
+            outputs["log_det_W_list"].append(log_det_W)
+        z_out.append(mel_g)
+        outputs["z_mel"] = torch.cat(z_out, dim=-1)
+
+    if "dpm" in include:
+        if attn_hard is None:
+            attn_hard = binarize_attention(attn_soft, in_lens, out_lens)
+        durations = attn_hard.sum(1)
+        outputs["duration_model_outputs"] = dap_forward(
+            model.dur_pred_layer, sg(text_enc), sg(speaker_vecs),
+            sg(durations.float()), in_lens, generator)
+
+    if "apm" in include:
+        if attn_hard is None:
+            attn_hard = binarize_attention(attn_soft, in_lens, out_lens)
+        if binarize_attention_flag:
+            text_enc_time_expanded = context
+        else:
+            text_enc_time_expanded = torch.bmm(attn_hard, text_enc)
+        if meta["use_vpred_module"]:
+            outputs["vpred_model_outputs"] = dap_forward(
+                model.v_pred_module, sg(text_enc_time_expanded),
+                sg(speaker_vecs), sg(voiced_mask), out_lens, generator)
+            if meta["ap_use_voiced_embeddings"]:
+                text_enc_time_expanded = apply_voice_mask_to_text(
+                    model, text_enc_time_expanded, voiced_mask)
+        if meta["ap_use_unvoiced_bias"]:
+            f0_target = sg(f0 * voiced_mask + f0_bias)
+        else:
+            f0_target = sg(f0)
+        f0_target = torch.where(voiced_mask.bool(),
+                                torch.log(f0_target.clamp(min=1e-10)),
+                                f0_target) / 6.0
+        # use_first_order_features is refused when the model is built
+        f0_in = f0_target * 2.0
+        energy_in = (energy_avg * 2.0 - 1.0) * 1.4
+        f0_out, e_out = dap_forward_fused(
+            [model.f0_pred_module, model.energy_pred_module],
+            [text_enc_time_expanded, text_enc_time_expanded],
+            [sg(speaker_vecs), sg(speaker_vecs)], [f0_in, energy_in],
+            out_lens, generator)
+        outputs["f0_model_outputs"] = f0_out
+        outputs["energy_model_outputs"] = e_out
+    return outputs
+
+
+def fold_radtts(model):
+    """The inference form of a (training-form) RADTTS, in a copy: every
+    factorization collapsed as the JAX tree's load fold does it
+    (ops/fold_norms.py), the 1x1 inverses computed. Eval, no grad."""
+    out = copy.deepcopy(model)
+    for parent in list(out.modules()):
+        for name, child in list(parent.named_children()):
+            if isinstance(child, (ConvNorm, MaskedLSTM, InvConv1x1LUS)):
+                setattr(parent, name, child.folded())
+    out.factored = False
+    return out.eval().requires_grad_(False)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,16 @@
-"""Invertible 1x1 "convolution" (channel-mixing matmul) of the flow steps,
-LU-decomposed (matrix_decomposition "LUS"), inverse side.
+"""Invertible 1x1 "convolution" (channel-mixing matmul) of the flow steps.
 
-W = P @ L @ U, L unit-lower-triangular, U upper with diagonal
-upper_diag. Inference uses W^-1, computed once in fp32 at
-load (`precompute_inverse`, the counterpart of the JAX package's
-precompute_inverses) and applied as an fp32 matmul; the reference keeps
-these products outside autocast.
+LU-decomposed (matrix_decomposition "LUS"): W = P @ L @ U, L
+unit-lower-triangular, U upper with diagonal upper_diag. Inference uses
+W^-1, computed once in fp32 at load (`precompute_inverse`, the counterpart
+of the JAX package's precompute_inverses) and applied as an fp32 matmul;
+the reference keeps these products outside autocast.
+
+The training form (`trainable=True`) holds lower, upper and upper_diag as
+parameters and p as a buffer, and its forward returns (x W^T, log|det W|)
+with log|det W| = sum(log|upper_diag|) (radtts_tpu/ops/invertible.py:60);
+`folded()` gives the inference form. `InvConv1x1` is the plain-W
+parametrization (log|det W| by slogdet).
 """
 
 import numpy as np
@@ -22,9 +27,11 @@ def _random_orthonormal(c):
 
 
 class InvConv1x1LUS(nn.Module):
-    def __init__(self, c):
+    def __init__(self, c, trainable=False):
         super().__init__()
-        self.register_buffer("w_inv", torch.zeros(c, c))
+        self.trainable = trainable
+        if not trainable:
+            self.register_buffer("w_inv", torch.zeros(c, c))
         w = _random_orthonormal(c).double().numpy()
         p, lower, upper = scipy.linalg.lu(w)
 
@@ -32,10 +39,16 @@ class InvConv1x1LUS(nn.Module):
             return torch.from_numpy(np.asarray(a, np.float32))
 
         self.register_buffer("p", f32(p))
-        self.register_buffer("lower", f32(np.tril(lower, -1)))
-        self.register_buffer("upper", f32(np.triu(upper, 1)))
-        self.register_buffer("upper_diag", f32(np.diag(upper)))
-        self.precompute_inverse()
+        factors = {"lower": f32(np.tril(lower, -1)),
+                   "upper": f32(np.triu(upper, 1)),
+                   "upper_diag": f32(np.diag(upper))}
+        for name, value in factors.items():
+            if trainable:
+                setattr(self, name, nn.Parameter(value))
+            else:
+                self.register_buffer(name, value)
+        if not trainable:
+            self.precompute_inverse()
 
     def weight(self):
         c = self.lower.shape[0]
@@ -48,6 +61,40 @@ class InvConv1x1LUS(nn.Module):
     def precompute_inverse(self):
         self.w_inv.copy_(torch.linalg.inv(self.weight().float()))
 
+    def forward(self, x):
+        """x: (B, T, C) -> (x @ W^T, log|det W|), in fp32 or wider."""
+        dt = torch.promote_types(x.dtype, torch.float32)
+        y = torch.matmul(x.to(dt), self.weight().to(dt).T)
+        return y, torch.log(self.upper_diag.abs()).sum()
+
     def inverse(self, x):
         """x: (B, T, C) -> x @ W^-T."""
         return torch.matmul(x, self.w_inv.T)
+
+    @torch.no_grad()
+    def folded(self):
+        if not self.trainable:
+            return self
+        out = InvConv1x1LUS(self.p.shape[0])
+        for name in ("p", "lower", "upper", "upper_diag"):
+            getattr(out, name).copy_(getattr(self, name))
+        out = out.to(self.p.device)
+        out.precompute_inverse()
+        return out
+
+
+class InvConv1x1(nn.Module):
+    """Plain W (radtts_tpu/ops/invertible.py:84-92): forward x W^T with
+    log|det W| by slogdet, inverse x W^-T."""
+
+    def __init__(self, c):
+        super().__init__()
+        self.w1x1 = nn.Parameter(_random_orthonormal(c))
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, torch.float32)
+        w = self.w1x1.to(dt)
+        return torch.matmul(x.to(dt), w.T), torch.linalg.slogdet(w)[1]
+
+    def inverse(self, x):
+        return torch.matmul(x, torch.linalg.inv(self.w1x1).T)

@@ -9,6 +9,12 @@ the iteration and learning rate. A reference checkpoint is a torch.save of
 {'state_dict': ..., 'iteration': ..., 'learning_rate': ...} (or the bare
 state dict), read by convert.radtts_from_torch. Both give the nested numpy
 tree that convert.radtts_from_jax takes.
+
+The port's own training checkpoint (train/trainer.py) is a torch.save of
+{"model": the training-form state dict, "optimizer", "iteration",
+"learning_rate"} at OUT/model_<iteration>, with no
+extension; it serves after its norms are folded (models/radtts.py:
+fold_radtts), resumes, and warm-starts.
 """
 
 import json
@@ -17,7 +23,9 @@ import os
 import numpy as np
 import torch
 
-from radtts_tpu_torch.convert import radtts_from_jax, radtts_from_torch
+from radtts_tpu_torch.convert import (radtts_from_jax, radtts_from_torch,
+                                      radtts_train_from_jax)
+from radtts_tpu_torch.models.radtts import RADTTS, fold_radtts
 
 
 def _listify(node):
@@ -68,19 +76,112 @@ def is_torch_checkpoint(path):
                 or os.path.exists(path + ".npz"))
 
 
+def _meta(ckpt):
+    return {"iteration": int(ckpt.get("iteration", 0)),
+            "learning_rate": float(ckpt.get("learning_rate", 0.0))}
+
+
+def is_port_train_checkpoint(ckpt):
+    return isinstance(ckpt, dict) and "model" in ckpt \
+        and "state_dict" not in ckpt
+
+
+def is_state_dict(params):
+    """A port training checkpoint's state dict, not a parameter tree."""
+    return all(isinstance(v, torch.Tensor) for v in params.values())
+
+
 def load_any_radtts_checkpoint(path, model_config):
-    """Either format as (numpy parameter tree, meta)."""
+    """The .npz or a reference checkpoint as (numpy parameter tree, meta);
+    a port training checkpoint as (its state dict, meta)."""
     if is_torch_checkpoint(path):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if is_port_train_checkpoint(ckpt):
+            return ckpt["model"], _meta(ckpt)
         sd = ckpt.get("state_dict", ckpt)
-        meta = {"iteration": int(ckpt.get("iteration", 0)),
-                "learning_rate": float(ckpt.get("learning_rate", 0.0))}
-        return radtts_from_torch(sd, model_config), meta
+        return radtts_from_torch(sd, model_config), _meta(ckpt)
     return load_checkpoint(path)
 
 
 def load_radtts_for_inference(path, model_config):
-    """(RADTTS module on the CPU, eval, no grad; meta) from either
-    format."""
+    """(RADTTS module on the CPU, eval, no grad; meta) from any of the
+    three formats."""
     params, meta = load_any_radtts_checkpoint(path, model_config)
+    if is_state_dict(params):
+        model = RADTTS(model_config, factored=True)
+        model.load_state_dict(params)
+        return fold_radtts(model), meta
     return radtts_from_jax(params, model_config), meta
+
+
+def save_train_checkpoint(path, model, optimizer, iteration, learning_rate):
+    """The port's training checkpoint (see the module's docstring)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"model": model.state_dict(),
+                "optimizer": optimizer.state_dict(),
+                "iteration": int(iteration),
+                "learning_rate": float(learning_rate)}, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_checkpoint(path, model, optimizer, model_config):
+    """Resume (reference: train.py:179-187): the model's factored state and
+    the optimizer's from a port checkpoint; a reference checkpoint or an
+    .npz fills the model only (the JAX package's resume of a torch file
+    keeps a fresh optimizer too). Returns the meta."""
+    device = next(model.parameters()).device
+    if is_torch_checkpoint(path):
+        ckpt = torch.load(path, map_location=device, weights_only=True)
+        if is_port_train_checkpoint(ckpt):
+            model.load_state_dict(ckpt["model"])
+            if optimizer is not None and ckpt.get("optimizer"):
+                optimizer.load_state_dict(ckpt["optimizer"])
+            return _meta(ckpt)
+    params, meta = load_any_radtts_checkpoint(path, model_config)
+    model.load_state_dict(radtts_train_from_jax(params, model_config)
+                          .state_dict())
+    return meta
+
+
+def warmstart_filter(include_layers, ignore_layers_warmstart):
+    """Substring filters on parameter names (reference: train.py:159-176):
+    a name is taken when it contains an include_layers entry (or the list
+    is empty) and no ignore_layers_warmstart entry."""
+    def fn(key):
+        if include_layers and not any(l in key for l in include_layers):
+            return False
+        if ignore_layers_warmstart and any(
+                l in key for l in ignore_layers_warmstart):
+            return False
+        return True
+    return fn
+
+
+def warmstart_state(path, model, model_config, include_layers=(),
+                    ignore_layers_warmstart=()):
+    """Partial load into a training-form model: every entry of the file's
+    state (a port checkpoint's; a reference checkpoint's or an .npz's
+    modules carried into the training form) that the model has and the
+    filters pass. Returns the names loaded."""
+    params, _ = load_any_radtts_checkpoint(path, model_config)
+    if is_state_dict(params):
+        source = params
+    else:
+        src_model, loaded = radtts_train_from_jax(params, model_config,
+                                                  partial=True)
+        source = {k: v for k, v in src_model.state_dict().items()
+                  if k.split(".")[0] in loaded}
+    keep = warmstart_filter(include_layers, ignore_layers_warmstart)
+    target = model.state_dict()
+    taken = []
+    with torch.no_grad():
+        for k, v in source.items():
+            if k in target and keep(k):
+                if tuple(v.shape) != tuple(target[k].shape):
+                    raise ValueError(f"shape mismatch for {k}: checkpoint "
+                                     f"{tuple(v.shape)} vs model "
+                                     f"{tuple(target[k].shape)}")
+                target[k].copy_(v)
+                taken.append(k)
+    return taken

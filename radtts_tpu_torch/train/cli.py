@@ -1,0 +1,84 @@
+"""RADTTS training CLI of the PyTorch port (the port of the repository's
+train.py), run as
+
+    python -m radtts_tpu_torch.train -c configs/config_ljs_decoder.json \\
+        [-p train_config.output_directory=OUT ...] [--device cpu]
+
+It reads the same config JSONs and -p dot-path overrides, writes config.json,
+checkpoints OUT/model_<iteration> and (where tensorboardX imports) its
+logs to train_config.output_directory, and prints one line per step as the
+JAX trainer does. It runs on CUDA unless --device names another device
+(cpu), in fp32.
+
+Options the port does not have yet are refused with an error, never
+ignored: train_config.use_amp true and optim_state_dtype other than
+float32 (ROADMAP.md A6), dist_config.n_model above 1 and WORLD_SIZE above 1
+(A8), and a non-empty profile_dir (A8). config_ljs_dap.json sets use_amp:
+run it with -p train_config.use_amp=false.
+"""
+
+import argparse
+import json
+import os
+
+from radtts_tpu_torch.config import update_params
+
+
+def _flag(value):
+    """A config flag that may arrive as a string from -p (literal_eval
+    leaves 'false' a string)."""
+    if isinstance(value, str):
+        return value.strip().lower() in ("1", "true", "yes", "on")
+    return bool(value)
+
+
+def refusal(config):
+    """The error for the first option the port does not have, or None."""
+    tc = config["train_config"]
+    if _flag(tc.get("use_amp", False)):
+        return ("train_config.use_amp=true is not supported: the port "
+                "trains in fp32 only (ROADMAP.md A6); pass "
+                "-p train_config.use_amp=false")
+    if str(tc.get("optim_state_dtype") or "float32") != "float32":
+        return (f"train_config.optim_state_dtype="
+                f"{tc['optim_state_dtype']} is not supported: the port "
+                "keeps fp32 optimizer moments (ROADMAP.md A6)")
+    if int(config.get("dist_config", {}).get("n_model", 1)) > 1:
+        return ("dist_config.n_model > 1 (tensor parallelism) is not "
+                "supported: the port trains on one device (ROADMAP.md A8)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return ("WORLD_SIZE > 1 (data parallelism) is not supported: the "
+                "port trains on one device (ROADMAP.md A8)")
+    if tc.get("profile_dir"):
+        return ("train_config.profile_dir is not supported: the port has "
+                "no profiler trace option (ROADMAP.md A8)")
+    return None
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("-c", "--config", type=str, required=True,
+                    help="JSON file for configuration")
+    ap.add_argument("-p", "--params", nargs="+", default=[])
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device; CUDA when not given")
+    return ap
+
+
+def main(argv=None):
+    """Parse, check and train; returns the trainer's per-step records."""
+    from radtts_tpu_torch.train.trainer import train
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    with open(args.config) as f:
+        config = json.load(f)
+    update_params(config, args.params)
+    print(config)
+    mc, dc = config["model_config"], config["data_config"]
+    if "n_aug_dims" in mc and "aug_probabilities" in dc:
+        assert mc["n_aug_dims"] >= len(dc["aug_probabilities"])
+    error = refusal(config)
+    if error:
+        parser.error(error)
+    return train(config, device=args.device, **config["train_config"])

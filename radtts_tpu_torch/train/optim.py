@@ -1,0 +1,139 @@
+"""RAdam and torch-exact Adam with the JAX package's update math
+(radtts_tpu/train/optim.py:33-135), as torch.optim.Optimizers on
+torch._foreach_* ops, and the global-norm clip of optax.
+
+RAdam (the reference's radam.py): the bias-corrected step
+lr * rect / (1 - b1^t) * m / (sqrt(v) + eps), with rect carrying
+sqrt(1 - b2^t) and eps outside it; lr / (1 - b1^t) * m while the
+rectification term N_sma < 5; weight decay adds wd * lr * p to the step.
+Adam: torch.optim.Adam's (L2 decay wd * p added to the gradient, eps after
+the bias correction of sqrt(v)). The step's scalars are computed in fp32,
+as the JAX package computes them. Both keep fp32 moments only.
+"""
+
+import numpy as np
+import torch
+
+
+def _scalar(x):
+    return float(np.float32(x))
+
+
+class _Moments(torch.optim.Optimizer):
+    def __init__(self, params, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=0.0, state_dtype=None):
+        if state_dtype not in (None, "", "float32", torch.float32):
+            raise ValueError(f"optimizer state dtype {state_dtype!r}: only "
+                             "float32 moments are ported (ROADMAP.md A6)")
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    def _moments(self, group):
+        """(params, grads, m, v, t) of a group; a parameter without a
+        gradient takes a zero one, as a masked JAX gradient is zero."""
+        params, grads, ms, vs = [], [], [], []
+        for p in group["params"]:
+            state = self.state[p]
+            if not state:
+                state["step"] = 0
+                state["exp_avg"] = torch.zeros_like(p)
+                state["exp_avg_sq"] = torch.zeros_like(p)
+            state["step"] += 1
+            params.append(p)
+            grads.append(p.grad if p.grad is not None
+                         else torch.zeros_like(p))
+            ms.append(state["exp_avg"])
+            vs.append(state["exp_avg_sq"])
+        t = self.state[group["params"][0]]["step"] if params else 0
+        return params, grads, ms, vs, t
+
+    @staticmethod
+    def _update_moments(grads, ms, vs, b1, b2):
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_add_(vs, torch._foreach_mul(
+            torch._foreach_mul(grads, 1 - b2), grads))
+
+
+class RAdam(_Moments):
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params, grads, ms, vs, t = self._moments(group)
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            self._update_moments(grads, ms, vs, b1, b2)
+            f = np.float32
+            tf = f(t)
+            beta2_t = f(b2) ** tf
+            n_sma_max = f(2.0 / (1 - b2) - 1.0)
+            n_sma = n_sma_max - f(2.0) * tf * beta2_t / (f(1) - beta2_t)
+            bias1 = f(1) - f(b1) ** tf
+            if n_sma >= 5.0:
+                rect = np.sqrt(
+                    (f(1) - beta2_t) * (n_sma - f(4)) / (n_sma_max - f(4))
+                    * (n_sma - f(2)) / n_sma * n_sma_max
+                    / (n_sma_max - f(2)))
+                delta = torch._foreach_mul(ms, _scalar(f(lr) * rect / bias1))
+                denom = torch._foreach_sqrt(vs)
+                torch._foreach_add_(denom, eps)
+                torch._foreach_div_(delta, denom)
+            else:
+                delta = torch._foreach_mul(ms, _scalar(f(lr) / bias1))
+            if wd != 0:
+                torch._foreach_add_(delta, torch._foreach_mul(
+                    params, _scalar(wd * lr)))
+            torch._foreach_sub_(params, delta)
+
+
+class Adam(_Moments):
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params, grads, ms, vs, t = self._moments(group)
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            if wd != 0:
+                grads = torch._foreach_add(grads, torch._foreach_mul(
+                    params, wd))
+            self._update_moments(grads, ms, vs, b1, b2)
+            f = np.float32
+            bias1 = f(1) - f(b1) ** f(t)
+            bias2 = f(1) - f(b2) ** f(t)
+            denom = torch._foreach_sqrt(vs)
+            torch._foreach_div_(denom, _scalar(np.sqrt(bias2)))
+            torch._foreach_add_(denom, eps)
+            delta = torch._foreach_mul(ms, _scalar(f(lr) / bias1))
+            torch._foreach_div_(delta, denom)
+            torch._foreach_sub_(params, delta)
+
+
+def clip_grad_norm(params, max_norm):
+    """optax.clip_by_global_norm: scale every gradient by max_norm / norm
+    when the global norm is at least max_norm (no epsilon). Returns the
+    norm before the clip; a parameter without a gradient counts as 0."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    norm = torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(grads)))
+    if max_norm and max_norm > 0:
+        scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                            max_norm / norm)
+        torch._foreach_mul_(grads, scale)
+    return norm
+
+
+def build_optimizer(params, optim_algo, learning_rate, weight_decay,
+                    state_dtype=None):
+    """RAdam or Adam over params (train.py:340-348)."""
+    cls = {"RAdam": RAdam, "Adam": Adam}.get(optim_algo)
+    if cls is None:
+        raise ValueError(f"Unrecognized optimizer {optim_algo}")
+    return cls(params, lr=learning_rate, weight_decay=weight_decay,
+               state_dtype=state_dtype)

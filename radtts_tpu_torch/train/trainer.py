@@ -1,0 +1,346 @@
+"""RADTTS training loop of the port (radtts_tpu/train/trainer.py:61-630):
+trainable masks and freezing, the train step (power iteration, forward,
+losses, backward, global-norm clip, RAdam), the curriculum, validation,
+checkpoints, warm start and resume, on one device.
+
+The model is the training form of RADTTS (its norm factorizations held as
+parameters and buffers). A frozen parameter has requires_grad False and is
+not handed to the optimizer; the clip's norm is over the trainable
+gradients only, as the JAX package's is over its masked gradients. A
+trainable parameter the loss does not reach takes a zero gradient (its
+weight decay still applies), as a masked JAX gradient is zero.
+
+Checkpoints are torch.save of {"model": the factored state dict,
+"optimizer": its state dict, "iteration", "learning_rate"} at
+OUT/model_<iteration>; train/checkpoint.py reads them for resume, warm
+start and serving.
+"""
+
+import hashlib
+import json
+import os
+import tarfile
+import time
+
+import numpy as np
+import torch
+
+from radtts_tpu_torch.losses import attention_binarization_loss, radtts_loss
+from radtts_tpu_torch.models.radtts import RADTTS, radtts_forward
+from radtts_tpu_torch.ops.lstm import spectral_norm_update
+from radtts_tpu_torch.train.checkpoint import (load_train_checkpoint,
+                                               save_train_checkpoint,
+                                               warmstart_state)
+from radtts_tpu_torch.train.optim import build_optimizer, clip_grad_norm
+
+# unfreeze_modules keys -> top-level modules (reference: train.py:74-97)
+MODULE_PREFIXES = {
+    "dur": ("dur_pred_layer",),
+    "f0": ("f0_pred_module",),
+    "energy": ("energy_pred_module",),
+    "vpred": ("v_pred_module", "v_embeddings"),
+    "unvbias": ("unvoiced_bias",),
+}
+
+BATCH_KEYS = ("mel", "speaker_ids", "text", "input_lengths",
+              "output_lengths", "attn_prior", "f0", "p_voiced",
+              "voiced_mask", "energy_avg")
+
+
+def build_trainable_mask(model, unfreeze_modules="all", finetune_layers=()):
+    """{parameter name: trainable} (buffers, such as the spectral norms'
+    vectors and the LU permutation, are not parameters)."""
+    allowed = None
+    if unfreeze_modules != "all":
+        allowed = [p for key, prefixes in MODULE_PREFIXES.items()
+                   if key in unfreeze_modules for p in prefixes]
+    mask = {}
+    for name, _ in model.named_parameters():
+        ok = allowed is None or any(name.startswith(p) for p in allowed)
+        if ok and finetune_layers:
+            ok = any(layer in name for layer in finetune_layers)
+        mask[name] = ok
+    return mask
+
+
+def apply_trainable_mask(model, mask):
+    """requires_grad from the mask; returns the trainable parameters."""
+    params = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            params.append(p)
+    return params
+
+
+def batch_to_device(batch, device):
+    """A collated numpy batch as tensors on device (int64 ids and lengths,
+    float32 features)."""
+    out = {}
+    for k in BATCH_KEYS:
+        v = batch.get(k)
+        if v is None:
+            continue
+        t = torch.from_numpy(np.asarray(v))
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def compute_loss(model, batch, model_config, loss_weights, sigma, binarize,
+                 use_kl, generator=None):
+    """(total loss, {name: (value, weight)}, model outputs), as the JAX
+    make_train_step's loss_fn computes them."""
+    out = radtts_forward(
+        model, batch["mel"], batch["speaker_ids"], batch["text"],
+        batch["input_lengths"], batch["output_lengths"],
+        binarize_attention_flag=binarize,
+        attn_prior=batch.get("attn_prior"), f0=batch.get("f0"),
+        energy_avg=batch.get("energy_avg"),
+        voiced_mask=batch.get("voiced_mask"),
+        p_voiced=batch.get("p_voiced"), generator=generator)
+    loss_dict = radtts_loss(
+        out, batch["input_lengths"], batch["output_lengths"], sigma=sigma,
+        n_group_size=model_config["n_group_size"],
+        dur_model_config=model_config.get("dur_model_config"),
+        f0_model_config=model_config.get("f0_model_config"),
+        energy_model_config=model_config.get("energy_model_config"),
+        vpred_model_config=model_config.get("v_model_config"),
+        loss_weights=loss_weights)
+    total = 0.0
+    for v, w in loss_dict.values():
+        if w > 0:
+            total = total + v * w
+    w_bin = loss_weights.get("binarization_loss_weight", 1.0)
+    if use_kl and binarize:
+        bin_loss = attention_binarization_loss(out["attn"], out["attn_soft"])
+        total = total + bin_loss * w_bin
+    else:
+        bin_loss = torch.zeros((), device=out["attn_soft"].device)
+    loss_dict["binarization_loss"] = (bin_loss, w_bin)
+    return total, loss_dict, out
+
+
+def train_step(model, optimizer, trainable, batch, model_config,
+               loss_weights, sigma, binarize, use_kl, grad_clip_val,
+               generator=None):
+    """One step in the JAX package's order: the power iteration, forward,
+    losses, backward, the clip over the trainable gradients, RAdam.
+    Returns (total, loss_dict, grad norm before the clip) as tensors."""
+    spectral_norm_update(model)
+    total, loss_dict, _ = compute_loss(model, batch, model_config,
+                                       loss_weights, sigma, binarize,
+                                       use_kl, generator)
+    optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    for p in trainable:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grad_norm = clip_grad_norm(trainable, grad_clip_val)
+    optimizer.step()
+    return total.detach(), loss_dict, grad_norm
+
+
+@torch.no_grad()
+def eval_step(model, batch, model_config, loss_weights, sigma):
+    """Validation losses under binarized attention, no dropout; returns
+    (scalars, attn, attn_soft)."""
+    _, loss_dict, out = compute_loss(model, batch, model_config,
+                                     loss_weights, sigma, True, False)
+    del loss_dict["binarization_loss"]
+    return ({k: v for k, (v, _) in loss_dict.items()}, out["attn"],
+            out["attn_soft"])
+
+
+def compute_validation_loss(model, valset, collate_fn, batch_size, device,
+                            model_config, loss_weights, sigma, iteration=0,
+                            logger=None):
+    """The validation set's mean losses (reference: train.py:200-297), the
+    attention maps to tensorboardX when a logger is given."""
+    from radtts_tpu_torch.data.dataset import DataLoader
+
+    was_training = model.training
+    model.eval()
+    loader = DataLoader(valset, batch_size, collate_fn, shuffle=False,
+                        drop_last=False)
+    totals, n_batches = {}, 0
+    attn = attn_soft = last = None
+    for batch in loader:
+        scalars, attn, attn_soft = eval_step(
+            model, batch_to_device(batch, device), model_config,
+            loss_weights, sigma)
+        for k, v in scalars.items():
+            totals[k] = v if k not in totals else totals[k] + v
+        n_batches += 1
+        last = batch
+    model.train(was_training)
+    totals = {k: float(v) / max(n_batches, 1) for k, v in totals.items()}
+    if logger is not None:
+        for k, v in totals.items():
+            logger.add_scalar("val/" + k, v, iteration)
+        if attn is not None and last is not None:
+            name = os.path.basename(last["audiopaths"][0])
+            for tag, a in (("attention_weights", attn_soft),
+                           ("attention_weights_mas", attn)):
+                logger.add_image(tag, _alignment_image(
+                    a[0].float().cpu().numpy().T, name), iteration,
+                    dataformats="HWC")
+    return totals
+
+
+def _alignment_image(alignment, title):
+    """An (H, W, 3) uint8 picture of an alignment, through matplotlib when
+    it imports (plotting.py of the JAX package), else the map as grey."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        a = alignment - alignment.min()
+        a = (255 * a / max(a.max(), 1e-12)).astype(np.uint8)[::-1]
+        return np.repeat(a[:, :, None], 3, axis=2)
+    fig, ax = plt.subplots(figsize=(6, 4))
+    ax.imshow(alignment, aspect="auto", origin="lower",
+              interpolation="none")
+    ax.set_title(title)
+    fig.canvas.draw()
+    image = np.asarray(fig.canvas.buffer_rgba())[..., :3].copy()
+    plt.close(fig)
+    return image
+
+
+def prepare_output_folder(output_directory, config):
+    """config.json, a tar of the port's sources, and a tensorboardX writer
+    where tensorboardX imports (else None)."""
+    os.makedirs(output_directory, exist_ok=True)
+    with open(os.path.join(output_directory, "config.json"), "w") as f:
+        json.dump(config, f, indent=4)
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        with tarfile.open(os.path.join(output_directory, "code.tar.gz"),
+                          "w:gz") as tar:
+            tar.add(pkg, arcname=os.path.basename(pkg),
+                    filter=lambda ti: None if "__pycache__" in ti.name
+                    else ti)
+    except OSError as exc:
+        print("code snapshot skipped:", exc)
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(os.path.join(output_directory, "logs"))
+
+
+def init_model(model_config, seed, device):
+    """The training-form RADTTS, randomly initialised from seed (the
+    global generator is left as it was), on device, in train mode."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = RADTTS(model_config, factored=True)
+    return model.to(device).train()
+
+
+def step_generator(device, seed, iteration):
+    """The dropout generator of one step, seeded from (seed, iteration),
+    so that a resumed run draws what the uninterrupted one would."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) * 1_000_003 + int(iteration))
+    return gen
+
+
+def train(config, output_directory, epochs, optim_algo, learning_rate,
+          weight_decay, sigma, iters_per_checkpoint, batch_size, seed,
+          checkpoint_path, ignore_layers, ignore_layers_warmstart,
+          include_layers, finetune_layers, warmstart_checkpoint_path,
+          grad_clip_val, loss_weights, binarization_start_iter=-1,
+          kl_loss_start_iter=-1, unfreeze_modules="all", log_interval=1,
+          optim_state_dtype="", device=None, **kwargs):
+    """The training loop (reference: train.py:300-455). Returns a record
+    per step: the iteration, its wall ms (host clock around the step and
+    the read-back of its losses, which waits for the device), the grad
+    norm and the losses."""
+    from radtts_tpu_torch.data.dataset import (DataCollate, DataLoader,
+                                               data_factory)
+    from radtts_tpu_torch.synthesizer import resolve_device
+
+    device = resolve_device(device)
+    data_config = config["data_config"]
+    model_config = config["model_config"]
+    if seed is None:
+        seed = int(hashlib.md5(
+            output_directory.encode()).hexdigest(), 16) % 2000
+    print(f"Using seed {seed}")
+
+    model = init_model(model_config, seed, device)
+    iteration = 0
+    if warmstart_checkpoint_path:
+        warmstart_state(warmstart_checkpoint_path, model, model_config,
+                        include_layers, ignore_layers_warmstart)
+        print(f"Warm started from {warmstart_checkpoint_path}")
+    mask = build_trainable_mask(model, unfreeze_modules, finetune_layers)
+    trainable = apply_trainable_mask(model, mask)
+    optimizer = build_optimizer(trainable, optim_algo, learning_rate,
+                                weight_decay, optim_state_dtype or None)
+    if checkpoint_path:
+        meta = load_train_checkpoint(checkpoint_path, model, optimizer,
+                                     model_config)
+        iteration = meta["iteration"] + 1
+        print(f"Loaded checkpoint '{checkpoint_path}' "
+              f"(iteration {meta['iteration']})")
+
+    trainset = data_factory(data_config, "training_files")
+    valset = data_factory(data_config, "validation_files",
+                          trainset.speaker_ids)
+    collate_fn = DataCollate()
+    train_loader = DataLoader(
+        trainset, batch_size, collate_fn, shuffle=True, seed=seed,
+        num_worker_procs=int(kwargs.get("num_worker_procs", 0)),
+        worker_init=(data_factory, (data_config, "training_files",
+                                    trainset.speaker_ids)))
+    logger = prepare_output_folder(output_directory, config)
+
+    history = []
+    epoch_offset = max(0, iteration // max(len(train_loader), 1))
+    for epoch in range(epoch_offset, epochs):
+        train_loader.set_epoch(epoch)
+        print(f"Epoch: {epoch}")
+        for batch in train_loader:
+            tic = time.perf_counter()
+            binarize = iteration >= binarization_start_iter
+            use_kl = binarize and iteration >= kl_loss_start_iter
+            total, loss_dict, grad_norm = train_step(
+                model, optimizer, trainable, batch_to_device(batch, device),
+                model_config, loss_weights, sigma, binarize, use_kl,
+                grad_clip_val, step_generator(device, seed, iteration))
+            # one read-back for every logged scalar
+            names = list(loss_dict)
+            values = torch.stack([total, grad_norm.to(total.device)]
+                                 + [loss_dict[k][0].detach().reshape(())
+                                    for k in names]).tolist()
+            ms = (time.perf_counter() - tic) * 1e3
+            record = {"iteration": iteration, "ms": ms, "total": values[0],
+                      "grad_norm": values[1], "binarize": binarize,
+                      "use_kl": use_kl, **dict(zip(names, values[2:]))}
+            history.append(record)
+            if iteration % max(log_interval, 1) == 0:
+                line = [f"iter: {iteration}  ({ms / 1e3:.2f} s)  |  "
+                        f"lr: {learning_rate}"]
+                for k in names:
+                    line.append(f"  |  {k}: {record[k]:.3f}")
+                    if logger is not None:
+                        logger.add_scalar("train/" + k, record[k], iteration)
+                if logger is not None:
+                    logger.add_scalar("train/grad_norm", record["grad_norm"],
+                                      iteration)
+                print("".join(line), flush=True)
+            if iteration % iters_per_checkpoint == 0:
+                val_losses = compute_validation_loss(
+                    model, valset, collate_fn, batch_size, device,
+                    model_config, loss_weights, sigma, iteration, logger)
+                path = os.path.join(output_directory, f"model_{iteration}")
+                save_train_checkpoint(path, model, optimizer, iteration,
+                                      learning_rate)
+                record["validation"] = val_losses
+                print("Validation loss:", val_losses, flush=True)
+            iteration += 1
+    train_loader.close()
+    return history

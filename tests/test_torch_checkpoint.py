@@ -121,8 +121,8 @@ def test_npz_reader_matches_jax(case, tmp_path):
 
 def test_state_dict_reader_matches_jax(case, tmp_path):
     """The JAX package's exported reference state dict reads into JAX's
-    convert.radtts_from_torch tree without its attention; every entry is
-    read but the training-only attention.*."""
+    convert.radtts_from_torch tree, its alignment attention included;
+    every entry is read."""
     cfg, params = case
     path = tmp_path / "ckpt.pt"
     jax_export(str(path), params, iteration=3, learning_rate=2e-4)
@@ -130,10 +130,9 @@ def test_state_dict_reader_matches_jax(case, tmp_path):
     rec = _Recorder(sd)
     got = radtts_from_torch(rec, cfg)
     want = np_tree(jax_from_torch(sd, cfg, template=params))
-    del want["attention"]
+    assert "attention" in got
     assert_trees_equal(got, want)
-    unread = sorted(k for k in set(sd) - rec.read
-                    if not k.startswith("attention."))
+    unread = sorted(set(sd) - rec.read)
     assert not unread, unread
     assert any(k.endswith(".lower_diag") for k in rec.read)
 
@@ -167,15 +166,23 @@ def test_refuses_unported_attribute_model():
 
 
 def test_writer_keys_and_shapes_match_jax(case, tmp_path):
-    """The port's writer gives every key JAX's exporter writes but
-    attention.*, at the same shapes; each spectral-normed recurrent weight
-    has u . (W v) = 1; the file holds what radtts_to_torch returns."""
+    """The port's writer gives every key JAX's exporter writes, attention.*
+    included, at the same shapes (the attention's equal to JAX's); each
+    spectral-normed recurrent weight has u . (W v) = 1; the file holds
+    what radtts_to_torch returns; the port's reader reads it back to the
+    module it was written from."""
     cfg, params = case
     model = radtts_from_jax(np_tree(params), cfg)
     sd = radtts_to_torch(model)
-    ref = {k: v for k, v in jax_to_torch(params).items()
-           if not k.startswith("attention.")}
+    ref = jax_to_torch(params)
     assert set(sd) == set(ref)
+    for k in ref:
+        if k.startswith("attention."):
+            assert torch.equal(sd[k], ref[k]), k
+    back = radtts_from_jax(radtts_from_torch(sd, cfg), cfg).state_dict()
+    for k, v in model.state_dict().items():
+        if k.startswith("attention."):
+            assert torch.equal(back[k], v), k
     for k in ref:
         assert sd[k].shape == ref[k].shape and sd[k].dtype == torch.float32, k
     for k in sd:
@@ -192,9 +199,9 @@ def test_writer_keys_and_shapes_match_jax(case, tmp_path):
 
 
 def test_written_checkpoint_infers_as_jax():
-    """The port's writer, read by the JAX package (with JAX's attention.*
-    entries merged in): JAX's Synthesizer on that tree against the port's
-    on the module it was written from, sigma 0, durations exact and
+    """The port's writer, read by the JAX package (attention.* included,
+    so nothing is merged in): JAX's Synthesizer on that tree against the
+    port's on the module it was written from, sigma 0, durations exact and
     waveforms within 1e-4 * max."""
     params = _converge_spectral_norms(radtts_init(jax.random.PRNGKey(0),
                                                   CFG))
@@ -206,10 +213,7 @@ def test_written_checkpoint_infers_as_jax():
     dense = params["dur_pred_layer"]["feat"]["dense"]
     dense["b"] = jnp.full_like(dense["b"], DUR_BIAS["durations"])
     model = radtts_from_jax(np_tree(params), CFG)
-    attention = {k: v for k, v in jax_to_torch(params).items()
-                 if k.startswith("attention.")}
-    tree = jax_from_torch({**radtts_to_torch(model), **attention}, CFG,
-                          template=params)
+    tree = jax_from_torch(radtts_to_torch(model), CFG, template=params)
     voc = _audible_vocoder()
     gen = hifigan_from_jax(np_tree(voc), H_SMALL)
     with torch.no_grad():

@@ -158,8 +158,13 @@ def test_import_leaves_jax_out_of_sys_modules():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'radtts_tpu')]\n"
         "n = sum(m.startswith('radtts_tpu_torch.') for m in sys.modules)\n"
-        "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 20 else 0)\n")
+        "new = ['radtts_tpu_torch.' + m for m in (\n"
+        "    'train', 'train.cli', 'train.trainer', 'train.optim',\n"
+        "    'losses', 'ops.mas', 'ops.dropout', 'models.attention',\n"
+        "    'data.pyin', 'data.audio_np', 'native')]\n"
+        "missing = [m for m in new if m not in sys.modules]\n"
+        "print(n, bad, missing)\n"
+        "sys.exit(1 if bad or missing or n < 20 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
