@@ -7,7 +7,8 @@ Phases, each printing a JSON or text line:
   1. device: the card's name and power limit, torch/CUDA versions, the
      pinned TF32 flags;
   2. build: nvcc of radtts_tpu_torch/csrc/mrf_tc.cu, csrc/mrf_stack.cu,
-     csrc/mrf.cu and csrc/mel.cu for sm_90a, all four at once, with seconds
+     csrc/mrf.cu, csrc/mel.cu, csrc/mas.cu and csrc/ar_scan.cu for
+     sm_90a, all six at once, with seconds
      and ptxas register/spill lines; then each kernel's shared memory per
      block;
   3. MRF kernels vs plain: ops/mrf.py:mrf against mrf_plain on the card,
@@ -42,6 +43,24 @@ Phases, each printing a JSON or text line:
      mrf.stack_launches and mrf.launches (csrc/mrf.cu) by 0. Outputs must
      be finite and of the expected lengths; the decode and the vocoder of
      the 608-frame utterance are also held against the CPU plain path;
+  5b. AR scan kernel vs plain: ops/ar_scan.py:ar_scan
+     (csrc/ar_scan.cu) against ar_scan_plain on the card: one AR step of
+     config_ljs_agap.json's f0 model at its published width, its zero-init
+     head drawn at sd 0.02, at (1, 608), ragged (3, 608) with valid
+     lengths 608/411/97, ragged (8, 608) (one full group of 8 items) and
+     (16, 608) (two groups), and (2, 96) with the linear-spline and the
+     affine heads: within 1e-4 * max|plain|, with the kernel's and the
+     plain version's times, the bound and us per frame; then the block
+     count swept at (1, 608); then a second step of other weights, built
+     where the first was freed, against its own plain version;
+  5c. BGAP and AGAP serving: config_ljs_bgap.json and
+     config_ljs_agap.json at their published widths with HiFi-GAN v1,
+     random weights (seed 0; WN end convs at sd 0.002, the flows'
+     zero-init last layers at sd 0.02) answer one request each, counted
+     from 0 (ar_scan 4 for AGAP, 0 for BGAP; mrf_tc 72), then the 608-frame
+     utterance with stage times and the RTF, and f0, energy and mel held
+     against the CPU plain path from the same z_f0, z_energy, residual and
+     a seeded voiced mask (within 1e-3; f0 relative to its max);
   6. HiFi-GAN V2 serving: the generator of the public config_v2.json (v1
      with upsample_initial_channel 128; random weights, seed 5) on a
      seeded 608-frame mel, stages (1, 4864, 64), (1, 38912, 32), (1, 77824,
@@ -76,7 +95,12 @@ Phases, each printing a JSON or text line:
      python -m radtts_tpu_torch.inference's main. Losses must be finite;
      mas launches once per binarized step and validation batch, the MRF
      and mel kernels never (the serving after it is counted apart: 72
-     mrf_tc launches per generator call);
+     mrf_tc launches per generator call); then
+     config_ljs_bgap.json and config_ljs_agap.json as published
+     (durf0energyvpred) warm-started from the decoder's model_3, 2 steps
+     each, counted from 0 (mas 6: two binarized steps and one validation
+     a run; ar_scan 0), and one text served from each checkpoint through
+     the inference CLI (ar_scan 4 for AGAP, 0 for BGAP; mrf_tc 144);
  10. RADTTS step time: the config_ljs_dap.json model, every module
      trainable, binarize and KL on, fp32, at bench_train.py's (16, 112,
      512): step ms (median of steps 2-5), mel frames/s, peak memory and a
@@ -85,10 +109,19 @@ Phases, each printing a JSON or text line:
      the card, the CPU and the CPU in float64 (the CPU steps take the
      card's alignment, which must equal mas_plain's on the CPU's soft
      attention, or the near-tie is reported): losses within rtol 1e-3,
-     gradients no further from float64 than max(1e-3, 2x the CPU's);
- 12. the {"kernels": [...]} line with the five kernels (mrf_tc,
-     mrf_stack, mrf_conv, mel, mas) and their launches by path (serve,
-     serve_files, serve_v2, train, train_radtts).
+     gradients no further from float64 than max(1e-3, 2x the CPU's); the
+     same for the BGAP and AGAP models with durf0energyvpred trainable;
+ 11b. SimpleConvNet and cuDNN: each distinct conv of the BGAP's
+     SimpleConvNets forward and backward in fp32 on cuDNN (the port's
+     layout and a contiguous one) and off it, against float64 (each
+     within 1e-5 of max), with the kernels cuDNN ran and the times; the
+     BGAP's serving attributes stage and training step with the
+     SimpleConvNets on and off cuDNN; and the energy model's float64
+     gradients under fp32-sized noise in those convs (the relu flips);
+ 12. the {"kernels": [...]} line with the six kernels (mrf_tc,
+     mrf_stack, mrf_conv, mel, mas, ar_scan) and their launches by path
+     (serve, serve_files, serve_v2, train, train_radtts, serve_bgap,
+     serve_agap, train_gap, serve_gap_files).
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
@@ -1143,21 +1176,24 @@ def write_train_dataset(root, seed=0):
 
 
 def _counts(mas_mod, mel_mod, mrf_mod):
+    from radtts_tpu_torch.ops.ar_scan import ar_scan
     return {"mas": mas_mod.mas.launches, "mel": mel_mod.mel.launches,
             "mrf_tc": mrf_mod.mrf.tc_launches,
             "mrf_stack": mrf_mod.mrf.stack_launches,
-            "mrf_conv": mrf_mod.mrf.launches}
+            "mrf_conv": mrf_mod.mrf.launches, "ar_scan": ar_scan.launches}
 
 
 def _reset_counts(mas_mod, mel_mod, mrf_mod):
+    from radtts_tpu_torch.ops.ar_scan import ar_scan
     mas_mod.mas.launches = 0
     mel_mod.mel.launches = 0
     mrf_mod.mrf.tc_launches = 0
     mrf_mod.mrf.stack_launches = 0
     mrf_mod.mrf.launches = 0
+    ar_scan.launches = 0
 
 
-def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power):
+def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
     """python -m radtts_tpu_torch.train's main at full width, on a seeded
     dataset written here: config_ljs_decoder.json (8 flows, 1024-wide WN,
     batch 16) for 4 steps across both curriculum points (binarize from
@@ -1170,7 +1206,9 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power):
     The counts are set to 0 just before the first training run and read
     just after the last; mas must launch once per binarized step and per
     validation batch, the MRF and mel kernels never. The serving that
-    follows is counted apart."""
+    follows is counted apart. `then(root, files, decoder_checkpoint,
+    vocoder, vocoder_config, text)` runs before the files are removed, and
+    its result is returned beside the launches."""
     from radtts_tpu_torch.inference import main as inference_main
     from radtts_tpu_torch.models.hifigan import (Generator,
                                                  generator_to_reference)
@@ -1253,6 +1291,8 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power):
             if not torch.equal(v, src[k]):
                 raise AssertionError(f"{k} moved in the frozen DAP run")
             frozen_equal += 1
+        after = None if then is None else then(
+            root, files, f"{out['dec']}/model_3", voc, voc_cfg, text)
 
     history = [dict(h, run=name) for name, hs in runs.items() for h in hs]
     for h in history:
@@ -1267,9 +1307,10 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power):
             or [h["iteration"] for h in runs["resume"]] != [4]
             or len(runs["dap"]) != 2
             or launches != {"mas": want_mas, "mel": 0, "mrf_tc": 0,
-                            "mrf_stack": 0, "mrf_conv": 0}
+                            "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0}
             or serve_launches != {"mas": 0, "mel": 0, "mrf_tc": 2 * 72,
-                                  "mrf_stack": 0, "mrf_conv": 0}
+                                  "mrf_stack": 0, "mrf_conv": 0,
+                                  "ar_scan": 0}
             or frozen_equal < 100):
         raise AssertionError(f"curriculum {curr}, launches {launches}, "
                              f"serving {serve_launches}, {frozen_equal} "
@@ -1292,7 +1333,7 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power):
          "frozen_parameters_equal": frozen_equal,
          "launches": launches, "serve_launches": serve_launches,
          "peak_allocated_gib": peak_gib})
-    return launches
+    return launches, after
 
 
 def radtts_step_batch(B, N, T, n_mel, seed, in_lens=None, out_lens=None):
@@ -1322,14 +1363,15 @@ def radtts_step_batch(B, N, T, n_mel, seed, in_lens=None, out_lens=None):
         "energy_avg": r.random((B, T)).astype(np.float32)}
 
 
-def _radtts_trainer(model_config, dev, seed, lr=1e-4):
+def _radtts_trainer(model_config, dev, seed, lr=1e-4, unfreeze="all"):
     from radtts_tpu_torch.train.trainer import (apply_trainable_mask,
                                                 build_trainable_mask,
                                                 init_model)
     from radtts_tpu_torch.train.optim import build_optimizer
 
     model = init_model(model_config, seed, dev)
-    trainable = apply_trainable_mask(model, build_trainable_mask(model))
+    trainable = apply_trainable_mask(model, build_trainable_mask(
+        model, unfreeze))
     return model, trainable, build_optimizer(trainable, "RAdam", lr, 1e-6)
 
 
@@ -1378,9 +1420,11 @@ def phase_radtts_step(mas_mod, dev, power):
     return step_ms
 
 
-def phase_radtts_vs_cpu(dev, lr=1e-4):
-    """One step at batch 2 of the config_ljs_dap.json model (full widths,
-    binarize and KL on) from the same state, on the card, on the CPU and on
+def phase_radtts_vs_cpu(dev, lr=1e-4, config_path=CONFIG, unfreeze="all",
+                        phase="radtts_train_step_card_vs_cpu"):
+    """One step at batch 2 of the config_path model (full widths, binarize
+    and KL on; the config_ljs_dap.json model with every module trainable,
+    or as unfreeze says) from the same state, on the card, on the CPU and on
     the CPU in float64. The card's hard alignment (csrc/mas.cu) must equal
     mas_plain's on the CPU's own soft attention, or the near-tie that
     split them is reported; the CPU steps then take the card's alignment,
@@ -1395,7 +1439,7 @@ def phase_radtts_vs_cpu(dev, lr=1e-4):
     from radtts_tpu_torch.ops.mas import mas_plain
     from radtts_tpu_torch.train.trainer import train_step
 
-    with open(CONFIG) as f:
+    with open(config_path) as f:
         config = json.load(f)
     mc, tc = config["model_config"], config["train_config"]
     from radtts_tpu_torch.train.optim import build_optimizer
@@ -1403,7 +1447,8 @@ def phase_radtts_vs_cpu(dev, lr=1e-4):
     B, N, T = 2, 48, 192
     batch = radtts_step_batch(B, N, T, mc["n_mel_channels"], 3, [48, 37],
                               [192, 150])
-    cpu_model = _radtts_trainer(mc, "cpu", seed=4, lr=lr)[0]
+    cpu_model = _radtts_trainer(mc, "cpu", seed=4, lr=lr,
+                                unfreeze=unfreeze)[0]
     runs = {"card": (copy.deepcopy(cpu_model).to(dev), torch.float32),
             "cpu": (cpu_model, torch.float32),
             "cpu64": (copy.deepcopy(cpu_model).double(), torch.float64)}
@@ -1443,20 +1488,22 @@ def phase_radtts_vs_cpu(dev, lr=1e-4):
     n_diff = int((cpu_hard != seen["card_hard"]).sum())
     soft_diff = (seen["card_soft"] - seen["cpu_soft"]).abs().max().item()
 
-    ref = [q.grad for q in runs["cpu64"][0].parameters()]
+    ref = [q.grad for q in runs["cpu64"][0].parameters() if q.requires_grad]
     floor = 1e-3 * torch.stack([g.norm() for g in ref]).norm()
 
     def grad_dist(name):
         model = runs[name][0]
         return {k: ((p.grad.cpu().double() - q).norm()
                     / torch.maximum(q.norm(), floor)).item()
-                for (k, p), q in zip(model.named_parameters(), ref)}
+                for (k, p), q in zip(((k, p) for k, p in
+                                      model.named_parameters()
+                                      if p.requires_grad), ref)}
 
     card, cpu = grad_dist("card"), grad_dist("cpu")
     over = {k: (card[k], cpu[k]) for k in card
             if card[k] > max(1e-3, 2 * cpu[k])}
     worst = max(card, key=card.get)
-    log({"phase": "radtts_train_step_card_vs_cpu", **out,
+    log({"phase": phase, **out,
          "alignment_cells_different": n_diff,
          "soft_attention_max_abs_diff": soft_diff,
          "grad_worst_vs_float64": {"tensor": worst, "card": card[worst],
@@ -1475,6 +1522,663 @@ def phase_radtts_vs_cpu(dev, lr=1e-4):
 
 
 
+AGAP_CONFIG = os.path.join(REPO, "configs", "config_ljs_agap.json")
+BGAP_CONFIG = os.path.join(REPO, "configs", "config_ljs_bgap.json")
+GAP_CONFIGS = {"bgap": BGAP_CONFIG, "agap": AGAP_CONFIG}
+# (B, T), valid lengths (None: all T), head: the published AGAP step at
+# the flagship length, ragged batches (B = 8 fills the kernel's group of 8
+# items; B = 16 takes a second group, as the serving daemon's --max_batch
+# above 8 does), and the other two heads at small T
+AR_SHAPES = [((1, MAX_FRAMES), None, "quadratic"),
+             ((3, MAX_FRAMES), (608, 411, 97), "quadratic"),
+             ((8, MAX_FRAMES), (608, 577, 501, 411, 320, 256, 97, 1),
+              "quadratic"),
+             ((16, MAX_FRAMES), None, "quadratic"),
+             ((2, 96), None, "linear"), ((2, 96), (96, 41), "affine")]
+AR_BLOCKS = [8, 16, 33, 66, 132, 264]
+FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+
+
+def ar_step_at_width(head, dev, seed=0):
+    """The first AR step of config_ljs_agap.json's f0 model at its
+    published width (C=1, H=128, context 32 + 16, the 128 -> 256 -> 512 ->
+    1024 -> 1024 -> 49 spline head), seeded, its zero-initialised last
+    layer drawn at sd 0.02 (else the step is the identity); head "linear"
+    or "affine" swaps the spline for the linear one (24 bins) or the dense
+    affine head."""
+    from radtts_tpu_torch.models.attributes import attribute_model
+    from radtts_tpu_torch.models.radtts import attribute_config
+
+    with open(AGAP_CONFIG) as f:
+        mc = json.load(f)["model_config"]
+    cfg = attribute_config(mc["f0_model_config"], False)
+    hp = cfg["hparams"]
+    if head == "linear":
+        hp["spline_flow_params"] = dict(hp["spline_flow_params"],
+                                        use_quadratic=False)
+    elif head == "affine":
+        hp["spline_flow_params"] = None
+    torch.manual_seed(seed)
+    step = attribute_model(cfg, n_speaker_dim=mc["n_speaker_dim"]).flows[0]
+    last = (step.spline_flow.pred.last if step.spline_flow is not None
+            else step.conv)
+    with torch.no_grad():
+        torch.nn.init.normal_(last.weight, std=0.02)
+        torch.nn.init.normal_(last.bias, std=0.02)
+    return step.to(dev).eval().requires_grad_(False)
+
+
+def ar_inputs(step, shape, lens, dev, seed):
+    """(scan params, residual, context_proj) of seeded inputs, zero past
+    each valid length (as the back steps' reversal leaves them)."""
+    B, T = shape
+    gen = torch.Generator().manual_seed(seed)
+    res = torch.randn(B, T, step.n_attr, generator=gen) * 0.8
+    n_ctx = step.lstm.lstm.input_size - step.lstm.lstm.hidden_size
+    ctx = torch.randn(B, T, n_ctx, generator=gen)
+    if lens is not None:
+        valid = (torch.arange(T)[None, :]
+                 < torch.as_tensor(lens)[:, None])[:, :, None]
+        res, ctx = res * valid, ctx * valid
+    res, ctx = res.to(dev), ctx.to(dev)
+    w_ih, _, (b_ih, b_hh) = step.lstm.weights(0)
+    H = step.lstm.lstm.hidden_size
+    return (step.scan_params("tanh"), res,
+            torch.matmul(ctx, w_ih[:, H:].T) + (b_ih + b_hh))
+
+
+def ar_bound(params, B, T, C):
+    """(bound ms, bound_by, MFLOP, MB): the larger of the FLOP at the fp32
+    rate and the bytes (the weights once, residual, context_proj and the
+    output) at the HBM rate."""
+    from radtts_tpu_torch.ops import ar_scan as ar_mod
+
+    flop = 2.0 * B * T * ar_mod.macs_per_frame(params, C)
+    H = params["attr"][1].shape[1]
+    nbytes = ar_mod.weight_bytes(params) + 4 * B * T * (2 * C + 4 * H)
+    t_flop, t_bytes = flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (max(t_flop, t_bytes),
+            "operations" if t_flop >= t_bytes else "bytes",
+            flop / 1e6, nbytes / 1e6)
+
+
+def phase_ar_scan_kernel(ar_mod, dev, power):
+    """csrc/ar_scan.cu against ar_scan_plain on the card at AR_SHAPES:
+    within 1e-4 * max|plain| (fp32 mat-vecs summed in another order over
+    a recurrence), the step acting (output off the residual), the
+    kernel's and the plain version's times, the bound and the us per
+    frame; then the block count swept at (1, 608), each output within the
+    same limit of the default's."""
+    rows = []
+    for shape, lens, head in AR_SHAPES:
+        step = ar_step_at_width(head, dev)
+        params, res, cproj = ar_inputs(step, shape, lens, dev, seed=11)
+        with torch.no_grad():
+            got = ar_mod.ar_scan(params, res, cproj)
+            want = ar_mod.ar_scan_plain(params, res, cproj)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            moved = (want - res).abs().max().item()
+            ms = cuda_ms(lambda: ar_mod.ar_scan_cuda(params, res, cproj))
+            plain_ms = cuda_ms(
+                lambda: ar_mod.ar_scan_plain(params, res, cproj), reps=2,
+                warmup=1, min_ms=0.0)
+        B, T = shape
+        bound_ms, bound_by, mflop, mb = ar_bound(params, B, T, res.shape[2])
+        row = {"shape": [B, T, res.shape[2]], "lens": lens, "head": head,
+               "blocks": min(ar_mod.max_blocks(params, B, res.shape[2],
+                                               128),
+                             torch.cuda.get_device_properties(
+                                 dev).multi_processor_count),
+               "ms": ms, "plain_ms": plain_ms, "us_per_frame": ms * 1e3 / T,
+               "bound_ms": bound_ms, "bound_by": bound_by, "mflop": mflop,
+               "mbytes": mb, "max_abs_err": err, "max_abs_plain": scale,
+               "max_change": moved, "library_ms": None}
+        log({"phase": "ar_scan_kernel_vs_plain", "card": power, **row})
+        if not err <= 1e-4 * scale or not moved > 1e-2:
+            raise AssertionError(f"ar_scan at {shape} {head}: err {err} "
+                                 f"of {scale}, change {moved}")
+        rows.append(row)
+    step = ar_step_at_width("quadratic", dev)
+    params, res, cproj = ar_inputs(step, AR_SHAPES[0][0], None, dev, 11)
+    limit = ar_mod.max_blocks(params, 1, 1, 128)
+    sweep = []
+    with torch.no_grad():
+        ref = ar_mod.ar_scan_cuda(params, res, cproj)
+        for nb in [b for b in AR_BLOCKS if b <= limit]:
+            out = ar_mod.ar_scan_cuda(params, res, cproj, blocks=nb)
+            diff = (out - ref).abs().max().item()
+            ms = cuda_ms(lambda: ar_mod.ar_scan_cuda(params, res, cproj,
+                                                     blocks=nb))
+            sweep.append({"blocks": nb, "ms": ms,
+                          "us_per_frame": ms * 1e3 / MAX_FRAMES,
+                          "max_abs_diff_vs_default": diff})
+            if not diff <= 1e-4 * ref.abs().max().item():
+                raise AssertionError(f"ar_scan blocks={nb}: {diff}")
+    log({"phase": "ar_scan_blocks", "card": power, "shape": [1, MAX_FRAMES],
+         "max_resident_blocks": limit, "sweep": sweep})
+    # a second step built where the first was freed (the caching allocator
+    # hands it the same blocks): the kernel must run the second's weights
+    del step, params, ref, out
+    outs = {}
+    for seed in (0, 1):
+        step = ar_step_at_width("quadratic", dev, seed=seed)
+        params, res, cproj = ar_inputs(step, AR_SHAPES[0][0], None, dev, 11)
+        with torch.no_grad():
+            outs[seed] = ar_mod.ar_scan(params, res, cproj)
+            want = ar_mod.ar_scan_plain(params, res, cproj)
+        err = (outs[seed] - want).abs().max().item()
+        if not err <= 1e-4 * want.abs().max().item():
+            raise AssertionError(f"ar_scan, step of seed {seed} built after "
+                                 f"another was freed: err {err}")
+        del step, params, cproj, want
+    apart = (outs[1] - outs[0]).abs().max().item()
+    log({"phase": "ar_scan_second_model", "max_abs_err": err,
+         "max_abs_diff_between_models": apart})
+    if not apart > 1e-2:
+        raise AssertionError(f"ar_scan: two models' outputs equal ({apart})")
+    return rows, sweep
+
+
+def gap_parts(kind, dev):
+    """config_ljs_<kind>.json's model at its published widths, random from
+    seed 0, folded, with the WN end convs drawn at sd 0.002 (as the
+    flagship's) and every zero-initialised last layer of the f0 and
+    energy flows drawn at sd 0.02."""
+    from radtts_tpu_torch.models.radtts import RADTTS
+
+    with open(GAP_CONFIGS[kind]) as f:
+        config = json.load(f)
+    torch.manual_seed(0)
+    model = RADTTS(config["model_config"]).eval().requires_grad_(False)
+    with torch.no_grad():
+        for flow in model.flows:
+            torch.nn.init.normal_(flow.affine.pred.end.weight, std=0.002)
+        for mod in (model.f0_pred_module, model.energy_pred_module):
+            lasts = ([t.pred.last for k, t in enumerate(mod.transforms)
+                      if not mod.is_spline(k)]
+                     if kind == "bgap" else
+                     [s.spline_flow.pred.last for s in mod.flows])
+            for last in lasts:
+                torch.nn.init.normal_(last.weight, std=0.02)
+                torch.nn.init.normal_(last.bias, std=0.02)
+    return config, model.to(dev)
+
+
+def phase_serve_gap(kind, vocoder, denoiser, tp, mods, dev, power):
+    """A Synthesizer of gap_parts(kind) with HiFi-GAN v1 answers one
+    request (TEXTS[1], sigma_f0 = sigma_energy = 0.8), its launches
+    counted from 0: ar_scan 4 for AGAP (2 AR flows x f0 and energy), 0 for
+    BGAP, mrf_tc 72 (one generator call). Then the 608-frame flagship
+    utterance runs with stage times (durations; attributes alone;
+    attributes + decode; vocoder + denoiser; medians of 3) and the RTF,
+    and f0, energy and mel on the card against the CPU plain path from
+    the same z_f0, z_energy, residual and a seeded voiced mask: within
+    1e-3 (f0 relative to its max, in Hz)."""
+    from radtts_tpu_torch.models.attributes import attribute_model_infer
+    from radtts_tpu_torch.models.hifigan import denoiser_apply
+    from radtts_tpu_torch.models.radtts import (apply_voice_mask_to_text,
+                                                encode_speaker, encode_text,
+                                                infer_durations,
+                                                radtts_infer)
+    from radtts_tpu_torch.ops.length_regulator import regulate_length
+    from radtts_tpu_torch.synthesizer import Synthesizer
+
+    config, model = gap_parts(kind, dev)
+    dc = config["data_config"]
+    synth = Synthesizer.from_parts(
+        config["model_config"], model, vocoder, denoiser,
+        encode_fn=tp.encode_text, speaker_id_fn=lambda name: 0,
+        sampling_rate=dc["sampling_rate"], hop_length=dc["hop_length"],
+        seed=0, device=dev)
+    _reset_counts(*mods)
+    wavs, aux = synth.synthesize(TEXTS[1], "ljs", sigma_f0=0.8,
+                                 sigma_energy=0.8)
+    torch.cuda.synchronize()
+    launches = _counts(*mods)
+    if not np.isfinite(wavs[0]).all() or not np.isfinite(aux["f0"]).all():
+        raise AssertionError(f"{kind}: non-finite request output")
+    text, dur = flagship_input(synth)
+    text, dur = text.to(dev), dur.to(dev)
+    spk = torch.zeros(1, dtype=torch.int64, device=dev)
+    meta = model.meta
+    g, n_mel = meta["n_group_size"], meta["n_mel_channels"]
+    n_ch = 2 if meta["use_first_order_features"] else 1
+    gen = torch.Generator().manual_seed(5)
+    z_f0 = (torch.randn(1, MAX_FRAMES, n_ch, generator=gen) * 0.8).to(dev)
+    z_e = (torch.randn(1, MAX_FRAMES, n_ch, generator=gen) * 0.8).to(dev)
+    res = (torch.randn(1, MAX_FRAMES // g, n_mel * g, generator=gen)
+           * 0.8).to(dev)
+    # a seeded voicing (70% voiced): the random voicing predictor may mark
+    # every frame unvoiced, and f0 is then 0 on both sides
+    vm = (torch.rand(1, MAX_FRAMES, generator=gen) < 0.7).float().to(dev)
+
+    def durations():
+        return infer_durations(model, spk, text)
+
+    def attributes():
+        txt_enc, _ = encode_text(model, text, None)
+        x = regulate_length(txt_enc, dur, MAX_FRAMES)
+        spk_vec = encode_speaker(model, spk)
+        vm = (torch.sigmoid(attribute_model_infer(
+            model.v_pred_module, x, spk_vec, dur.sum(1))[..., 0]) > 0.5
+              ).float()
+        x = apply_voice_mask_to_text(model, x, vm)
+        return [attribute_model_infer(m, x, spk_vec, dur.sum(1), z=z)
+                for m, z in ((model.f0_pred_module, z_f0),
+                             (model.energy_pred_module, z_e))]
+
+    def decode():
+        return radtts_infer(model, spk, text, 0.8, MAX_FRAMES, dur=dur,
+                            residual=res, z_f0=z_f0, z_energy=z_e,
+                            voiced_mask=vm)
+
+    with torch.inference_mode():
+        out, t_dec = timed(decode)
+        audio, t_voc = timed(lambda: denoiser_apply(
+            denoiser, vocoder(out["mel"]), strength=0.0))
+        stage = {"durations": [], "attributes": [], "decode": [],
+                 "vocoder_denoiser": []}
+        for _ in range(3):
+            stage["durations"].append(timed(durations)[1])
+            stage["attributes"].append(timed(attributes)[1])
+            stage["decode"].append(timed(decode)[1])
+            stage["vocoder_denoiser"].append(timed(lambda: denoiser_apply(
+                denoiser, vocoder(out["mel"]), strength=0.0))[1])
+        med = {k: statistics.median(v) for k, v in stage.items()}
+        seconds = MAX_FRAMES * dc["hop_length"] / dc["sampling_rate"]
+        rtf = (med["durations"] + med["decode"]
+               + med["vocoder_denoiser"]) / 1e3 / seconds
+        model.to("cpu")
+        ref = radtts_infer(model, spk.cpu(), text.cpu(), 0.8, MAX_FRAMES,
+                           dur=dur.cpu(), residual=res.cpu(),
+                           z_f0=z_f0.cpu(), z_energy=z_e.cpu(),
+                           voiced_mask=vm.cpu())
+        model.to(dev)
+    errs = {}
+    for key in ("f0", "energy_avg", "mel"):
+        errs[key] = (out[key].cpu() - ref[key]).abs().max().item()
+        errs[key + "_max_abs"] = ref[key].abs().max().item()
+    want_ar = 4 if kind == "agap" else 0
+    log({"phase": f"serve_{kind}", "card": power, "frames": MAX_FRAMES,
+         "stage_ms": med, "stage_ms_all": stage, "rtf": rtf,
+         "first_decode_ms": t_dec, "first_vocoder_ms": t_voc,
+         "launches": launches, "card_vs_cpu": errs,
+         "request_samples": int(wavs[0].size),
+         "voiced_frames": int(out["voiced_mask"].sum())})
+    if (launches["ar_scan"] != want_ar or launches["mrf_tc"] != 72
+            or launches["mas"] or launches["mel"] or launches["mrf_stack"]
+            or launches["mrf_conv"]):
+        raise AssertionError(f"serve_{kind} launches {launches}")
+    if not (errs["f0_max_abs"] > 0 and
+            errs["f0"] <= 1e-3 * errs["f0_max_abs"]
+            and errs["energy_avg"] <= 1e-3 and errs["mel"] <= 1e-3):
+        raise AssertionError(f"serve_{kind} card vs CPU: {errs}")
+    if not torch.isfinite(audio).all():
+        raise AssertionError(f"serve_{kind}: non-finite audio")
+    return launches
+
+
+def phase_train_gap(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
+                    text):
+    """python -m radtts_tpu_torch.train's main on config_ljs_bgap.json and
+    config_ljs_agap.json as published (unfreeze_modules durf0energyvpred,
+    batch 16, binarize and KL from step 0), each warm-started from the
+    decoder checkpoint the RADTTS training phase wrote, 2 steps each with
+    a validation and a checkpoint at step 0; then each checkpoint serves
+    one text through python -m radtts_tpu_torch.inference's main. Counted
+    from 0 before the first run and read after the last training run
+    (mas: 2 binarized steps and 1 validation batch a run; ar_scan 0), the
+    serving apart (ar_scan 4 for AGAP's text, 0 for BGAP's)."""
+    from radtts_tpu_torch.inference import main as inference_main
+    from radtts_tpu_torch.train import main as train_main
+
+    configs = {}
+    for kind, path in GAP_CONFIGS.items():
+        with open(path) as f:
+            config = json.load(f)
+        config["data_config"].update(
+            files, betabinom_cache_path=os.path.join(root, "cache"))
+        configs[kind] = os.path.join(root, f"{kind}.json")
+        with open(configs[kind], "w") as f:
+            json.dump(config, f)
+    runs = {}
+    _reset_counts(*mods)
+    for kind in GAP_CONFIGS:
+        runs[kind] = train_main([
+            "-c", configs[kind], "-p",
+            f"train_config.output_directory={root}/{kind}_out",
+            "train_config.epochs=2", "train_config.seed=0",
+            "train_config.batch_size=16",
+            f"train_config.warmstart_checkpoint_path={dec_ckpt}"])
+    launches = _counts(*mods)
+    serve = {}
+    for kind in GAP_CONFIGS:
+        _reset_counts(*mods)
+        tic = time.perf_counter()
+        written = inference_main([
+            "-c", configs[kind], "-r", f"{root}/{kind}_out/model_0",
+            "-v", voc, "-k", voc_cfg, "-t", text, "-s", "ljs", "-o",
+            os.path.join(root, f"{kind}_wavs"), "--seed", "0",
+            "--sigma_f0", "0.8", "--sigma_energy", "0.8"])
+        serve[kind] = {"seconds": time.perf_counter() - tic,
+                       "launches": _counts(*mods),
+                       "samples": int(_check_wav(written[0],
+                                                 written[0]).size)}
+    history = [dict(h, run=k) for k, hs in runs.items() for h in hs]
+    for h in history:
+        vals = [v for v in h.values() if isinstance(v, float)]
+        if not all(np.isfinite(vals)):
+            raise AssertionError(f"non-finite step {h}")
+    log({"phase": "train_gap", "card": power,
+         "steps": [{k: h[k] for k in ("run", "iteration", "ms", "total",
+                                      "grad_norm", "loss_f0",
+                                      "loss_energy", "loss_mel")}
+                   for h in history],
+         "step_ms": {k: [h["ms"] for h in hs] for k, hs in runs.items()},
+         "validation": {k: [h["validation"] for h in hs
+                            if "validation" in h]
+                        for k, hs in runs.items()},
+         "launches": launches, "serve": serve})
+    if (any(len(hs) != 2 for hs in runs.values())
+            or launches != {"mas": 6, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
+                            "mrf_conv": 0, "ar_scan": 0}
+            or serve["agap"]["launches"]["ar_scan"] != 4
+            or serve["bgap"]["launches"]["ar_scan"] != 0
+            or any(v["launches"]["mrf_tc"] != 2 * 72
+                   for v in serve.values())):
+        raise AssertionError(f"train_gap: steps "
+                             f"{[len(h) for h in runs.values()]}"
+                             f", launches {launches}, serving {serve}")
+    total = {k: launches[k] + sum(v["launches"][k] for v in serve.values())
+             for k in launches}
+    return {"train_gap": launches, "serve_gap_files": {
+        k: sum(v["launches"][k] for v in serve.values()) for k in launches},
+        "total": total}
+
+
+BGAP_CONV_FRAMES = 192     # the batch-2 check's frames, before grouping
+CONV_WAYS = ("cudnn_port_layout", "cudnn_contiguous", "native")
+
+
+def _simple_conv_cudnn(enabled):
+    """SimpleConvNet.forward with its convolutions on cuDNN (enabled) or
+    off it whatever the grad mode, to time the two and hold them against
+    each other (undo with the returned function)."""
+    from radtts_tpu_torch.models.coupling import SimpleConvNet
+
+    chosen = SimpleConvNet.forward
+
+    def forward(self, x, mask=None, use_partial_padding=True):
+        c = torch.backends.cudnn
+        with c.flags(enabled=enabled, benchmark=c.benchmark,
+                     deterministic=c.deterministic, allow_tf32=c.allow_tf32):
+            for layer in self.layers:
+                x = torch.relu(layer(x, mask, use_partial_padding))
+            return self.last(x)
+
+    SimpleConvNet.forward = forward
+    return lambda: setattr(SimpleConvNet, "forward", chosen)
+
+
+def _conv_way(way, x, w, b, padding, dilation):
+    """One conv (B, T, C_in) -> (B, T, C_out) the way named: cuDNN on the
+    port's layout (ops/conv.py:conv1d hands F.conv1d a (B, C, T) view of
+    the (B, T, C) tensor), cuDNN on a contiguous (B, C, T) copy, or
+    PyTorch's own convolution (cuDNN off)."""
+    from radtts_tpu_torch.ops.conv import conv1d
+
+    c = torch.backends.cudnn
+    with c.flags(enabled=way != "native", benchmark=c.benchmark,
+                 deterministic=c.deterministic, allow_tf32=c.allow_tf32):
+        if way == "cudnn_contiguous":
+            return F.conv1d(x.transpose(1, 2).contiguous(), w, b,
+                            padding=padding,
+                            dilation=dilation).transpose(1, 2)
+        return conv1d(x, w, b, padding, dilation)
+
+
+def phase_simple_conv_cudnn(dev, power):
+    """Why SimpleConvNet runs its convolutions outside cuDNN, and what
+    that costs. Each distinct conv of config_ljs_bgap.json's
+    SimpleConvNets (f0 and energy, batch 2 at BGAP_CONV_FRAMES over the
+    group size, the model's seeded weights) runs forward and backward (y,
+    dx, dw, db from a seeded upstream gradient) in fp32 each of CONV_WAYS,
+    each held against float64 (max abs error over max abs), with the
+    kernels cuDNN ran (torch.profiler) and each way's forward + backward
+    ms. Then the BGAP's serving attributes stage (f0 and energy at 608
+    frames, medians of 5) and a training step at RADTTS_STEP (decoder
+    frozen, medians of steps 2-4) with the SimpleConvNets off and on
+    cuDNN, each also once under the profiler (device busy ms, top
+    kernels); then _kink_sensitivity. Fails if a conv is further than 1e-5 of
+    max from float64."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from radtts_tpu_torch.models.attributes import attribute_model_infer
+    from radtts_tpu_torch.models.radtts import (apply_voice_mask_to_text,
+                                                encode_speaker, encode_text)
+    from radtts_tpu_torch.ops.length_regulator import regulate_length
+    from radtts_tpu_torch.train.trainer import batch_to_device, train_step
+
+    config, model = gap_parts("bgap", dev)
+    mc, tc = config["model_config"], config["train_config"]
+    gen = torch.Generator().manual_seed(9)
+    rows, seen = [], set()
+    for attr in ("f0", "energy"):
+        mod = getattr(model, f"{attr}_pred_module")
+        T = BGAP_CONV_FRAMES // mod.n_group_size
+        for k, tr in enumerate(mod.transforms):
+            for li, layer in enumerate([*tr.pred.layers, tr.pred.last]):
+                w = layer.effective_weight().detach()
+                key = (tuple(w.shape), layer.dilation)
+                if key in seen:
+                    continue
+                seen.add(key)
+                c_out, c_in, ks = w.shape
+                x = torch.randn(2, T, c_in, generator=gen)
+                if li:
+                    x = torch.relu(x)
+                gy = torch.randn(2, T, c_out, generator=gen).to(dev)
+                x = x.to(dev)
+                b = layer.bias.detach()
+
+                def fwd_bwd(way, dtype=torch.float32):
+                    xs, ws, bs = (t.to(dtype).requires_grad_(True)
+                                  for t in (x, w, b))
+                    y = _conv_way(way, xs, ws, bs, layer.padding,
+                                  layer.dilation)
+                    return (y, *torch.autograd.grad(y, (xs, ws, bs),
+                                                    gy.to(dtype)))
+
+                ref = fwd_bwd("native", torch.float64)
+                row = {"attr": attr, "transform": k, "layer": li,
+                       "c_in": c_in, "c_out": c_out, "kernel_size": ks,
+                       "dilation": layer.dilation, "frames": T}
+                for way in CONV_WAYS:
+                    got = fwd_bwd(way)
+                    row[way] = {name: ((g.double() - r).abs().max()
+                                       / r.abs().max()).item()
+                                for name, g, r in zip(("y", "dx", "dw",
+                                                       "db"), got, ref)}
+                    row[way]["ms"] = cuda_ms(lambda: fwd_bwd(way), reps=5,
+                                             warmup=1)
+                    if way != "native":
+                        with profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) \
+                                as prof:
+                            fwd_bwd(way)
+                            torch.cuda.synchronize()
+                        row[way]["kernels"] = sorted({
+                            e.key[:110] for e in prof.key_averages()
+                            if e.device_type
+                            == torch.autograd.DeviceType.CUDA})
+                rows.append(row)
+    log({"phase": "simple_conv_cudnn_layers", "card": power,
+         "batch": 2, "rows": rows})
+    worst = max(r[way][k] for r in rows for way in CONV_WAYS
+                for k in ("y", "dx", "dw", "db"))
+    if not worst <= 1e-5:
+        raise AssertionError(f"a SimpleConvNet conv {worst} of max from "
+                             "float64")
+
+    text = torch.from_numpy(np.random.default_rng(3).integers(
+        1, 180, (1, 90))).to(dev)
+    dur = torch.full((1, 90), MAX_FRAMES // 90, dtype=torch.int64,
+                     device=dev)
+    dur[0, -1] += MAX_FRAMES - int(dur.sum())
+    spk = torch.zeros(1, dtype=torch.int64, device=dev)
+    n_ch = 2 if model.meta["use_first_order_features"] else 1
+    z = torch.randn(2, 1, MAX_FRAMES, n_ch, generator=gen).to(dev) * 0.8
+
+    def attributes():
+        txt_enc, _ = encode_text(model, text, None)
+        x = regulate_length(txt_enc, dur, MAX_FRAMES)
+        spk_vec = encode_speaker(model, spk)
+        vm = (torch.sigmoid(attribute_model_infer(
+            model.v_pred_module, x, spk_vec, dur.sum(1))[..., 0]) > 0.5
+              ).float()
+        x = apply_voice_mask_to_text(model, x, vm)
+        return [attribute_model_infer(m, x, spk_vec, dur.sum(1), z=zi)
+                for m, zi in zip((model.f0_pred_module,
+                                  model.energy_pred_module), z)]
+
+    t_model, trainable, opt = _radtts_trainer(mc, dev, seed=1,
+                                              unfreeze="durf0energyvpred")
+    batch = batch_to_device(radtts_step_batch(
+        *RADTTS_STEP, mc["n_mel_channels"], 2), dev)
+
+    def step():
+        total, _, _ = train_step(t_model, opt, trainable, batch, mc,
+                                 tc["loss_weights"], 1.0, True, True,
+                                 tc["grad_clip_val"])
+        return float(total)
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    result = {}
+    for name in ("native", "cudnn"):
+        undo = _simple_conv_cudnn(name == "cudnn")
+        try:
+            with torch.inference_mode():
+                stage = [timed(attributes)[1] for _ in range(6)][1:]
+                stage_prof = profile_run(synced(attributes), top=6)
+            steps = [timed(step)[1] for _ in range(4)]
+            step_prof = profile_run(synced(step), top=6)
+        finally:
+            undo()
+        result[name] = {
+            "attributes_ms": statistics.median(stage),
+            "attributes_ms_all": stage,
+            "attributes_device_busy_ms": stage_prof["device_busy_ms"],
+            "attributes_top_kernels": stage_prof["top_kernels"],
+            "step_ms": statistics.median(steps[1:]), "step_ms_all": steps,
+            "step_device_busy_ms": step_prof["device_busy_ms"],
+            "step_top_kernels": step_prof["top_kernels"]}
+    log({"phase": "simple_conv_cudnn_cost", "card": power,
+         "frames": MAX_FRAMES, "step_batch": list(RADTTS_STEP), **result})
+    del t_model, trainable, opt, model
+    kinks = _kink_sensitivity(mc, dev)
+    log({"phase": "simple_conv_kink_sensitivity", "card": power, **kinks})
+    return rows, result, kinks
+
+
+KINK_NOISE = (1e-7, 2.5e-7, 1e-6, 2e-6)
+
+
+def _kink_sensitivity(mc, dev):
+    """How far fp32-sized rounding in the SimpleConvNets moves the BGAP's
+    gradients. config_ljs_bgap.json's energy model alone (training form,
+    seeded, its zero-initialised last layers drawn at sd 0.02) in float64
+    on the card, at the batch-2 check's (2, BGAP_CONV_FRAMES) with lengths
+    192 and 150 and seeded inputs: the gradients of its flow NLL with
+    every SimpleConvNet conv output given additive noise of sd
+    eps * max|y| / 4 on the valid frames (about what a conv whose max
+    error is eps * max|y| adds), for each eps of KINK_NOISE, held against
+    the noiseless gradients by phase_radtts_vs_cpu's distance; with the
+    count of relu inputs on valid frames whose sign the noise flipped.
+    Without a flip the gradients move in proportion to eps; a flip at a
+    kink moves them by a step of its own."""
+    from radtts_tpu_torch.losses import attribute_prediction_loss
+    from radtts_tpu_torch.models.attributes import (attribute_model,
+                                                    attribute_model_forward)
+    from radtts_tpu_torch.models.coupling import SimpleConvNet
+    from radtts_tpu_torch.models.radtts import attribute_config
+
+    cfg = attribute_config(mc["energy_model_config"],
+                           mc["use_first_order_features"])
+    torch.manual_seed(0)
+    model = attribute_model(cfg, n_speaker_dim=mc["n_speaker_dim"],
+                            factored=True)
+    with torch.no_grad():
+        for k, tr in enumerate(model.transforms):
+            if not model.is_spline(k):
+                torch.nn.init.normal_(tr.pred.last.weight, std=0.02)
+                torch.nn.init.normal_(tr.pred.last.bias, std=0.02)
+    model = model.double().to(dev)
+    gen = torch.Generator().manual_seed(21)
+    B, T = 2, BGAP_CONV_FRAMES
+    n_in = cfg["hparams"]["n_in_dim"]
+    txt = torch.randn(B, T, mc["n_text_dim"], generator=gen)
+    spk = torch.randn(B, mc["n_speaker_dim"], generator=gen)
+    x = torch.randn(B, T, n_in, generator=gen) * 0.5
+    txt, spk, x = (t.double().to(dev) for t in (txt, spk, x))
+    lens = torch.tensor([T, 150], device=dev)
+    g = cfg["hparams"]["n_group_size"]
+    chosen = SimpleConvNet.forward
+    state = {}
+
+    def forward(self, x, mask=None, use_partial_padding=True):
+        for layer in [*self.layers, self.last]:
+            y = layer(x, mask, use_partial_padding)
+            valid = (torch.ones_like(y) if mask is None
+                     else mask.to(y.dtype)[:, :, None].expand_as(y))
+            if state["eps"]:
+                y = y + torch.randn(y.shape, generator=state["gen"],
+                                    dtype=y.dtype, device=y.device) * (
+                    state["eps"] * y.detach().abs().max() / 4) * valid
+            if layer is self.last:
+                return y
+            state["signs"].append((y.detach() > 0)[valid > 0])
+            x = torch.relu(y)
+
+    def grads(eps):
+        state.update(eps=eps, signs=[],
+                     gen=torch.Generator(dev).manual_seed(5))
+        model.zero_grad()
+        out = attribute_model_forward(model, txt, spk, x, lens)
+        loss = attribute_prediction_loss("energy", out, lens, 1.0, g)
+        loss["loss_energy"][0].backward()
+        return ([p.grad.clone() for p in model.parameters()],
+                state["signs"])
+
+    SimpleConvNet.forward = forward
+    try:
+        ref, signs0 = grads(0.0)
+        floor = 1e-3 * torch.stack([r.norm() for r in ref]).norm()
+        names = [k for k, _ in model.named_parameters()]
+        rows = []
+        for eps in KINK_NOISE:
+            got, signs = grads(eps)
+            dist = [((a - r).norm() / torch.maximum(r.norm(), floor)).item()
+                    for a, r in zip(got, ref)]
+            worst = max(range(len(dist)), key=dist.__getitem__)
+            rows.append({"eps": eps, "worst_tensor": names[worst],
+                         "worst_distance": dist[worst],
+                         "tensors_over_1e-3": sum(d > 1e-3 for d in dist),
+                         "median_distance": statistics.median(dist),
+                         "relu_sign_flips": int(sum(
+                             (a != b).sum() for a, b in zip(signs, signs0)))})
+    finally:
+        SimpleConvNet.forward = chosen
+    return {"batch": [B, T], "lens": [T, 150], "tensors": len(ref),
+            "rows": rows}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1484,6 +2188,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from radtts_tpu_torch.ops import ar_scan as ar_mod
     from radtts_tpu_torch.ops import mas as mas_mod
     from radtts_tpu_torch.ops import mel as mel_mod
     from radtts_tpu_torch.ops import mrf as mrf_mod
@@ -1503,11 +2208,11 @@ def main():
          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         builds = {name: pool.submit(fn) for name, fn in (
             ("mrf_tc", mrf_mod.build_tc), ("mrf_stack", mrf_mod.build_stack),
             ("mrf_conv", mrf_mod.build), ("mel", mel_mod.build),
-            ("mas", mas_mod.build))}
+            ("mas", mas_mod.build), ("ar_scan", ar_mod.build))}
         for name, fut in builds.items():
             _, nvcc_log, build_s = fut.result()
             log({"phase": "build", "kernel": name, "seconds": build_s,
@@ -1558,16 +2263,39 @@ def main():
 
     serve_launches = phase_main_path(synth, mrf_mod, dev, power)
     files_launches = phase_serve_files(synth, mrf_mod, dev, power)
+    mods = (mas_mod, mel_mod, mrf_mod)
+    ar_rows, ar_sweep = phase_ar_scan_kernel(ar_mod, dev, power)
+    gap_launches = {kind: phase_serve_gap(kind, vocoder, denoiser, tp, mods,
+                                          dev, power)
+                    for kind in GAP_CONFIGS}
     del synth, model, vocoder, denoiser
     v2_launches, v2_ms = phase_serve_v2(mrf_mod, dev, power)
     train_launches = phase_training(mel_mod, mrf_mod, dev, data_config)
     phase_train_profile(dev, mel_kw)
     phase_train_vs_cpu(dev, mel_kw)
     mas_rows = phase_mas_kernel(mas_mod, dev)
-    radtts_launches = phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev,
-                                         power)
+    radtts_launches, gap_train = phase_train_radtts(
+        mas_mod, mel_mod, mrf_mod, dev, power,
+        then=lambda *a: phase_train_gap(mods, dev, power, *a))
     phase_radtts_step(mas_mod, dev, power)
     phase_radtts_vs_cpu(dev)
+    for kind, path in GAP_CONFIGS.items():
+        phase_radtts_vs_cpu(dev, config_path=path,
+                            unfreeze="durf0energyvpred",
+                            phase=f"{kind}_train_step_card_vs_cpu")
+    phase_simple_conv_cudnn(dev, power)
+    # launches by path of every kernel: the earlier paths counted the MRF
+    # kernels (and mel, mas) only; the others never launch there
+    paths = {"serve": serve_launches, "serve_files": files_launches,
+             "serve_v2": v2_launches, "train": train_launches,
+             "train_radtts": radtts_launches,
+             "serve_bgap": gap_launches["bgap"],
+             "serve_agap": gap_launches["agap"],
+             "train_gap": gap_train["train_gap"],
+             "serve_gap_files": gap_train["serve_gap_files"]}
+
+    def by_path(kernel):
+        return {p: c.get(kernel, 0) for p, c in paths.items()}
 
     def mrf_entry(kernel, source, replaces, also_replaces, shapes=None,
                   ms_key="ms"):
@@ -1579,19 +2307,15 @@ def main():
 
         def total(key):
             return sum(s[key] for s in serving)
-        by_path = {"serve": serve_launches[kernel],
-                   "serve_files": files_launches[kernel],
-                   "serve_v2": v2_launches[kernel],
-                   "train": train_launches[kernel],
-                   "train_radtts": radtts_launches[kernel]}
+        paths_k = by_path(kernel)
         return {
             "name": kernel,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
             "also_replaces": also_replaces,
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
+            "launches": sum(paths_k.values()),
+            "launches_by_path": paths_k,
             "max_abs_err": max_err[kernel],
             "ms": total(ms_key),
             "plain_ms": total("plain_ms"),
@@ -1637,10 +2361,8 @@ def main():
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mel.cu",
         "replaces": "radtts_tpu/ops/pallas_mel.py:74",
-        "launches": train_launches["mel"] + radtts_launches["mel"],
-        "launches_by_path": {"serve": 0, "serve_files": 0, "serve_v2": 0,
-                             "train": train_launches["mel"],
-                             "train_radtts": radtts_launches["mel"]},
+        "launches": sum(by_path("mel").values()),
+        "launches_by_path": by_path("mel"),
         "max_abs_err": mel_err,
         "ms": train_row["ms"],
         "plain_ms": train_row["plain_ms"],
@@ -1663,10 +2385,8 @@ def main():
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mas.cu",
         "replaces": "radtts_tpu/ops/mas.py:70 (XLA scan, not Pallas)",
-        "launches": radtts_launches["mas"],
-        "launches_by_path": {"serve": 0, "serve_files": 0, "serve_v2": 0,
-                             "train": 0,
-                             "train_radtts": radtts_launches["mas"]},
+        "launches": sum(by_path("mas").values()),
+        "launches_by_path": by_path("mas"),
         "max_abs_err": max(r["max_abs_err"] for r in mas_rows),
         "ms": mas_rows[0]["ms"],
         "plain_ms": mas_rows[0]["plain_ms"],
@@ -1681,6 +2401,31 @@ def main():
                                       "bound_ms", "bound_by",
                                       "cells_different", "max_abs_err")}
                    for r in mas_rows],
+    }, {
+        "name": "ar_scan",
+        "route": "cuda",
+        "source": "radtts_tpu_torch/csrc/ar_scan.cu",
+        "replaces": "radtts_tpu/models/attributes.py:458 (XLA scan, not "
+                    "Pallas)",
+        "launches": sum(by_path("ar_scan").values()),
+        "launches_by_path": by_path("ar_scan"),
+        "max_abs_err": max(r["max_abs_err"] for r in ar_rows),
+        "ms": ar_rows[0]["ms"],
+        "plain_ms": ar_rows[0]["plain_ms"],
+        "bound_ms": ar_rows[0]["bound_ms"],
+        "bound_by": ar_rows[0]["bound_by"],
+        "library_ms": None,
+        "us_per_frame": ar_rows[0]["us_per_frame"],
+        "note": "times at (1, 608, 1), one AR flow of config_ljs_agap.json's "
+                "f0 model over the flagship utterance (4 launches a "
+                "request); no PyTorch call computes the AR inverse; "
+                "bound_ms: the FLOP at 67 TFLOP/s fp32 or the bytes (weights "
+                "once, residual, context_proj, output) at 3.35 TB/s",
+        "shapes": [{k: r[k] for k in ("shape", "lens", "head", "blocks",
+                                      "ms", "plain_ms", "us_per_frame",
+                                      "bound_ms", "bound_by",
+                                      "max_abs_err")} for r in ar_rows],
+        "blocks_sweep": ar_sweep,
     }]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(power, flush=True)

@@ -11,6 +11,11 @@ transposed-conv kernels (K, C_in, C_out) -> (C_in, C_out, K) unflipped.
 MRF resblock convs keep the taps-major (3, K, C_in, C_out) layout the
 kernel reads. The discriminators' kernels go to torch's conv layouts.
 
+The attribute models carry over by family: the DAP's convs, spectral-normed
+LSTM and dense; the BGAP's plain-W 1x1s and SimpleConvNets; the AGAP's
+plain LSTMs (nn.LSTM layout) and spline or dense heads
+(`attribute_from_jax` loads one alone).
+
 `radtts_train_from_jax` carries the unfolded tree into the training form
 (RADTTS(..., factored=True)): weight-normed convs as weight_v / weight_g,
 recurrent weights as {sn_w, sn_u, sn_v} or {wn_v, wn_g}, the LU factors as
@@ -82,6 +87,49 @@ def _invertible(mod, p):
         mod.precompute_inverse()
 
 
+def _plain_lstm(mod, cells):
+    """An ops/lstm.py:LSTM's layers from JAX cells {w_ih, b_ih, b_hh, hh}."""
+    for layer, cell in enumerate(cells):
+        lstm = mod.lstm
+        _set(getattr(lstm, f"weight_ih_l{layer}"), np.asarray(cell["w_ih"]).T)
+        _set(getattr(lstm, f"weight_hh_l{layer}"), effective_hh(cell["hh"]))
+        _set(getattr(lstm, f"bias_ih_l{layer}"), cell["b_ih"])
+        _set(getattr(lstm, f"bias_hh_l{layer}"), cell["b_hh"])
+
+
+def _simple_convnet(mod, p):
+    for conv, cp in zip(mod.layers, p["layers"]):
+        _conv(conv, cp)
+    _conv(mod.last, p["last"])
+
+
+def _bgap(mod, p):
+    _conv(mod.bottleneck.proj, p["bottleneck"]["proj"])
+    for inv, ip in zip(mod.convinv, p["convinv"]):
+        _set(inv.w1x1, ip["w1x1"])
+        if not inv.trainable:
+            inv.precompute_inverse()
+    for transform, tp in zip(mod.transforms, p["transforms"]):
+        _simple_convnet(transform.pred, tp["pred"])
+
+
+def _agap(mod, p):
+    _conv(mod.bottleneck.proj, p["bottleneck"]["proj"])
+    for step, sp in zip(mod.flows, p["flows"]):
+        _plain_lstm(step.attr_lstm, [sp["attr_lstm"]])
+        _plain_lstm(step.lstm, sp["lstm"]["layers"])
+        if step.spline_flow is not None:
+            _simple_convnet(step.spline_flow.pred, sp["spline_flow"]["pred"])
+        else:
+            for dense, dp in zip(step.dense.layers, sp["dense"]["layers"]):
+                _linear(dense, dp)
+            _conv(step.conv, sp["conv"])
+
+
+def _attribute(mod, p):
+    {"dap": _dap, "bgap": _bgap, "agap": _agap}[mod.name](mod, p)
+
+
 def _dap(mod, p):
     _conv(mod.bottleneck.proj, p["bottleneck"]["proj"])
     feat = p["feat"]
@@ -107,6 +155,18 @@ def _attention(mod, p):
         _conv(conv, cp)
     for conv, cp in zip(mod.query_proj, p["query_proj"]):
         _conv(conv, cp)
+
+
+def attribute_from_jax(params_np, config, factored=False):
+    """An attribute model ({name, hparams}, n_speaker_dim in hparams)
+    holding the JAX tree's weights: the inference form (norms folded,
+    eval, no grad), or with factored the training form (train mode)."""
+    from radtts_tpu_torch.models.attributes import attribute_model
+    mod = attribute_model(config, factored=factored)
+    _attribute(mod, params_np if factored else fold_norms(params_np))
+    if factored:
+        return mod.train()
+    return mod.eval().requires_grad_(False)
 
 
 def radtts_from_jax(params_np, model_config):
@@ -170,7 +230,7 @@ def _radtts_load(model, p, partial=False):
     for name in ("dur_pred_layer", "v_pred_module", "f0_pred_module",
                  "energy_pred_module"):
         if getattr(model, name) is not None:
-            part(name, lambda n=name: _dap(getattr(model, n), p[n]))
+            part(name, lambda n=name: _attribute(getattr(model, n), p[n]))
     if model.unvoiced_bias is not None:
         part("unvoiced_bias", lambda: _linear(model.unvoiced_bias,
                                               p["unvoiced_bias"]))
@@ -275,11 +335,9 @@ def _bilstm_sd(sd, prefix, norm):
             "bwd": _lstm_cell_sd(sd, prefix, "_reverse", norm)}
 
 
-def _check_dap(config):
-    if config["name"] != "dap":
-        raise NotImplementedError(f"{config['name']} attribute models are "
-                                  "not ported yet")
-    if config["hparams"].get("use_transformer", False):
+def _check_attribute(config):
+    if config["name"] == "dap" and config["hparams"].get("use_transformer",
+                                                         False):
         raise NotImplementedError("DAP with use_transformer is not ported "
                                   "yet")
 
@@ -296,9 +354,78 @@ def _dap_sd(sd, prefix, config):
         feat["lstm"] = _lstm_cell_sd(sd, fp + ".bilstm", "", "spectral")
     if arch.get("use_linear", True):
         feat["dense"] = _linear_sd(sd, fp + ".dense")
-    return {"bottleneck": {"proj": _conv_sd(
-        sd, prefix + ".bottleneck_layer.projection_fn.conv", True)},
-        "feat": feat}
+    return {"bottleneck": _bottleneck_sd(sd, prefix), "feat": feat}
+
+
+def _plain_lstm_sd(sd, prefix, n_layers):
+    """An nn.LSTM's layers without norms: [{w_ih, b_ih, b_hh, hh: {w}}]."""
+    return [{"w_ih": _np_t(sd[f"{prefix}.weight_ih_l{i}"]),
+             "b_ih": _np(sd[f"{prefix}.bias_ih_l{i}"]),
+             "b_hh": _np(sd[f"{prefix}.bias_hh_l{i}"]),
+             "hh": {"w": _np(sd[f"{prefix}.weight_hh_l{i}"])}}
+            for i in range(n_layers)]
+
+
+def _simple_convnet_sd(sd, prefix, n_layers):
+    return {"layers": [_conv_sd(sd, f"{prefix}.layers.{i}.conv")
+                       for i in range(n_layers)],
+            "last": _conv_sd(sd, prefix + ".last_layer")}
+
+
+def _bottleneck_sd(sd, prefix):
+    return {"proj": _conv_sd(
+        sd, prefix + ".bottleneck_layer.projection_fn.conv", True)}
+
+
+def _bgap_sd(sd, prefix, config):
+    """(radtts_tpu/convert.py:266-283): transforms.k's
+    affine_param_predictor (simple_conv) or param_predictor (spline),
+    convinv.k.conv.weight (c, c, 1)."""
+    hp = config["hparams"]
+    n_flows, n_spline = hp["n_flows"], hp.get("n_spline_steps", 2)
+    transforms = []
+    for k in range(n_flows):
+        pred = ("param_predictor" if k >= n_flows - n_spline
+                else "affine_param_predictor")
+        transforms.append({"pred": _simple_convnet_sd(
+            sd, f"{prefix}.transforms.{k}.{pred}", hp["n_layers"])})
+    return {"bottleneck": _bottleneck_sd(sd, prefix),
+            "transforms": transforms,
+            "convinv": [{"w1x1": np.ascontiguousarray(_np(
+                sd[f"{prefix}.convinv.{k}.conv.weight"])[:, :, 0])}
+                for k in range(n_flows)]}
+
+
+def _agap_sd(sd, prefix, config):
+    """(radtts_tpu/convert.py:286-316): flows.i (even) or flows.i.ar_step
+    (odd), each attr_lstm, lstm, and spline_flow.param_predictor or
+    dense_layer + conv."""
+    hp = config["hparams"]
+    spline = hp.get("spline_flow_params")
+    flows = []
+    for i in range(hp["n_flows"]):
+        base = f"{prefix}.flows.{i}" + ("" if i % 2 == 0 else ".ar_step")
+        step = {"attr_lstm": _plain_lstm_sd(sd, base + ".attr_lstm", 1)[0],
+                "lstm": {"layers": _plain_lstm_sd(sd, base + ".lstm",
+                                                  hp["n_lstm_layers"])}}
+        if spline is not None:
+            step["spline_flow"] = {"pred": _simple_convnet_sd(
+                sd, base + ".spline_flow.param_predictor",
+                spline["n_layers"])}
+        else:
+            step["dense"] = {"layers": [
+                _linear_sd(sd, f"{base}.dense_layer.layers.{j}.linear_layer")
+                for j in range(2)]}
+            step["conv"] = _conv_sd(sd, base + ".conv")
+        flows.append(step)
+    return {"bottleneck": _bottleneck_sd(sd, prefix), "flows": flows}
+
+
+def _attribute_sd(sd, prefix, config):
+    fn = {"dap": _dap_sd, "bgap": _bgap_sd, "agap": _agap_sd}
+    if config["name"] not in fn:
+        raise ValueError(f"{config['name']} model is not supported")
+    return fn[config["name"]](sd, prefix, config)
 
 
 def _flow_sd(sd, prefix, n_layers):
@@ -335,9 +462,6 @@ def radtts_from_torch(sd, model_config):
         if g("affine_model", "simple_conv") != "wavenet":
             raise NotImplementedError(f"{g('affine_model', 'simple_conv')} "
                                       "affine model is not ported yet")
-    if "apm" in include and g("use_first_order_features", False):
-        raise NotImplementedError("use_first_order_features is not ported "
-                                  "yet")
     use_unvoiced_bias = bool(g("decoder_use_unvoiced_bias", True)
                              or g("ap_use_unvoiced_bias", True))
     voiced_embeddings = g("ap_use_voiced_embeddings", True)
@@ -350,7 +474,7 @@ def radtts_from_torch(sd, model_config):
         attributes += [("f0_pred_module", "f0_model_config"),
                        ("energy_pred_module", "energy_model_config")]
     for _, key in attributes:
-        _check_dap(cfg[key])
+        _check_attribute(cfg[key])
 
     p = {"speaker_embedding": {"table": _np(sd["speaker_embedding.weight"])},
          "embedding": {"table": _np(sd["embedding.weight"])},
@@ -377,7 +501,7 @@ def radtts_from_torch(sd, model_config):
         p["flows"] = [_flow_sd(sd, f"flows.{i}", cfg["n_conv_layers_per_step"])
                       for i in range(cfg["n_flows"])]
     for name, key in attributes:
-        p[name] = _dap_sd(sd, name, cfg[key])
+        p[name] = _attribute_sd(sd, name, cfg[key])
     if use_unvoiced_bias:
         p["unvoiced_bias"] = _linear_sd(
             sd, "unvoiced_bias_module.0.linear_layer")

@@ -10,6 +10,11 @@ that u . (W v) = 1; a weight-normed one as _v = W and _g = its row norms.
 The JAX package's fold and the reference in eval mode both give back W,
 up to fp32 rounding.
 
+The BGAP's plain-W 1x1s are written as convinv.k.conv.weight (c, c, 1),
+its couplings' SimpleConvNets as (affine_)param_predictor.layers.i.conv
+and .last_layer; the AGAP's plain LSTMs under nn.LSTM's names, its odd
+steps under flows.i.ar_step (radtts_tpu/export.py:196-238).
+
 The alignment attention's plain convs are written as attention.key_proj.
 {0,2}.conv and attention.query_proj.{0,2,4}.conv, so the reference loads
 the file with strict=True. A training-form model is folded first
@@ -78,6 +83,53 @@ def _dap(sd, prefix, dap):
         _linear(sd, fp + ".dense", dap.feat.dense)
 
 
+def _plain_lstm(sd, prefix, mod):
+    """An ops/lstm.py:LSTM under nn.LSTM's names (no norms)."""
+    for name, t in mod.lstm.named_parameters():
+        sd[f"{prefix}.{name}"] = _t(_np(t))
+
+
+def _simple_convnet(sd, prefix, net):
+    for i, conv in enumerate(net.layers):
+        _conv(sd, f"{prefix}.layers.{i}.conv", conv)
+    _conv(sd, prefix + ".last_layer", net.last)
+
+
+def _bgap(sd, prefix, bgap):
+    """(radtts_tpu/export.py:196-209)."""
+    _conv(sd, prefix + ".bottleneck_layer.projection_fn.conv",
+          bgap.bottleneck.proj, weight_norm=True)
+    for k, (inv, transform) in enumerate(zip(bgap.convinv,
+                                             bgap.transforms)):
+        sd[f"{prefix}.convinv.{k}.conv.weight"] = _t(_np(inv.w1x1)[:, :, None])
+        pred = ("param_predictor" if bgap.is_spline(k)
+                else "affine_param_predictor")
+        _simple_convnet(sd, f"{prefix}.transforms.{k}.{pred}", transform.pred)
+
+
+def _agap(sd, prefix, agap):
+    """(radtts_tpu/export.py:212-230): the odd steps under .ar_step, as the
+    reference's AR_Back_Step wraps them."""
+    _conv(sd, prefix + ".bottleneck_layer.projection_fn.conv",
+          agap.bottleneck.proj, weight_norm=True)
+    for i, step in enumerate(agap.flows):
+        base = f"{prefix}.flows.{i}" + ("" if i % 2 == 0 else ".ar_step")
+        _plain_lstm(sd, base + ".attr_lstm", step.attr_lstm)
+        _plain_lstm(sd, base + ".lstm", step.lstm)
+        if step.spline_flow is not None:
+            _simple_convnet(sd, base + ".spline_flow.param_predictor",
+                            step.spline_flow.pred)
+        else:
+            for j, dense in enumerate(step.dense.layers):
+                _linear(sd, f"{base}.dense_layer.layers.{j}.linear_layer",
+                        dense)
+            _conv(sd, base + ".conv", step.conv)
+
+
+def _attribute(sd, prefix, mod):
+    {"dap": _dap, "bgap": _bgap, "agap": _agap}[mod.name](sd, prefix, mod)
+
+
 def radtts_to_torch(model):
     """A RADTTS module as a reference state dict (CPU fp32 tensors)."""
     if model.factored:
@@ -114,7 +166,7 @@ def radtts_to_torch(model):
     for name in ("dur_pred_layer", "v_pred_module", "f0_pred_module",
                  "energy_pred_module"):
         if getattr(model, name) is not None:
-            _dap(sd, name, getattr(model, name))
+            _attribute(sd, name, getattr(model, name))
     if model.unvoiced_bias is not None:
         _linear(sd, "unvoiced_bias_module.0.linear_layer",
                 model.unvoiced_bias)

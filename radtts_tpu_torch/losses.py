@@ -43,8 +43,18 @@ def compute_regression_loss(x_hat, x, mask, name=False):
 
 def attribute_prediction_loss(name, model_output, lens, loss_weight,
                               n_group_size=1, sigma=1.0):
-    """(reference: loss.py:74-108); the DAP's regression."""
+    """(reference: loss.py:74-108): a flow's NLL over its grouped frames
+    (with its loss_prior at weight 0), or a DAP's regression."""
     lens_g = lens // n_group_size
+    if model_output.get("z") is not None:
+        z = model_output["z"]
+        mask = sequence_mask(lens_g, z.shape[1]).float()[:, :, None]
+        n_elements = lens.sum() // n_group_size
+        loss, loss_prior = compute_flow_loss(
+            z, model_output["log_det_W_list"], model_output["log_s_list"],
+            n_elements, z.shape[-1], mask, sigma)
+        return {f"loss_{name}": (loss, loss_weight),
+                f"loss_prior_{name}": (loss_prior, 0.0)}
     mask = sequence_mask(lens_g, model_output["x_hat"].shape[1])
     mask = mask.float()[:, :, None]
     reg = compute_regression_loss(model_output["x_hat"], model_output["x"],

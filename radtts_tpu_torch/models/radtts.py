@@ -19,20 +19,31 @@ from torch import nn
 
 from radtts_tpu_torch.models.attention import ConvAttention
 from radtts_tpu_torch.models.attributes import (attribute_model,
+                                                attribute_model_forward,
                                                 attribute_model_infer,
-                                                dap_forward,
-                                                dap_forward_fused,
-                                                dap_infer_fused, fold_group,
-                                                unfold_group)
+                                                fold_group, unfold_group)
 from radtts_tpu_torch.models.coupling import AffineCoupling
 from radtts_tpu_torch.models.encoder import Encoder
 from radtts_tpu_torch.ops.conv import ConvNorm
-from radtts_tpu_torch.ops.invertible import InvConv1x1LUS
+from radtts_tpu_torch.ops.invertible import InvConv1x1, InvConv1x1LUS
 from radtts_tpu_torch.ops.length_regulator import regulate_length
 from radtts_tpu_torch.ops.linear import LinearNorm
 from radtts_tpu_torch.ops.lstm import MaskedLSTM
 from radtts_tpu_torch.ops.mas import mas
 from radtts_tpu_torch.ops.masking import sequence_mask
+
+
+def attribute_config(config, use_first_order_features):
+    """An f0/energy model config as the model builds it: with first-order
+    features the flows take 2 input channels (radtts_tpu/models/
+    radtts.py:199-210)."""
+    hp = dict(config["hparams"])
+    if use_first_order_features:
+        hp["n_in_dim"] = 2
+    if hp.get("spline_flow_params") is not None:
+        hp["spline_flow_params"] = dict(
+            hp["spline_flow_params"], n_in_channels=hp.get("n_in_dim", 1))
+    return dict(config, hparams=hp)
 
 
 def _norm_kind(name):
@@ -150,14 +161,12 @@ class RADTTS(nn.Module):
                 nn.init.normal_(self.v_embeddings.weight)
 
         self.f0_pred_module = self.energy_pred_module = None
+        use_fof = bool(g("use_first_order_features", False))
         if "apm" in include_modules:
-            if g("use_first_order_features", False):
-                raise NotImplementedError("use_first_order_features is not "
-                                          "ported yet")
-            self.f0_pred_module = attribute_model(cfg["f0_model_config"],
-                                                  n_speaker_dim, factored)
-            self.energy_pred_module = attribute_model(
-                cfg["energy_model_config"], n_speaker_dim, factored)
+            self.f0_pred_module, self.energy_pred_module = (
+                attribute_model(attribute_config(cfg[name], use_fof),
+                                n_speaker_dim, factored)
+                for name in ("f0_model_config", "energy_model_config"))
 
         self.meta = dict(
             n_mel_channels=cfg["n_mel_channels"],
@@ -179,6 +188,7 @@ class RADTTS(nn.Module):
             decoder_use_unvoiced_bias=bool(decoder_use_unvoiced_bias),
             ap_use_voiced_embeddings=bool(ap_use_voiced_embeddings),
             ap_pred_log_f0=bool(g("ap_pred_log_f0", False)),
+            use_first_order_features=use_fof,
             unvoiced_bias_activation=unvoiced_bias_activation,
             use_unvoiced_bias=use_unvoiced_bias,
             use_vpred_module=use_vpred_module,
@@ -371,7 +381,7 @@ def radtts_forward(model, mel, speaker_ids, text, in_lens, out_lens, *,
         if attn_hard is None:
             attn_hard = binarize_attention(attn_soft, in_lens, out_lens)
         durations = attn_hard.sum(1)
-        outputs["duration_model_outputs"] = dap_forward(
+        outputs["duration_model_outputs"] = attribute_model_forward(
             model.dur_pred_layer, sg(text_enc), sg(speaker_vecs),
             sg(durations.float()), in_lens, generator)
 
@@ -383,7 +393,7 @@ def radtts_forward(model, mel, speaker_ids, text, in_lens, out_lens, *,
         else:
             text_enc_time_expanded = torch.bmm(attn_hard, text_enc)
         if meta["use_vpred_module"]:
-            outputs["vpred_model_outputs"] = dap_forward(
+            outputs["vpred_model_outputs"] = attribute_model_forward(
                 model.v_pred_module, sg(text_enc_time_expanded),
                 sg(speaker_vecs), sg(voiced_mask), out_lens, generator)
             if meta["ap_use_voiced_embeddings"]:
@@ -396,16 +406,22 @@ def radtts_forward(model, mel, speaker_ids, text, in_lens, out_lens, *,
         f0_target = torch.where(voiced_mask.bool(),
                                 torch.log(f0_target.clamp(min=1e-10)),
                                 f0_target) / 6.0
-        # use_first_order_features is refused when the model is built
-        f0_in = f0_target * 2.0
-        energy_in = (energy_avg * 2.0 - 1.0) * 1.4
-        f0_out, e_out = dap_forward_fused(
-            [model.f0_pred_module, model.energy_pred_module],
-            [text_enc_time_expanded, text_enc_time_expanded],
-            [sg(speaker_vecs), sg(speaker_vecs)], [f0_in, energy_in],
-            out_lens, generator)
-        outputs["f0_model_outputs"] = f0_out
-        outputs["energy_model_outputs"] = e_out
+        energy_target = energy_avg * 2.0 - 1.0
+        if meta["use_first_order_features"]:
+            f0_in = torch.stack([f0_target, get_first_order_features(
+                f0_target)], dim=-1) * 3.0
+            energy_in = torch.stack([energy_target, get_first_order_features(
+                energy_target)], dim=-1) * 3.0
+        else:
+            f0_in = f0_target * 2.0
+            energy_in = energy_target * 1.4
+        # one after the other (the JAX package fuses a DAP pair's BiLSTMs
+        # into one scan; the sums are the same)
+        outputs["f0_model_outputs"], outputs["energy_model_outputs"] = (
+            attribute_model_forward(m, text_enc_time_expanded,
+                                    sg(speaker_vecs), x, out_lens, generator)
+            for m, x in ((model.f0_pred_module, f0_in),
+                         (model.energy_pred_module, energy_in)))
     return outputs
 
 
@@ -416,7 +432,8 @@ def fold_radtts(model):
     out = copy.deepcopy(model)
     for parent in list(out.modules()):
         for name, child in list(parent.named_children()):
-            if isinstance(child, (ConvNorm, MaskedLSTM, InvConv1x1LUS)):
+            if isinstance(child, (ConvNorm, MaskedLSTM, InvConv1x1LUS,
+                                  InvConv1x1)):
                 setattr(parent, name, child.folded())
     out.factored = False
     return out.eval().requires_grad_(False)
@@ -428,17 +445,36 @@ def fold_radtts(model):
 
 
 def infer_durations(model, speaker_id_text, text, token_dur_scaling=1.0,
-                    token_duration_max=100, in_lens=None):
-    """Predict integer per-token durations with the (deterministic) DAP.
-    text: (B, N) int64.
+                    token_duration_max=100, in_lens=None, *, sigma_dur=0.8,
+                    z_dur=None, generator=None):
+    """Predict integer per-token durations. text: (B, N) int64.
 
     in_lens: optional (B,) true token counts for padded batches (pad
-    positions get duration 0)."""
+    positions get duration 0). A flow duration model samples from z_dur
+    (B, N, 1), drawn from `generator` times sigma_dur when None; the DAP
+    takes no noise."""
     spk_vec_text = encode_speaker(model, speaker_id_text)
     txt_enc, _ = encode_text(model, text, in_lens)
-    N = text.shape[1]
-    dur = attribute_model_infer(model.dur_pred_layer, txt_enc,
-                                spk_vec_text, in_lens)[..., 0]
+    B, N = text.shape
+    dur_model = model.dur_pred_layer
+    if dur_model.name != "dap" and z_dur is None:
+        z_dur = torch.randn(B, N, 1, generator=generator,
+                            device=txt_enc.device) * sigma_dur
+    dur = attribute_model_infer(dur_model, txt_enc, spk_vec_text, in_lens,
+                                z=z_dur)[..., 0]
+    g_dur = getattr(dur_model, "n_group_size", 1)
+    if dur.shape[1] < N:
+        # a grouped flow gives N // g tokens: replication pad (reference
+        # radtts.py:562-566)
+        dur = torch.cat([dur, dur[:, -1:].expand(-1, N - dur.shape[1])],
+                        dim=1)
+    if in_lens is not None and g_dur > 1:
+        # padded texts: tokens past (len // g) * g take that item's last
+        # computed group, as the exact-length run's replication pad does
+        last = ((in_lens // g_dur) * g_dur - 1).clamp(min=0)
+        idx = torch.minimum(torch.arange(N, device=dur.device)[None, :],
+                            last[:, None])
+        dur = torch.gather(dur, 1, idx)
     dur = dur.clamp(0, token_duration_max)
     if token_dur_scaling > 0:
         dur = dur * token_dur_scaling
@@ -468,7 +504,11 @@ def renormalize_f0(f0, voiced_mask, f0_mean, f0_std=0.0, out_lens=None):
 
 def _f0_postprocess(meta, f0, voiced_mask=None):
     if meta["ap_pred_log_f0"]:
-        f0 = f0 / 2.0 * 6.0
+        if meta["use_first_order_features"]:
+            f0 = f0[..., 0:1] / 3.0
+        else:
+            f0 = f0 / 2.0
+        f0 = f0 * 6.0
     else:
         f0 = f0 / 6.0 / 640.0
     if voiced_mask is None:
@@ -484,18 +524,27 @@ def _f0_postprocess(meta, f0, voiced_mask=None):
 
 
 def _energy_postprocess(meta, energy):
-    return (energy / 1.4 + 1.0) / 2.0
+    if meta["use_first_order_features"]:
+        energy = energy[..., 0:1] / 3.0
+    else:
+        energy = energy / 1.4
+    return (energy + 1.0) / 2.0
 
 
 def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
+                 sigma_f0=0.8, sigma_energy=0.8,
                  speaker_id_attributes=None, voiced_mask=None, f0_mean=0.0,
-                 f0_std=0.0, residual=None, in_lens=None, generator=None):
+                 f0_std=0.0, residual=None, z_f0=None, z_energy=None,
+                 in_lens=None, generator=None):
     """Attributes + inverse flow decode at a frame budget.
 
     dur: (B, N) int durations; max_frames >= sum(dur), a multiple of the
-    group size. residual: optional (B, max_frames/g, n_mel*g) noise; drawn
-    from `generator` times sigma when None. Returns a dict with mel
-    (B, max_frames, n_mel); frames past sum(dur) are to be sliced off."""
+    group size. Noise, each drawn from `generator` when None: z_f0 and
+    z_energy (B, max_frames, 2 with first-order features else 1) times
+    sigma_f0 / sigma_energy, which the flow attribute models (BGAP, AGAP)
+    sample from and a DAP ignores; residual (B, max_frames/g, n_mel*g)
+    times sigma, the decoder's. Returns a dict with mel (B, max_frames,
+    n_mel); frames past sum(dur) are to be sliced off."""
     meta = model.meta
     g = meta["n_group_size"]
     B = text.shape[0]
@@ -526,9 +575,22 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
             f0_bias = _unvoiced_bias(model, txt_enc_time_expanded,
                                      voiced_mask)
 
-        f0_raw, e_raw = dap_infer_fused(
-            [model.f0_pred_module, model.energy_pred_module],
-            [ap_txt_enc, ap_txt_enc], [spk_vec_attrs, spk_vec], out_lens)
+        n_ch = 2 if meta["use_first_order_features"] else 1
+
+        def noise(attr_model, z, sig):
+            # a DAP is deterministic and draws none
+            if z is None and attr_model.name != "dap":
+                z = torch.randn(B, max_frames, n_ch, generator=generator,
+                                device=txt_enc.device) * sig
+            return z
+
+        f0_raw = attribute_model_infer(
+            model.f0_pred_module, ap_txt_enc, spk_vec_attrs, out_lens,
+            z=noise(model.f0_pred_module, z_f0, sigma_f0))
+        # energy takes spk_vec, not spk_vec_attrs, as in the JAX package
+        e_raw = attribute_model_infer(
+            model.energy_pred_module, ap_txt_enc, spk_vec, out_lens,
+            z=noise(model.energy_pred_module, z_energy, sigma_energy))
         f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
         energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
         if f0_mean > 0.0:

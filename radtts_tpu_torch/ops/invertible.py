@@ -10,13 +10,36 @@ The training form (`trainable=True`) holds lower, upper and upper_diag as
 parameters and p as a buffer, and its forward returns (x W^T, log|det W|)
 with log|det W| = sum(log|upper_diag|) (radtts_tpu/ops/invertible.py:60);
 `folded()` gives the inference form. `InvConv1x1` is the plain-W
-parametrization (log|det W| by slogdet).
+parametrization (log|det W| by slogdet), with the same two forms.
+`scaling_and_log_s` is the affine couplings' elementwise scale.
 """
 
 import numpy as np
 import scipy.linalg
 import torch
 from torch import nn
+
+
+def scaling_and_log_s(scale_unconstrained, scaling_fn):
+    """(s, log s) of an affine coupling's raw scale by its scaling function
+    (radtts_tpu/models/coupling.py), one function per channel if a list."""
+    if isinstance(scaling_fn, (list, tuple)):
+        parts = [scaling_and_log_s(scale_unconstrained[..., i:i + 1], fn)
+                 for i, fn in enumerate(scaling_fn)]
+        return (torch.cat([p[0] for p in parts], -1),
+                torch.cat([p[1] for p in parts], -1))
+    if scaling_fn == "translate":
+        return (torch.ones_like(scale_unconstrained),
+                torch.zeros_like(scale_unconstrained))
+    if scaling_fn == "exp":
+        return torch.exp(scale_unconstrained), scale_unconstrained
+    if scaling_fn == "tanh":
+        s = torch.tanh(scale_unconstrained) + 1.0 + 1e-6
+        return s, torch.log(s)
+    if scaling_fn == "sigmoid":
+        s = torch.sigmoid(scale_unconstrained + 10.0) + 1e-6
+        return s, torch.log(s)
+    raise ValueError(f"scaling fn {scaling_fn} not supported")
 
 
 def _random_orthonormal(c):
@@ -84,12 +107,26 @@ class InvConv1x1LUS(nn.Module):
 
 
 class InvConv1x1(nn.Module):
-    """Plain W (radtts_tpu/ops/invertible.py:84-92): forward x W^T with
-    log|det W| by slogdet, inverse x W^-T."""
+    """Plain W (radtts_tpu/ops/invertible.py:84-119): forward x W^T with
+    log|det W| by slogdet, inverse x W^-T. The inference form
+    (trainable=False) holds W as a buffer and W^-1 computed once
+    (`precompute_inverse`, the JAX package's precompute_inverses); the
+    training form holds W as a parameter and inverts it at each call."""
 
-    def __init__(self, c):
+    def __init__(self, c, trainable=True):
         super().__init__()
-        self.w1x1 = nn.Parameter(_random_orthonormal(c))
+        self.trainable = trainable
+        w = _random_orthonormal(c)
+        if trainable:
+            self.w1x1 = nn.Parameter(w)
+        else:
+            self.register_buffer("w1x1", w)
+            self.register_buffer("w_inv", torch.zeros(c, c))
+            self.precompute_inverse()
+
+    @torch.no_grad()
+    def precompute_inverse(self):
+        self.w_inv.copy_(torch.linalg.inv(self.w1x1.float()))
 
     def forward(self, x):
         dt = torch.promote_types(x.dtype, torch.float32)
@@ -97,4 +134,16 @@ class InvConv1x1(nn.Module):
         return torch.matmul(x.to(dt), w.T), torch.linalg.slogdet(w)[1]
 
     def inverse(self, x):
-        return torch.matmul(x, torch.linalg.inv(self.w1x1).T)
+        w_inv = (torch.linalg.inv(self.w1x1) if self.trainable
+                 else self.w_inv)
+        return torch.matmul(x, w_inv.T)
+
+    @torch.no_grad()
+    def folded(self):
+        if not self.trainable:
+            return self
+        out = InvConv1x1(self.w1x1.shape[0], trainable=False)
+        out.w1x1.copy_(self.w1x1)
+        out = out.to(self.w1x1.device)
+        out.precompute_inverse()
+        return out

@@ -1,8 +1,9 @@
 """LinearNorm (channels-last nn.Linear with xavier-uniform init and a
-gain)."""
+gain) and DenseLayer (a tanh MLP, radtts_tpu/ops/linear.py:28-41)."""
 
 import math
 
+import torch
 from torch import nn
 
 GAINS = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0,
@@ -16,3 +17,18 @@ class LinearNorm(nn.Linear):
         super().__init__(in_dim, out_dim, bias=bias)
         nn.init.xavier_uniform_(self.weight, gain=GAINS[gain_name])
 
+
+
+class DenseLayer(nn.Module):
+    """tanh(Linear) for each of `sizes` in turn."""
+
+    def __init__(self, in_dim, sizes):
+        super().__init__()
+        dims = [in_dim] + list(sizes)
+        self.layers = nn.ModuleList(LinearNorm(a, b)
+                                    for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = torch.tanh(layer(x))
+        return x

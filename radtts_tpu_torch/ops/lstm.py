@@ -1,4 +1,6 @@
-"""Masked (bi)LSTMs for inference, on torch.nn.LSTM with packed sequences.
+"""Masked (bi)LSTMs on torch.nn.LSTM with packed sequences: `MaskedLSTM`
+(one layer, one or two directions, the norm factorizations) and `LSTM`
+(unidirectional, stacked, plain weights, with the carry in and out).
 
 Packed-sequence semantics are what the JAX package reproduces with masked
 scans: the forward direction stops at each sequence's length, the backward
@@ -188,3 +190,42 @@ class MaskedLSTM(nn.Module):
             getattr(out.lstm, "weight_hh_l0" + sfx).copy_(torch.from_numpy(
                 effective_hh(hh.numpy_factors())))
         return out.to(lstm.weight_ih_l0.device)
+
+
+class LSTM(nn.Module):
+    """Unidirectional LSTM of num_layers over (B, T, C) with plain weights:
+    the AGAP's attribute LSTM (one layer) and its stacked decoder LSTM
+    (radtts_tpu/ops/lstm.py:65-92, 268-286). forward(x, lengths, carries)
+    takes each layer's (h0, c0) (zeros when None) and returns (y, [(h, c)
+    per layer]): with lengths, each item's carry stops at its last valid
+    frame and y is zero past it (packed sequences, cuDNN on the card)."""
+
+    def __init__(self, input_size, hidden_size, num_layers=1):
+        super().__init__()
+        self.lstm = nn.LSTM(input_size, hidden_size, num_layers,
+                            batch_first=True)
+
+    def forward(self, x, lengths=None, carries=None):
+        hx = None
+        if carries is not None:
+            hx = (torch.stack([h for h, _ in carries]),
+                  torch.stack([c for _, c in carries]))
+        if lengths is None:
+            y, (h, c) = self.lstm(x, hx)
+        else:
+            T = x.shape[1]
+            lens = lengths.detach().to("cpu", torch.int64).clamp(min=1)
+            packed = pack_padded_sequence(x, lens, batch_first=True,
+                                          enforce_sorted=False)
+            y, (h, c) = self.lstm(packed, hx)
+            y, _ = pad_packed_sequence(y, batch_first=True, total_length=T)
+            y = y * sequence_mask(lengths, T).to(y.dtype)[:, :, None]
+        return y, list(zip(h.unbind(0), c.unbind(0)))
+
+    def weights(self, layer):
+        """(w_ih (4H, in), w_hh (4H, H), (b_ih, b_hh)) of one layer."""
+        lstm = self.lstm
+        return (getattr(lstm, f"weight_ih_l{layer}"),
+                getattr(lstm, f"weight_hh_l{layer}"),
+                (getattr(lstm, f"bias_ih_l{layer}"),
+                 getattr(lstm, f"bias_hh_l{layer}")))

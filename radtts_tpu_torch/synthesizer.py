@@ -152,10 +152,11 @@ class Synthesizer:
         Returns (wavs, aux): `wavs` is a list of float32 numpy arrays (one
         per text, trimmed to its own duration unless trim=False); `aux` has
         per-item 'f0', 'energy_avg', 'dur', 'n_frames'. Batches pad to a
-        16-token bucket. `sigma` scales the decoder's noise. sigma_tkndur,
-        sigma_f0 and sigma_energy take the JAX engine's defaults and, as
-        there, change nothing: the DAP attribute models the port builds
-        are deterministic."""
+        16-token bucket. `sigma` scales the decoder's noise; sigma_tkndur,
+        sigma_f0 and sigma_energy scale the noise that flow attribute
+        models (BGAP, AGAP) sample durations, f0 and energy from. A DAP
+        is deterministic and takes no noise: with DAPs they change
+        nothing, as in the JAX engine."""
         if isinstance(texts, str):
             texts = [texts]
         encs = [self.encode(t) for t in texts]
@@ -179,7 +180,8 @@ class Synthesizer:
         dur = infer_durations(
             self.model, spk_text, text_b,
             token_dur_scaling=self.token_dur_scaling,
-            token_duration_max=self.token_duration_max, in_lens=in_lens)
+            token_duration_max=self.token_duration_max, in_lens=in_lens,
+            sigma_dur=sigma_tkndur, generator=self.generator)
         totals = dur.sum(1).cpu().numpy()
         if (totals < 1).any():  # untrained/degenerate duration guard
             valid = np.arange(N)[None, :] < lens[:, None]
@@ -190,6 +192,7 @@ class Synthesizer:
         max_frames = frame_budget(totals.max(), self.group_size)
         out = radtts_infer(
             self.model, spk, text_b, sigma, max_frames, dur=dur,
+            sigma_f0=sigma_f0, sigma_energy=sigma_energy,
             speaker_id_attributes=spk_attr, f0_mean=self.f0_mean,
             f0_std=self.f0_std, in_lens=in_lens, generator=self.generator)
         # replicate the last valid frame into the padding so the vocoder's

@@ -159,9 +159,13 @@ def test_loader_builds_radtts_from_jax_module(case, tmp_path, fmt):
 
 
 def test_refuses_unported_attribute_model():
+    """An attribute model the port does not build (a DAP on the
+    FFTransformer; BGAP and AGAP are ported) raises by name before
+    anything is read."""
     cfg = copy.deepcopy(MODEL_CONFIG)
-    cfg["f0_model_config"] = {"name": "bgap", "hparams": {}}
-    with pytest.raises(NotImplementedError, match="bgap"):
+    cfg["f0_model_config"] = {"name": "dap", "hparams": {
+        "use_transformer": True}}
+    with pytest.raises(NotImplementedError, match="use_transformer"):
         radtts_from_torch({}, cfg)
 
 
