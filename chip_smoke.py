@@ -61,6 +61,14 @@ Phases, each printing a JSON or text line:
      utterance with stage times and the RTF, and f0, energy and mel held
      against the CPU plain path from the same z_f0, z_energy, residual and
      a seeded voiced mask (within 1e-3; f0 relative to its max);
+  5d. mixed precision serving: the flagship Synthesizer with use_amp,
+     weight_dtype="bfloat16" and both, beside fp32, one request each and
+     the 608-frame utterance (fixed durations, a seeded residual): each
+     variant's mel distance from the card's fp32 mel at most 3x the CPU's
+     own on the same weights (or 1e-3); the bf16 regions left in fp32 and
+     run in bf16 inside; stage times and the RTF; the resident conv-kernel
+     bytes; a profiled AMP decode (which LSTM kernels ran); mrf_tc 72 per
+     vocoder call;
   6. HiFi-GAN V2 serving: the generator of the public config_v2.json (v1
      with upsample_initial_channel 128; random weights, seed 5) on a
      seeded 608-frame mel, stages (1, 4864, 64), (1, 38912, 32), (1, 77824,
@@ -69,6 +77,10 @@ Phases, each printing a JSON or text line:
      mrf.tc_launches must grow by 36, mrf.stack_launches by 2 and
      mrf.launches by 0; the waveform within 1e-3 * max of the CPU plain
      path;
+  6b. generators off the hand kernels: HiFi-GAN V3 (ResBlock2, the
+     public config_v3.json) and a ResBlock1 at V2's widths with dilations
+     (1, 2, 4), seeded and made audible, on a 608-frame mel: cuDNN conv
+     chains, no hand-kernel launch, within 1e-3 * max of the CPU, ms;
   7. training path: python -m radtts_tpu_torch.train_vocoder's main runs 5
      steps of HiFi-GAN v1 with the full discriminators at batch 16,
      segment 8192, on 4 seeded 2 s wavs, and checkpoints at the last step.
@@ -101,6 +113,15 @@ Phases, each printing a JSON or text line:
      each, counted from 0 (mas 6: two binarized steps and one validation
      a run; ar_scan 0), and one text served from each checkpoint through
      the inference CLI (ar_scan 4 for AGAP, 0 for BGAP; mrf_tc 144);
+     then voice conversion: python -m radtts_tpu_torch.
+     inference_voice_conversion's main on the DAP checkpoint and the
+     validation wavs, -n 2 at --sigma 0, injected features and
+     --predict_features (mas 1 and mrf_tc 72 an utterance, 72 at load;
+     wavs 22.05 kHz, finite, not silent), durations, mels and the first
+     wav against the CPU (the CPU decodes from the card's durations), ms
+     an utterance; then config_ljs_dap.json as published (use_amp true)
+     for 2 steps and 2 more with bf16 optimizer moments (step ms, peak
+     memory, the moments' bytes and dtypes; mas 3 a run);
  10. RADTTS step time: the config_ljs_dap.json model, every module
      trainable, binarize and KL on, fp32, at bench_train.py's (16, 112,
      512): step ms (median of steps 2-5), mel frames/s, peak memory and a
@@ -121,7 +142,8 @@ Phases, each printing a JSON or text line:
  12. the {"kernels": [...]} line with the six kernels (mrf_tc,
      mrf_stack, mrf_conv, mel, mas, ar_scan) and their launches by path
      (serve, serve_files, serve_v2, train, train_radtts, serve_bgap,
-     serve_agap, train_gap, serve_gap_files).
+     serve_agap, train_gap, serve_gap_files, vc, serve_amp, train_amp,
+     resblock2).
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
@@ -1208,7 +1230,8 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
     validation batch, the MRF and mel kernels never. The serving that
     follows is counted apart. `then(root, files, decoder_checkpoint,
     vocoder, vocoder_config, text)` runs before the files are removed, and
-    its result is returned beside the launches."""
+    its result is returned beside the launches (with the DAP checkpoint
+    and its config as two more arguments)."""
     from radtts_tpu_torch.inference import main as inference_main
     from radtts_tpu_torch.models.hifigan import (Generator,
                                                  generator_to_reference)
@@ -1292,7 +1315,8 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
                 raise AssertionError(f"{k} moved in the frozen DAP run")
             frozen_equal += 1
         after = None if then is None else then(
-            root, files, f"{out['dec']}/model_3", voc, voc_cfg, text)
+            root, files, f"{out['dec']}/model_3", voc, voc_cfg, text,
+            f"{out['dap']}/model_0", configs["dap"])
 
     history = [dict(h, run=name) for name, hs in runs.items() for h in hs]
     for h in history:
@@ -2179,6 +2203,475 @@ def _kink_sensitivity(mc, dev):
             "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# voice conversion, mixed precision, and generators off the hand kernels
+# ---------------------------------------------------------------------------
+
+# HiFi-GAN V3: jik876/hifi-gan config_v3.json (ResBlock2)
+HIFIGAN_V3 = {
+    "resblock": "2",
+    "upsample_rates": [8, 8, 4],
+    "upsample_kernel_sizes": [16, 16, 8],
+    "upsample_initial_channel": 256,
+    "resblock_kernel_sizes": [3, 5, 7],
+    "resblock_dilation_sizes": [[1, 2], [2, 6], [3, 12]],
+}
+# ResBlock1 at V2's widths with dilations the hand kernels do not take
+HIFIGAN_RB1_DILATIONS = dict(HIFIGAN_V2,
+                             resblock_dilation_sizes=[[1, 2, 4]] * 3)
+VC_SAMPLES = 2             # -n of the voice-conversion CLI runs
+AMP_VARIANTS = {"fp32": {}, "amp": {"use_amp": True},
+                "bf16_weights": {"weight_dtype": "bfloat16"},
+                "amp_bf16_weights": {"use_amp": True,
+                                     "weight_dtype": "bfloat16"}}
+
+
+def _audible(gen, gain=3.0, seed=2):
+    """A random generator made audible: conv_pre, the ups and conv_post
+    scaled by gain and their biases drawn at sd 0.05 (normal(0, 0.01)
+    weights give a v1 waveform of scale 1e-4; gain 3, one of ~0.1)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in [gen.conv_pre, *gen.ups, gen.conv_post]:
+            m.weight.mul_(gain)
+            m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=g))
+    return gen
+
+
+def phase_vc(mods, dev, power, root, dap_ckpt, dap_config):
+    """python -m radtts_tpu_torch.inference_voice_conversion's main on the
+    card, on the DAP checkpoint and the seeded validation wavs the RADTTS
+    training phase wrote (config_ljs_dap.json's widths; its WN end convs,
+    zero at init and barely moved by 4 steps, drawn at sd 0.002 as the
+    serving phase's are, or the decode at --sigma 0 gives a constant
+    mel), with HiFi-GAN v1 (seeded, made audible): -n VC_SAMPLES at
+    --sigma 0, with the
+    utterances' own f0 and energy injected, then with --predict_features.
+    Counted from 0 before each run: mas once per utterance (the
+    binarized forward), mrf_tc 72 per vocoder call (the denoiser's at
+    load, then one per utterance), the others 0. Each wav 22.05 kHz,
+    finite, not silent. Then, per utterance, the durations on the card
+    against the CPU's (the number of tokens apart is reported; the CPU
+    decodes from the card's), the card's mels against the CPU's decode
+    (max-abs 1e-3, the DAP serving limit), the first wav against the CPU
+    vocoder and denoiser on the card's mel (1e-3 * max), and the wall ms
+    of each utterance on the card (forward, decode, vocoder, denoiser)."""
+    from radtts_tpu_torch import inference_voice_conversion as vc
+    from radtts_tpu_torch.data.dataset import Data, DataCollate, DataLoader
+    from radtts_tpu_torch.models.hifigan import (Generator, denoiser_apply,
+                                                 generator_to_reference)
+    from radtts_tpu_torch.models.radtts import radtts_forward, radtts_infer
+    from radtts_tpu_torch.train.checkpoint import load_radtts_for_inference
+    from radtts_tpu_torch.vocoder_io import load_vocoder
+
+    ckpt = torch.load(dap_ckpt, map_location="cpu", weights_only=True)
+    gen = torch.Generator().manual_seed(11)
+    ends = [k for k in ckpt["model"] if k.startswith("flows.")
+            and k.endswith(".affine.pred.end.weight")]
+    for k in ends:
+        ckpt["model"][k] = 0.002 * torch.randn(ckpt["model"][k].shape,
+                                               generator=gen)
+    if not ends:
+        raise AssertionError("vc: no WN end conv in the DAP checkpoint")
+    dap_ckpt = os.path.join(root, "vc_model")
+    torch.save(ckpt, dap_ckpt)
+    torch.manual_seed(7)
+    voc = os.path.join(root, "vc_hifigan.pt")
+    torch.save({"generator": generator_to_reference(
+        _audible(Generator(HIFIGAN_V1)))}, voc)
+    voc_cfg = os.path.join(root, "vc_hifigan.json")
+    with open(voc_cfg, "w") as f:
+        json.dump(HIFIGAN_V1, f)
+    modes = {"injected": [], "predicted": ["--predict_features"]}
+    runs = {}
+    for mode, extra in modes.items():
+        out_dir = os.path.join(root, f"vc_{mode}")
+        _reset_counts(*mods)
+        tic = time.perf_counter()
+        written = vc.main([
+            "-r", dap_ckpt, "-c", dap_config, "-v", voc, "-k", voc_cfg,
+            "-o", out_dir, "-n", str(VC_SAMPLES), "--sigma", "0",
+            "--seed", "0", "--save_mels", "--save_features", *extra])
+        seconds = time.perf_counter() - tic
+        launches = _counts(*mods)
+        wavs = [_check_wav(p, p) for p in written]
+        want = {"mas": VC_SAMPLES, "mel": 0,
+                "mrf_tc": 72 * (VC_SAMPLES + 1), "mrf_stack": 0,
+                "mrf_conv": 0, "ar_scan": 0}
+        if len(written) != VC_SAMPLES or launches != want:
+            raise AssertionError(f"vc {mode}: {len(written)} wavs, "
+                                 f"launches {launches} != {want}")
+        runs[mode] = {"dir": out_dir, "seconds": seconds,
+                      "launches": launches, "written": written,
+                      "samples": [int(w.size) for w in wavs],
+                      "max_abs": [float(np.abs(w).max()) for w in wavs]}
+
+    # the same utterances at the function level, card against CPU
+    with open(dap_config) as f:
+        config = json.load(f)
+    mc, dc = config["model_config"], dict(config["data_config"])
+    model_dev = load_radtts_for_inference(dap_ckpt, mc)[0].to(dev)
+    model_cpu = load_radtts_for_inference(dap_ckpt, mc)[0]
+    vocoder, denoiser = load_vocoder(voc, voc_cfg, device=dev)
+    voc_cpu, den_cpu = load_vocoder(voc, voc_cfg, device="cpu")
+    ignore = ("training_files", "validation_files")
+    trainset = Data(dc["training_files"],
+                    **{k: v for k, v in dc.items() if k not in ignore})
+    dc["dur_max"] = 60
+    valset = Data(dc["validation_files"],
+                  **{k: v for k, v in dc.items() if k not in ignore},
+                  speaker_ids=trainset.speaker_ids)
+    loader = DataLoader(valset, 1, DataCollate(), shuffle=False, seed=0,
+                        num_workers=1, drop_last=False)
+    g = mc["n_group_size"]
+    rows = []
+    with torch.inference_mode():
+        for k, batch in enumerate(loader):
+            if k == VC_SAMPLES:
+                break
+            name = os.path.splitext(os.path.basename(
+                batch["audiopaths"][0]))[0]
+            stem = f"{name}_0_sid{int(batch['speaker_ids'][0])}_sigma0.0"
+
+            def forward(model, device):
+                b = {key: torch.as_tensor(np.asarray(batch[key]),
+                                          device=device)
+                     for key in ("mel", "speaker_ids", "text",
+                                 "input_lengths", "output_lengths",
+                                 "attn_prior", "f0", "energy_avg",
+                                 "voiced_mask", "p_voiced")}
+                out = radtts_forward(
+                    model, b["mel"], b["speaker_ids"], b["text"],
+                    b["input_lengths"], b["output_lengths"],
+                    binarize_attention_flag=True, attn_prior=b["attn_prior"],
+                    f0=b["f0"], energy_avg=b["energy_avg"],
+                    voiced_mask=b["voiced_mask"], p_voiced=b["p_voiced"])
+                dur = torch.floor(out["attn"][0].sum(0) + 0.5)
+                return dur.to(torch.int32)[None], b
+
+            def decode(model, device, dur, b, mode):
+                total = int(dur.sum())
+                T = vc._frame_budget(total, g)
+                kw = {} if mode == "predicted" else dict(
+                    f0=vc._frames(batch["f0"], T, device),
+                    energy_avg=vc._frames(batch["energy_avg"], T, device),
+                    voiced_mask=vc._frames(batch["voiced_mask"], T, device))
+                out = radtts_infer(model, b["speaker_ids"], b["text"], 0.0,
+                                   T, dur=dur, sigma_f0=1.0,
+                                   sigma_energy=1.0, **kw)
+                return out["mel"][:, :total]
+
+            def on_card():
+                dur, b = forward(model_dev, dev)
+                mel = decode(model_dev, dev, dur, b, "injected")
+                audio = denoiser_apply(denoiser, vocoder(mel), 0.01)
+                return dur, audio
+            (dur_dev, _), ms = timed(on_card)
+            dur_cpu, b_cpu = forward(model_cpu, "cpu")
+            n_diff = int((dur_dev.cpu() != dur_cpu).sum())
+            row = {"utterance": name, "tokens": int(dur_cpu.shape[1]),
+                   "frames": int(dur_dev.sum()), "wall_ms": ms,
+                   "durations_differ": n_diff}
+            for mode in modes:
+                mel_dev = np.load(os.path.join(runs[mode]["dir"],
+                                               stem + "_mel.npy"))
+                mel_cpu = decode(model_cpu, "cpu", dur_dev.cpu(), b_cpu,
+                                 mode).numpy().transpose(0, 2, 1)
+                if mel_dev.shape != mel_cpu.shape:
+                    raise AssertionError(f"vc {mode} {name}: mel "
+                                         f"{mel_dev.shape} vs "
+                                         f"{mel_cpu.shape}")
+                row[f"{mode}_mel_max_abs_err"] = float(
+                    np.abs(mel_dev - mel_cpu).max())
+                row[f"{mode}_mel_max_abs"] = float(np.abs(mel_cpu).max())
+                if k == 0:
+                    from scipy.io import wavfile
+                    wav_dev = wavfile.read(os.path.join(
+                        runs[mode]["dir"], stem + ".wav"))[1]
+                    wav_cpu = denoiser_apply(den_cpu, voc_cpu(torch.as_tensor(
+                        mel_dev.transpose(0, 2, 1))), 0.01)[0].numpy()
+                    row[f"{mode}_wav_max_abs_err"] = float(
+                        np.abs(wav_dev - wav_cpu).max())
+                    row[f"{mode}_wav_max_abs"] = float(
+                        np.abs(wav_cpu).max())
+            rows.append(row)
+    loader.close()
+    log({"phase": "vc", "card": power,
+         "runs": {m: {k: v for k, v in r.items()
+                      if k not in ("dir", "written")}
+                  for m, r in runs.items()},
+         "utterances": rows})
+    for row in rows:
+        for mode in modes:
+            if not row[f"{mode}_mel_max_abs_err"] <= 1e-3:
+                raise AssertionError(f"vc {mode} mel on the card vs CPU: "
+                                     f"{row}")
+            key = f"{mode}_wav_max_abs_err"
+            if key in row and not row[key] <= 1e-3 * row[
+                    f"{mode}_wav_max_abs"]:
+                raise AssertionError(f"vc {mode} vocoder on the card vs "
+                                     f"CPU: {row}")
+    return {k: sum(r["launches"][k] for r in runs.values())
+            for k in runs["injected"]["launches"]}
+
+
+def _region_dtypes(model, fn):
+    """fn() with hooks on the model's bf16 regions (ops/amp.py): the
+    dtypes leaving each region module, and those of the convs, LSTMs and
+    dense layers inside one (the context LSTM is the RADTTS region)."""
+    from radtts_tpu_torch.ops import amp
+    from radtts_tpu_torch.ops.conv import ConvNorm
+    from radtts_tpu_torch.ops.lstm import MaskedLSTM
+
+    leaving, inside, hooks = set(), set(), []
+    regions = [m for m in amp.regions(model) if m is not model]
+    for r in regions:
+        hooks.append(r.register_forward_hook(
+            lambda mod, inp, out: leaving.add(str(out.dtype))))
+        for m in r.modules():
+            if m is not r and isinstance(m, (ConvNorm, MaskedLSTM,
+                                             torch.nn.Linear)):
+                hooks.append(m.register_forward_hook(
+                    lambda mod, inp, out: inside.add(str(out.dtype))))
+    if model.context_lstm is not None:
+        hooks.append(model.context_lstm.register_forward_hook(
+            lambda mod, inp, out: inside.add(str(out.dtype))))
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return sorted(leaving), sorted(inside)
+
+
+def phase_amp_serve(config, model, vocoder, denoiser, tp, mods, dev, power):
+    """The flagship Synthesizer with use_amp=True, weight_dtype="bfloat16"
+    and both, beside fp32, on the 608-frame utterance (fixed durations,
+    a seeded residual): each variant's mel distance from the card's fp32
+    mel, beside the CPU's own distance on the same weights (the card's at
+    most 3x the CPU's, or 1e-3); the dtype leaving each bf16 region
+    (fp32) and inside it (bf16); the stage times and the RTF (median of
+    3), a profiled AMP utterance (which LSTM kernels ran); the resident
+    conv-kernel bytes fp32 and bf16. One request a variant through
+    synthesize; counted from 0 before the first: mrf_tc 72 per vocoder
+    call, the others 0."""
+    from radtts_tpu_torch.models.hifigan import denoiser_apply
+    from radtts_tpu_torch.models.radtts import infer_durations, radtts_infer
+    from radtts_tpu_torch.ops import amp
+    from radtts_tpu_torch.ops.fold_norms import (conv_weight_bytes,
+                                                 store_conv_weights)
+    from radtts_tpu_torch.synthesizer import Synthesizer
+
+    mc, dc = config["model_config"], config["data_config"]
+    synths = {name: Synthesizer.from_parts(
+        mc, model, vocoder, denoiser, encode_fn=tp.encode_text,
+        speaker_id_fn=lambda name: 0, sampling_rate=dc["sampling_rate"],
+        hop_length=dc["hop_length"], seed=0, device=dev, **kw)
+        for name, kw in AMP_VARIANTS.items()}
+    text, dur = flagship_input(synths["fp32"])
+    g = mc["n_group_size"]
+    res = torch.randn(1, MAX_FRAMES // g, mc["n_mel_channels"] * g,
+                      generator=torch.Generator().manual_seed(3)) * 0.8
+    spk = torch.zeros(1, dtype=torch.int64)
+    model_cpu = copy.deepcopy(model).cpu()
+    cpu_models = {"fp32": model_cpu,
+                  "bf16": store_conv_weights(copy.deepcopy(model_cpu))}
+
+    def decode(m, use_amp, device):
+        with amp.scope(m, use_amp):
+            return radtts_infer(m, spk.to(device), text.to(device), 0.8,
+                                MAX_FRAMES, dur=dur.to(device),
+                                residual=res.to(device))["mel"]
+
+    hop = synths["fp32"].hop_length
+    audio_s = MAX_FRAMES * hop / synths["fp32"].sampling_rate
+    rows, card_fp32, cpu_fp32 = {}, None, None
+    _reset_counts(*mods)
+    n_calls = 0
+    with torch.inference_mode():
+        for name, s in synths.items():
+            wavs, aux = s.synthesize(TEXTS[1], "ljs")
+            n_calls += 1
+            if not np.isfinite(wavs[0]).all() or wavs[0].shape != (
+                    int(aux["n_frames"][0]) * hop,):
+                raise AssertionError(f"amp serve {name}: bad request")
+            mel = decode(s.model, s.use_amp, dev)
+            cpu = decode(cpu_models["bf16" if s.weight_dtype == "bfloat16"
+                                    else "fp32"], s.use_amp, "cpu")
+            if name == "fp32":
+                card_fp32, cpu_fp32 = mel, cpu
+            text_d, dur_d = text.to(dev), dur.to(dev)
+            spk_d = spk.to(dev)
+
+            def utterance():
+                with amp.scope(s.model, s.use_amp):
+                    _, t_dur = timed(lambda: infer_durations(
+                        s.model, spk_d, text_d))
+                    out, t_dec = timed(lambda: radtts_infer(
+                        s.model, spk_d, text_d, 0.8, MAX_FRAMES, dur=dur_d,
+                        generator=s.generator))
+                audio, t_voc = timed(lambda: denoiser_apply(
+                    s.denoiser, s.vocoder(out["mel"]), strength=0.01))
+                return audio, {"durations": t_dur, "decode": t_dec,
+                               "vocoder_denoiser": t_voc}
+            times = [utterance()[1] for _ in range(3)]
+            n_calls += 3
+            med = {k: statistics.median(t[k] for t in times)
+                   for k in times[0]}
+            rows[name] = {
+                "stage_ms": med, "rtf": sum(med.values()) / 1e3 / audio_s,
+                "mel_dist_from_fp32_card": float(
+                    (mel - card_fp32).abs().max()),
+                "mel_dist_from_fp32_cpu": float(
+                    (cpu - cpu_fp32).abs().max()),
+                "mel_card_vs_cpu": float((mel.cpu() - cpu).abs().max()),
+                "conv_weight_bytes": conv_weight_bytes(s.model),
+                "parameter_bytes": sum(p.numel() * p.element_size()
+                                       for p in s.model.parameters())}
+            if s.use_amp:
+                leaving, inside = _region_dtypes(
+                    s.model, lambda: decode(s.model, True, dev))
+                rows[name].update(region_out_dtypes=leaving,
+                                  region_inside_dtypes=inside)
+                if leaving != ["torch.float32"] or inside != [
+                        "torch.bfloat16"]:
+                    raise AssertionError(f"amp serve {name}: regions "
+                                         f"leave {leaving}, run {inside}")
+        profile = profile_run(lambda: timed(
+            lambda: decode(synths["amp"].model, True, dev)), top=20)
+        n_lstm = [k for k in profile["top_kernels"]
+                  if any(t in k["name"].lower() for t in ("rnn", "lstm"))]
+    launches = _counts(*mods)
+    log({"phase": "amp_serve_608", "card": power, "audio_s": audio_s,
+         "variants": rows, "launches": launches,
+         "generator_calls": n_calls, "amp_decode_profile": profile,
+         "amp_lstm_kernels": n_lstm})
+    if launches != {"mas": 0, "mel": 0, "mrf_tc": 72 * n_calls,
+                    "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0}:
+        raise AssertionError(f"amp serve launches {launches}, "
+                             f"{n_calls} generator calls")
+    for name, row in rows.items():
+        if name == "fp32":
+            continue
+        card, cpu = (row["mel_dist_from_fp32_card"],
+                     row["mel_dist_from_fp32_cpu"])
+        if not (card > 0 and card <= max(3 * cpu, 1e-3)):
+            raise AssertionError(f"amp serve {name}: the card's distance "
+                                 f"from fp32 {card}, the CPU's {cpu}")
+    if not rows["bf16_weights"]["conv_weight_bytes"] < \
+            rows["fp32"]["conv_weight_bytes"]:
+        raise AssertionError("bf16 weights: conv bytes did not fall")
+    return launches
+
+
+def phase_amp_train(mods, dev, power, root, files, dec_ckpt):
+    """python -m radtts_tpu_torch.train's main on config_ljs_dap.json as
+    published (use_amp true, unfreeze_modules durf0energyvpred), its data
+    files repointed at the seeded dataset, batch 16 (the dataset holds
+    16 wavs), warm-started from the decoder checkpoint: 2 steps, then 2
+    more with train_config.optim_state_dtype bfloat16. Per run: step ms,
+    peak memory, the optimizer state's bytes and dtypes from the
+    checkpoint at step 0, finite losses; counted from 0 before the first
+    run: mas 3 a run (2 binarized steps, 1 validation batch)."""
+    from radtts_tpu_torch.train import main as train_main
+
+    with open(CONFIG) as f:
+        config = json.load(f)
+    config["data_config"].update(
+        files, betabinom_cache_path=os.path.join(root, "cache"))
+    variants = {"amp": "", "amp_bf16_moments": "bfloat16"}
+    rows = {}
+    _reset_counts(*mods)
+    for name, state_dtype in variants.items():
+        config["train_config"]["optim_state_dtype"] = state_dtype
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(config, f)
+        out = os.path.join(root, f"{name}_out")
+        torch.cuda.reset_peak_memory_stats()
+        hist = train_main([
+            "-c", path, "-p", f"train_config.output_directory={out}",
+            "train_config.epochs=2", "train_config.seed=0",
+            "train_config.batch_size=16",
+            f"train_config.warmstart_checkpoint_path={dec_ckpt}"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        state = torch.load(os.path.join(out, "model_0"), map_location="cpu",
+                           weights_only=True)["optimizer"]["state"]
+        moments = [t for st in state.values() for k, t in st.items()
+                   if k.startswith("exp_avg")]
+        for h in hist:
+            if not all(np.isfinite(v) for v in h.values()
+                       if isinstance(v, float)):
+                raise AssertionError(f"amp train {name}: {h}")
+        rows[name] = {
+            "step_ms": [h["ms"] for h in hist],
+            "losses": [{k: h[k] for k in ("iteration", "total", "grad_norm",
+                                          "loss_f0", "loss_energy",
+                                          "loss_duration", "loss_vpred")}
+                       for h in hist],
+            "peak_allocated_gib": peak,
+            "optimizer_state_bytes": sum(t.numel() * t.element_size()
+                                         for t in moments),
+            "optimizer_state_dtypes": sorted({str(t.dtype)
+                                              for t in moments})}
+    launches = _counts(*mods)
+    log({"phase": "amp_train", "card": power, "runs": rows,
+         "launches": launches})
+    want_dtypes = {"amp": ["torch.float32"],
+                   "amp_bf16_moments": ["torch.bfloat16"]}
+    if (any(len(r["step_ms"]) != 2 for r in rows.values())
+            or any(rows[k]["optimizer_state_dtypes"] != v
+                   for k, v in want_dtypes.items())
+            or launches != {"mas": 6, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
+                            "mrf_conv": 0, "ar_scan": 0}):
+        raise AssertionError(f"amp train: {rows}, launches {launches}")
+    return launches
+
+
+def phase_resblock2(mods, dev, power):
+    """Generators the hand kernels do not take, run as chains of cuDNN
+    convs as the JAX package runs them through XLA: HiFi-GAN V3 (ResBlock2
+    at config_v3.json's widths) and a ResBlock1 at V2's widths with
+    dilations (1, 2, 4); seeded, made audible, on a seeded 608-frame mel.
+    Counted from 0: no hand-kernel launch. The waveform within 1e-3 * max
+    of the CPU; vocoder ms (median of 3 after a warm-up)."""
+    from radtts_tpu_torch.models.hifigan import Generator
+
+    rows = {}
+    _reset_counts(*mods)
+    for name, h in (("v3_resblock2", HIFIGAN_V3),
+                    ("v2_resblock1_dilations", HIFIGAN_RB1_DILATIONS)):
+        torch.manual_seed(9)
+        gen = _audible(Generator(h)).eval().requires_grad_(False)
+        mel = 2.0 * torch.randn(1, MAX_FRAMES, 80,
+                                generator=torch.Generator().manual_seed(6)
+                                ) - 5.0
+        with torch.inference_mode():
+            wav_cpu = gen(mel)
+            gen.to(dev)
+            mel_dev = mel.to(dev)
+            runs = [timed(lambda: gen(mel_dev)) for _ in range(4)]
+        wav = runs[-1][0]
+        if gen.mrf_kernels or wav.shape != (1, MAX_FRAMES * 256) or \
+                not torch.isfinite(wav).all():
+            raise AssertionError(f"{name}: bad audio {tuple(wav.shape)}")
+        err = (wav.cpu() - wav_cpu).abs().max().item()
+        scale = wav_cpu.abs().max().item()
+        ms = [t for _, t in runs[1:]]
+        rows[name] = {"vocoder_ms": ms,
+                      "vocoder_ms_median": statistics.median(ms),
+                      "wav_max_abs_err": err, "wav_max_abs": scale}
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"{name} on the card vs CPU: {err}")
+        del gen
+    launches = _counts(*mods)
+    log({"phase": "resblock2_608", "card": power, "generators": rows,
+         "launches": launches})
+    if any(launches.values()):
+        raise AssertionError(f"resblock2: hand kernels launched {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2268,15 +2761,25 @@ def main():
     gap_launches = {kind: phase_serve_gap(kind, vocoder, denoiser, tp, mods,
                                           dev, power)
                     for kind in GAP_CONFIGS}
+    amp_serve_launches = phase_amp_serve(config, model, vocoder, denoiser,
+                                         tp, mods, dev, power)
     del synth, model, vocoder, denoiser
     v2_launches, v2_ms = phase_serve_v2(mrf_mod, dev, power)
+    rb2_launches = phase_resblock2(mods, dev, power)
     train_launches = phase_training(mel_mod, mrf_mod, dev, data_config)
     phase_train_profile(dev, mel_kw)
     phase_train_vs_cpu(dev, mel_kw)
     mas_rows = phase_mas_kernel(mas_mod, dev)
+    def after_radtts(root, files, dec_ckpt, voc, voc_cfg, text, dap_ckpt,
+                     dap_config):
+        out = phase_train_gap(mods, dev, power, root, files, dec_ckpt, voc,
+                              voc_cfg, text)
+        out["vc"] = phase_vc(mods, dev, power, root, dap_ckpt, dap_config)
+        out["train_amp"] = phase_amp_train(mods, dev, power, root, files,
+                                           dec_ckpt)
+        return out
     radtts_launches, gap_train = phase_train_radtts(
-        mas_mod, mel_mod, mrf_mod, dev, power,
-        then=lambda *a: phase_train_gap(mods, dev, power, *a))
+        mas_mod, mel_mod, mrf_mod, dev, power, then=after_radtts)
     phase_radtts_step(mas_mod, dev, power)
     phase_radtts_vs_cpu(dev)
     for kind, path in GAP_CONFIGS.items():
@@ -2292,7 +2795,9 @@ def main():
              "serve_bgap": gap_launches["bgap"],
              "serve_agap": gap_launches["agap"],
              "train_gap": gap_train["train_gap"],
-             "serve_gap_files": gap_train["serve_gap_files"]}
+             "serve_gap_files": gap_train["serve_gap_files"],
+             "vc": gap_train["vc"], "serve_amp": amp_serve_launches,
+             "train_amp": gap_train["train_amp"], "resblock2": rb2_launches}
 
     def by_path(kernel):
         return {p: c.get(kernel, 0) for p, c in paths.items()}

@@ -8,7 +8,7 @@ invertible 1x1 inverses are computed after loading, and each layout is
 converted: conv kernels (K, C_in, C_out) -> (C_out, C_in, K); linear
 (in, out) -> (out, in); LSTM w_ih (in, 4H) -> (4H, in); flipped
 transposed-conv kernels (K, C_in, C_out) -> (C_in, C_out, K) unflipped.
-MRF resblock convs keep the taps-major (3, K, C_in, C_out) layout the
+MRF resblock convs keep the taps-major (n, K, C_in, C_out) layout the
 kernel reads. The discriminators' kernels go to torch's conv layouts.
 
 The attribute models carry over by family: the DAP's convs, spectral-normed
@@ -248,10 +248,9 @@ def _generator(p, h):
         _set(up.bias, up_p["b"])
     for stage, group in zip(gen.resblocks, p["resblocks"]):
         for blk, bp in zip(stage, group):
-            for i in (1, 2):
-                convs = bp[f"convs{i}"]
-                _set(getattr(blk, f"w{i}"), np.stack([c["w"] for c in convs]))
-                _set(getattr(blk, f"b{i}"), np.stack([c["b"] for c in convs]))
+            for name, (w, b) in blk.conv_weights().items():
+                _set(w, np.stack([c["w"] for c in bp[name]]))
+                _set(b, np.stack([c["b"] for c in bp[name]]))
     return gen
 
 

@@ -12,9 +12,11 @@ skipped) gives one wav, peak-normalised; --long_text_chunk splits long
 lines at sentence boundaries and joins the chunks' audio with
 --chunk_gap_ms of silence.
 
-The port runs in fp32 only, on one device. Flags the JAX CLI takes for
-what the port does not have are refused with an error, never ignored:
---use_amp and --weight_dtype bfloat16 (reduced precision), --data_parallel
+--use_amp runs the durations and decode stages' bf16 regions
+(radtts_tpu_torch/ops/amp.py) and --weight_dtype bfloat16 stores the RADTTS
+conv kernels in bf16, as the JAX CLI's flags do; the vocoder stays fp32.
+The port runs on one device. Flags the JAX CLI takes for what the port
+does not have are refused with an error, never ignored: --data_parallel
 above 1 (more than one device) and --matmul_precision other than
 'highest'. --aot_dir (the XLA executable store) is accepted and has no
 effect.
@@ -32,18 +34,19 @@ from radtts_tpu_torch.text.processing import lines_to_list
 
 
 def add_port_flags(parser):
-    """The flags both CLIs share with the JAX ones but the port refuses or
-    ignores (see refuse_unsupported), and --device."""
+    """The flags both CLIs share with the JAX ones that the port handles
+    its own way (see refuse_unsupported), and --device."""
     parser.add_argument("--data_parallel", default=1, type=int,
                         help="refused above 1: the port runs on one device")
     parser.add_argument("--weight_dtype", default="auto",
                         choices=["auto", "float32", "bfloat16"],
-                        help="refused at bfloat16: the port stores fp32")
+                        help="bfloat16 stores the RADTTS conv kernels in "
+                             "bf16; auto is float32")
     parser.add_argument("--aot_dir", default="",
                         help="the JAX package's XLA executable store; no "
                              "effect here")
     parser.add_argument("--use_amp", action="store_true",
-                        help="refused: the port runs in fp32 only")
+                        help="run the bf16 regions (ops/amp.py)")
     parser.add_argument("--matmul_precision", default=None,
                         choices=["default", "high", "highest"],
                         help="only 'highest' (fp32) is accepted")
@@ -55,12 +58,6 @@ def add_port_flags(parser):
 def refuse_unsupported(parser, args):
     """parser.error (exit 2) on a flag the port cannot honour; one line
     for --aot_dir, which has no effect."""
-    if args.use_amp:
-        parser.error("--use_amp is not supported: the port runs in fp32 "
-                     "only")
-    if args.weight_dtype == "bfloat16":
-        parser.error("--weight_dtype bfloat16 is not supported: the port "
-                     "stores fp32 weights")
     if args.data_parallel > 1:
         parser.error("--data_parallel > 1 is not supported: the port runs "
                      "on one device")
@@ -214,6 +211,7 @@ def main(argv=None):
         seed=args.seed, token_dur_scaling=args.token_dur_scaling,
         f0_mean=args.f0_mean, f0_std=args.f0_std,
         energy_mean=args.energy_mean, energy_std=args.energy_std,
+        use_amp=args.use_amp, weight_dtype=args.weight_dtype,
         device=args.device)
     print(f"Loaded checkpoint '{args.radtts_path}'")
     return infer(synth, lines_to_list(args.text_path), args.speaker,

@@ -24,6 +24,7 @@ from torch import nn
 
 from radtts_tpu_torch.models.coupling import (AffineCoupling, SplineAR,
                                               SplineCoupling)
+from radtts_tpu_torch.ops.amp import cast_in, cast_out
 from radtts_tpu_torch.ops.ar_scan import ar_scan
 from radtts_tpu_torch.ops.conv import ConvNorm
 from radtts_tpu_torch.ops.dropout import dropout
@@ -83,6 +84,12 @@ class Bottleneck(nn.Module):
 
 
 class ConvLSTMLinear(nn.Module):
+    """The DAP's conv stack, LSTM and dense layer; a bf16 region when
+    `amp` (the JAX package's cast sites at :147 and :180, and the fused
+    DAPs' exits, :275 and :300)."""
+
+    amp = False
+
     def __init__(self, in_dim, out_dim, n_layers=2, n_channels=256,
                  kernel_size=3, p_dropout=0.1, lstm_type="bilstm",
                  use_linear=True, factored=False):
@@ -106,6 +113,7 @@ class ConvLSTMLinear(nn.Module):
     def forward(self, x, lens=None, generator=None):
         """x: (B, T, C); the conv stack is masked past each length; a
         generator draws dropout after each conv's ReLU."""
+        x = cast_in(x, self.amp)
         mf = (None if lens is None
               else sequence_mask(lens, x.shape[1]).to(x.dtype)[:, :, None])
         if mf is not None:
@@ -118,7 +126,7 @@ class ConvLSTMLinear(nn.Module):
             x = self.lstm(x, lens)
         if self.dense is not None:
             x = self.dense(x)
-        return x
+        return cast_out(x, self.amp)
 
 
 class DAP(nn.Module):

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from radtts_tpu_torch.ops.amp import cast_in, cast_out
 from radtts_tpu_torch.ops.conv import ConvNorm
 from radtts_tpu_torch.ops.invertible import scaling_and_log_s
 from radtts_tpu_torch.ops.splines import spline_transform
@@ -22,7 +23,10 @@ from radtts_tpu_torch.ops.splines import spline_transform
 class SimpleConvNet(nn.Module):
     """n_layers same-padded convs of width min(max_channels, 2 * in), the
     i-th dilated 2**i when with_dilation, each followed by a relu, then a
-    1x1 conv (zero-initialised when asked)."""
+    1x1 conv (zero-initialised when asked). A bf16 region when `amp`
+    (ops/amp.py)."""
+
+    amp = False
 
     def __init__(self, n_in, n_context, final_out, n_layers=2, kernel_size=5,
                  with_dilation=True, max_channels=1024, zero_init=True):
@@ -49,12 +53,17 @@ class SimpleConvNet(nn.Module):
         b = torch.backends.cudnn
         with b.flags(enabled=False, benchmark=b.benchmark,
                      deterministic=b.deterministic, allow_tf32=b.allow_tf32):
+            x = cast_in(x, self.amp)
             for layer in self.layers:
                 x = torch.relu(layer(x, mask, use_partial_padding))
-            return self.last(x)
+            return cast_out(self.last(x), self.amp)
 
 
 class WN(nn.Module):
+    """The non-gated WaveNet predictor; a bf16 region when `amp`."""
+
+    amp = False
+
     def __init__(self, n_in, n_context, n_layers, n_channels, kernel_size=5,
                  factored=False):
         super().__init__()
@@ -72,12 +81,12 @@ class WN(nn.Module):
     def forward(self, z, context, mask=None, affine_activation="softplus",
                 use_partial_padding=True):
         act = F.softplus if affine_activation == "softplus" else torch.relu
-        z = self.start(torch.cat([z, context], dim=-1))
+        z = self.start(cast_in(torch.cat([z, context], dim=-1), self.amp))
         output = torch.zeros_like(z)
         for in_layer, res_skip in zip(self.in_layers, self.res_skip):
             z = act(in_layer(z, mask, use_partial_padding))
             output = output + act(res_skip(z))
-        return self.end(output)
+        return cast_out(self.end(output), self.amp)
 
 
 class AffineCoupling(nn.Module):

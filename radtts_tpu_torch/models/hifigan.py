@@ -1,12 +1,18 @@
-"""HiFi-GAN vocoder (generator with ResBlock1 MRF stages), the spectral
-bias denoiser, the mel blur augmentation of vocoder training, and the
-generator's reference-format state dicts.
+"""HiFi-GAN vocoder (generator with ResBlock1 or ResBlock2 MRF stages), the
+spectral bias denoiser, the mel blur augmentation of vocoder training, and
+the generator's reference-format state dicts.
 
 The generator takes and returns channels-last tensors: mel (B, T, 80) ->
 waveform (B, T * prod(upsample_rates)). conv_pre, the ConvTranspose1d ups
-and conv_post run as F.conv1d / F.conv_transpose1d; each stage's MRF
-resblock stack runs through ops/mrf.py:mrf, the port of the TPU's Pallas
-MRF kernels (hand-written CUDA kernels on the card).
+and conv_post run as F.conv1d / F.conv_transpose1d. The MRF resblock stacks
+take one of two routes, decided by the architecture alone, as the JAX
+package decides between its Pallas kernels and XLA
+(radtts_tpu/models/hifigan.py:253-257): a ResBlock1 generator whose kernel
+sizes are a prefix of (3, 7, 11) and whose dilations are all (1, 3, 5)
+runs each stage through ops/mrf.py:mrf, the port of the TPU's Pallas MRF
+kernels (hand-written CUDA kernels on the card); any other generator
+(ResBlock2, other kernel sizes or dilations) runs each resblock as a chain
+of F.conv1d, as the JAX package runs those through XLA.
 """
 
 import numpy as np
@@ -15,7 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from radtts_tpu_torch.ops.conv import ConvNorm
-from radtts_tpu_torch.ops.mrf import DILATIONS, LRELU_SLOPE, mrf, mrf_plain
+from radtts_tpu_torch.ops.mrf import (DILATIONS, KERNEL_SIZES, LRELU_SLOPE,
+                                      mrf, mrf_plain)
 from radtts_tpu_torch.ops.stft import (istft_length, istft_reim,
                                        stft_magnitude_phase, stft_reim)
 
@@ -23,25 +30,86 @@ _TINY = torch.finfo(torch.float32).tiny
 # the gaussian kernels of the mel blur augmentation
 BLUR_KERNEL_SIZE = (5, 5)
 BLUR_SIGMAS = (0.1, 0.5, 1.0)
+# convs per resblock of each kind in the reference's state dicts: ResBlock1
+# stores convs1.{0,1,2} and convs2.{0,1,2}, ResBlock2 convs.{0,1}
+RESBLOCK_CONVS = {"1": 3, "2": 2}
 
 
 def _normal(shape, std=0.01):
     return nn.Parameter(torch.randn(shape) * std)
 
 
-class MRFBlock(nn.Module):
-    """One ResBlock1: w1/w2 (3, k, C, C) taps-major, b1/b2 (3, C)."""
+def mrf_kernel_compatible(h):
+    """Whether a generator config's MRF stages run on the hand kernels:
+    the JAX package's _mrf_is_pallas_compatible (ResBlock1, kernel sizes a
+    prefix of (3, 7, 11), every dilation tuple (1, 3, 5))."""
+    rk = tuple(h["resblock_kernel_sizes"])
+    return (h["resblock"] == "1" and rk == KERNEL_SIZES[:len(rk)]
+            and all(tuple(d) == DILATIONS
+                    for d in h["resblock_dilation_sizes"]))
 
-    def __init__(self, C, k):
+
+class MRFBlock(nn.Module):
+    """One resblock of kernel size k. ResBlock1 (kind "1"): w1/w2 (3, k, C,
+    C) taps-major, b1/b2 (3, C), x += conv_{k,1}(lrelu(conv_{k,d}(lrelu
+    x))) per dilation d; ResBlock2 (kind "2"): w1 (2, k, C, C), b1 (2, C),
+    x += conv_{k,d}(lrelu x). As in the reference, the i-th conv takes the
+    i-th dilation, and convs past the dilations given are not applied."""
+
+    def __init__(self, C, k, dilations=DILATIONS, kind="1"):
         super().__init__()
-        n = len(DILATIONS)
+        if kind not in RESBLOCK_CONVS:
+            raise ValueError(f"resblock must be '1' or '2', got {kind!r}")
+        n = RESBLOCK_CONVS[kind]
+        self.kind = kind
+        self.kernel_size = k
+        self.dilations = tuple(dilations)[:n]
         self.w1 = _normal((n, k, C, C))
-        self.w2 = _normal((n, k, C, C))
         self.b1 = nn.Parameter(torch.zeros(n, C))
-        self.b2 = nn.Parameter(torch.zeros(n, C))
+        if kind == "1":
+            self.w2 = _normal((n, k, C, C))
+            self.b2 = nn.Parameter(torch.zeros(n, C))
 
     def weights(self):
+        """The layout ops/mrf.py's kernels and mrf_plain take (ResBlock1
+        with dilations (1, 3, 5) only)."""
         return {"w1": self.w1, "b1": self.b1, "w2": self.w2, "b2": self.b2}
+
+    def conv_weights(self):
+        """{name: (weight (n, k, C, C), bias (n, C))} by the reference's
+        conv names (convs1/convs2, or convs)."""
+        if self.kind == "1":
+            return {"convs1": (self.w1, self.b1), "convs2": (self.w2, self.b2)}
+        return {"convs": (self.w1, self.b1)}
+
+    def forward(self, x):
+        """x: (B, C, T) -> (B, C, T), one F.conv1d per conv."""
+        k = self.kernel_size
+        for i, d in enumerate(self.dilations):
+            xt = _conv(F.leaky_relu(x, LRELU_SLOPE), self.w1[i], self.b1[i],
+                       k, d)
+            if self.kind == "1":
+                xt = _conv(F.leaky_relu(xt, LRELU_SLOPE), self.w2[i],
+                           self.b2[i], k, 1)
+            x = xt + x
+        return x
+
+
+def _conv(x, w_taps, b, k, d):
+    """Same-padded conv of (B, C, T) with taps-major (k, C_in, C_out)
+    weights, padded as the reference's get_padding (d * (k - 1) // 2)."""
+    return F.conv1d(x, w_taps.permute(2, 1, 0), b, padding=d * (k - 1) // 2,
+                    dilation=d)
+
+
+def mrf_chain(x, stage):
+    """The MRF mean of one stage as a chain of convs: x (B, T, C) ->
+    (B, T, C), the JAX package's _resblock1_apply / _resblock2_apply."""
+    xc = x.transpose(1, 2)
+    out = torch.zeros_like(xc)
+    for blk in stage:
+        out = out + blk(xc)
+    return (out / len(stage)).transpose(1, 2)
 
 
 class Upsample(nn.Module):
@@ -61,16 +129,15 @@ class Upsample(nn.Module):
 
 
 class Generator(nn.Module):
-    """HiFi-GAN generator from a reference hifigan config `h`, with the
-    reference's normal(0, 0.01) random init."""
+    """HiFi-GAN generator from a reference hifigan config `h` (ResBlock1 or
+    ResBlock2, any kernel sizes and dilations), with the reference's
+    normal(0, 0.01) random init. `mrf_kernels` says whether its MRF stages
+    take ops/mrf.py (mrf_kernel_compatible) or the conv chain."""
 
     def __init__(self, h, n_mel=80):
         super().__init__()
-        if h["resblock"] != "1" or any(
-                tuple(d) != DILATIONS for d in h["resblock_dilation_sizes"]):
-            raise NotImplementedError(
-                "only ResBlock1 with dilations (1, 3, 5) is ported")
         ch0 = h["upsample_initial_channel"]
+        self.mrf_kernels = mrf_kernel_compatible(h)
         self.conv_pre = ConvNorm(n_mel, ch0, 7)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
@@ -79,7 +146,9 @@ class Generator(nn.Module):
             c_in, c_out = ch0 // 2 ** i, ch0 // 2 ** (i + 1)
             self.ups.append(Upsample(c_in, c_out, k, u))
             self.resblocks.append(nn.ModuleList(
-                MRFBlock(c_out, ks) for ks in h["resblock_kernel_sizes"]))
+                MRFBlock(c_out, ks, d, h["resblock"])
+                for ks, d in zip(h["resblock_kernel_sizes"],
+                                 h["resblock_dilation_sizes"])))
         self.conv_post = ConvNorm(c_out, 1, 7)
         for conv in (self.conv_pre, self.conv_post):
             nn.init.normal_(conv.weight, std=0.01)
@@ -88,10 +157,12 @@ class Generator(nn.Module):
     def forward(self, mel, mrf_impl="auto"):
         """mel (B, T, 80) -> waveform (B, T * prod(upsample_rates)).
 
-        mrf_impl: "auto" runs each MRF stage through ops/mrf.py:mrf (the
-        kernel on the card, mrf_plain on the CPU); "plain" runs mrf_plain,
-        which a pass that needs gradients takes, since the kernel has no
-        backward (the JAX package's "xla")."""
+        mrf_impl, for a generator whose stages take the hand kernels:
+        "auto" runs each MRF stage through ops/mrf.py:mrf (the kernel on
+        the card, mrf_plain on the CPU); "plain" runs mrf_plain, which a
+        pass that needs gradients takes, since the kernel has no backward
+        (the JAX package's "xla"). Any other generator runs the conv
+        chain (mrf_chain) either way."""
         if mrf_impl not in ("auto", "plain"):
             raise ValueError(f"mrf_impl must be 'auto' or 'plain', got "
                              f"{mrf_impl!r}")
@@ -99,7 +170,10 @@ class Generator(nn.Module):
         x = self.conv_pre(mel)
         for up, stage in zip(self.ups, self.resblocks):
             x = up(F.leaky_relu(x, LRELU_SLOPE)).contiguous()
-            x = mrf_fn(x, [blk.weights() for blk in stage])
+            if self.mrf_kernels:
+                x = mrf_fn(x, [blk.weights() for blk in stage])
+            else:
+                x = mrf_chain(x, stage)
         # default torch slope 0.01 before the post conv (reference)
         x = self.conv_post(F.leaky_relu(x))
         return torch.tanh(x)[..., 0]
@@ -168,7 +242,8 @@ def _collapse_weight_norm(sd, prefix):
 def generator_from_reference(state_dict, h):
     """Generator holding a reference-format HiFi-GAN state dict (weight-
     normed convs, legacy flat resblock keys accepted), as the JAX package's
-    hifigan_generator_from_torch reads it. The ConvTranspose1d kernels keep
+    hifigan_generator_from_torch reads it: ResBlock1's convs1.{m} and
+    convs2.{m}, ResBlock2's convs.{m}. The ConvTranspose1d kernels keep
     the torch layout, so unlike the JAX package nothing is flipped."""
     sd = _remap_legacy_keys(state_dict)
     gen = Generator(h)
@@ -186,14 +261,14 @@ def generator_from_reference(state_dict, h):
     for i, (up, stage) in enumerate(zip(gen.ups, gen.resblocks)):
         conv(up, f"ups.{i}")
         for j, blk in enumerate(stage):
-            for n in (1, 2):
-                base = f"resblocks.{i}.{j}.convs{n}"
-                load(getattr(blk, f"w{n}"), np.stack([
+            for name, (w, b) in blk.conv_weights().items():
+                base = f"resblocks.{i}.{j}.{name}"
+                load(w, np.stack([
                     _collapse_weight_norm(sd, f"{base}.{m}").transpose(2, 1, 0)
-                    for m in range(len(DILATIONS))]))
-                load(getattr(blk, f"b{n}"), np.stack([
+                    for m in range(w.shape[0])]))
+                load(b, np.stack([
                     sd[f"{base}.{m}.bias"].detach().cpu().numpy()
-                    for m in range(len(DILATIONS))]))
+                    for m in range(w.shape[0])]))
     return gen
 
 
@@ -220,11 +295,10 @@ def generator_to_reference(gen):
         entry(f"ups.{i}", numpy(up.weight), numpy(up.bias))
     for i, stage in enumerate(gen.resblocks):
         for j, blk in enumerate(stage):
-            for n in (1, 2):
-                w = numpy(getattr(blk, f"w{n}"))
-                b = numpy(getattr(blk, f"b{n}"))
-                for m in range(len(DILATIONS)):
-                    entry(f"resblocks.{i}.{j}.convs{n}.{m}",
+            for name, (w, b) in blk.conv_weights().items():
+                w, b = numpy(w), numpy(b)
+                for m in range(w.shape[0]):
+                    entry(f"resblocks.{i}.{j}.{name}.{m}",
                           w[m].transpose(2, 1, 0), b[m])
     entry("conv_post", numpy(gen.conv_post.weight), numpy(gen.conv_post.bias))
     return sd

@@ -24,6 +24,7 @@ from radtts_tpu_torch.models.attributes import (attribute_model,
                                                 fold_group, unfold_group)
 from radtts_tpu_torch.models.coupling import AffineCoupling
 from radtts_tpu_torch.models.encoder import Encoder
+from radtts_tpu_torch.ops.amp import cast_in, cast_out
 from radtts_tpu_torch.ops.conv import ConvNorm
 from radtts_tpu_torch.ops.invertible import InvConv1x1, InvConv1x1LUS
 from radtts_tpu_torch.ops.length_regulator import regulate_length
@@ -64,6 +65,9 @@ class FlowStep(nn.Module):
 
 
 class RADTTS(nn.Module):
+    # a bf16 region around the context BiLSTM when set (ops/amp.py)
+    amp = False
+
     def __init__(self, model_config, factored=False):
         super().__init__()
         self.factored = factored
@@ -256,7 +260,8 @@ def preprocess_context(model, context, speaker_vecs, out_lens=None, f0=None,
         if meta["context_lstm_w_f0_and_energy"]:
             ctx = torch.cat([ctx] + extra, dim=-1)
         lens_g = None if out_lens is None else out_lens // g
-        ctx = model.context_lstm(ctx, lens_g)
+        ctx = cast_out(model.context_lstm(cast_in(ctx, model.amp), lens_g),
+                       model.amp)
     if not meta["context_lstm_w_f0_and_energy"]:
         ctx = torch.cat([ctx] + extra, dim=-1)
     return ctx
@@ -532,9 +537,10 @@ def _energy_postprocess(meta, energy):
 
 
 def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
-                 sigma_f0=0.8, sigma_energy=0.8,
-                 speaker_id_attributes=None, voiced_mask=None, f0_mean=0.0,
-                 f0_std=0.0, residual=None, z_f0=None, z_energy=None,
+                 sigma_f0=0.8, sigma_energy=0.8, speaker_id_text=None,
+                 speaker_id_attributes=None, f0=None, energy_avg=None,
+                 voiced_mask=None, f0_mean=0.0, f0_std=0.0, energy_mean=0.0,
+                 energy_std=0.0, residual=None, z_f0=None, z_energy=None,
                  in_lens=None, generator=None):
     """Attributes + inverse flow decode at a frame budget.
 
@@ -543,8 +549,13 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
     z_energy (B, max_frames, 2 with first-order features else 1) times
     sigma_f0 / sigma_energy, which the flow attribute models (BGAP, AGAP)
     sample from and a DAP ignores; residual (B, max_frames/g, n_mel*g)
-    times sigma, the decoder's. Returns a dict with mel (B, max_frames,
-    n_mel); frames past sum(dur) are to be sliced off."""
+    times sigma, the decoder's. f0 / energy_avg (B, max_frames), where
+    given, are used as they are and their predictor does not run (voice
+    conversion); f0_mean > 0 renormalizes f0, given or predicted.
+    speaker_id_text, energy_mean and energy_std are taken for the JAX
+    package's signature and change nothing, as there. Returns a dict with
+    mel (B, max_frames, n_mel); frames past sum(dur) are to be sliced
+    off."""
     meta = model.meta
     g = meta["n_group_size"]
     B = text.shape[0]
@@ -557,7 +568,6 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
     out_lens = dur.sum(1)
     txt_enc_time_expanded = regulate_length(txt_enc, dur, max_frames)
 
-    f0 = energy_avg = None
     if not is_attribute_unconditional(meta):
         if voiced_mask is None and meta["use_vpred_module"]:
             v_logits = attribute_model_infer(
@@ -584,18 +594,20 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
                                 device=txt_enc.device) * sig
             return z
 
-        f0_raw = attribute_model_infer(
-            model.f0_pred_module, ap_txt_enc, spk_vec_attrs, out_lens,
-            z=noise(model.f0_pred_module, z_f0, sigma_f0))
-        # energy takes spk_vec, not spk_vec_attrs, as in the JAX package
-        e_raw = attribute_model_infer(
-            model.energy_pred_module, ap_txt_enc, spk_vec, out_lens,
-            z=noise(model.energy_pred_module, z_energy, sigma_energy))
-        f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
-        energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
+        if f0 is None:
+            f0_raw = attribute_model_infer(
+                model.f0_pred_module, ap_txt_enc, spk_vec_attrs, out_lens,
+                z=noise(model.f0_pred_module, z_f0, sigma_f0))
+            f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
         if f0_mean > 0.0:
             f0 = renormalize_f0(f0, voiced_mask, f0_mean, f0_std,
                                 out_lens=out_lens)
+        if energy_avg is None:
+            # energy takes spk_vec, not spk_vec_attrs, as in the JAX package
+            e_raw = attribute_model_infer(
+                model.energy_pred_module, ap_txt_enc, spk_vec, out_lens,
+                z=noise(model.energy_pred_module, z_energy, sigma_energy))
+            energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
 
         if meta["decoder_use_unvoiced_bias"]:
             f0_ctx = f0 * voiced_mask + f0_bias

@@ -36,7 +36,26 @@ def weight_norm_weight(v, g):
 
 
 def conv1d(x, weight, bias=None, padding=0, dilation=1):
-    """x: (B, T, C_in); weight: (C_out, C_in, K) -> (B, T', C_out)."""
+    """x: (B, T, C_in); weight: (C_out, C_in, K) -> (B, T', C_out).
+
+    Mixed dtypes, as the JAX package's conv1d_apply takes them
+    (radtts_tpu/ops/conv.py:60-92): inside an AMP region (x bf16) the
+    weight and bias follow x, and the bias is added to the bf16 conv
+    output; a bf16-stored weight (ops/fold_norms.py) with an fp32 x
+    computes conv(bf16(x), w) with fp32 sums and an fp32 output, the JAX
+    package's preferred_element_type=float32. torch's bf16 conv would
+    round its output to bf16, so here both bf16 operands are widened to
+    fp32 at use (their products are exact in fp32); the weight stays
+    resident in bf16."""
+    if weight.dtype == torch.bfloat16 and x.dtype == torch.float32:
+        x = x.to(torch.bfloat16).float()
+        weight = weight.float()
+    elif x.dtype != weight.dtype:
+        weight = weight.to(x.dtype)
+    if x.dtype != torch.float32 and bias is not None:
+        y = F.conv1d(x.transpose(1, 2), weight, None, padding=padding,
+                     dilation=dilation)
+        return y.transpose(1, 2) + bias.to(x.dtype)
     y = F.conv1d(x.transpose(1, 2), weight, bias, padding=padding,
                  dilation=dilation)
     return y.transpose(1, 2)
@@ -62,7 +81,7 @@ def partial_conv1d(x, weight, bias, padding, dilation, mask=None):
     raw = conv1d(xm, weight, None, padding, dilation)
     if bias is None:
         return raw * ratio
-    return (raw * ratio + bias) * update_mask
+    return (raw * ratio + bias.to(x.dtype)) * update_mask
 
 
 class ConvNorm(nn.Module):

@@ -142,15 +142,18 @@ class MaskedLSTM(nn.Module):
         return out
 
     def _run(self, x):
-        """self.lstm(x)[0] of a tensor or a PackedSequence."""
-        if not self.factored:
-            return self.lstm(x)[0]
+        """self.lstm(x)[0] of a tensor or a PackedSequence. The weights,
+        biases and states follow x's dtype (bf16 in an AMP region)."""
         packed = isinstance(x, PackedSequence)
         data = x.data if packed else x
+        if not self.factored and data.dtype == self.lstm.weight_ih_l0.dtype:
+            return self.lstm(x)[0]
         n_dir = 2 if self.lstm.bidirectional else 1
         n_batch = int(x.batch_sizes[0]) if packed else x.shape[0]
         h0 = data.new_zeros(n_dir, n_batch, self.lstm.hidden_size)
-        weights = self.flat_weights()
+        weights = [w.to(data.dtype) for w in (
+            self.flat_weights() if self.factored
+            else self.lstm._flat_weights)]
         if packed:
             out = torch._VF.lstm(data, x.batch_sizes, (h0, h0), weights,
                                  True, 1, 0.0, self.training,

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from radtts_tpu_torch.ops.cuda_build import build_library
 
+KERNEL_SIZES = (3, 7, 11)   # the standard MRF (JAX ops/pallas_mrf.py)
 DILATIONS = (1, 3, 5)
 LRELU_SLOPE = 0.1
 

@@ -355,7 +355,8 @@ def build_server(argv=None):
         seed=args.seed, token_dur_scaling=args.token_dur_scaling,
         f0_mean=args.f0_mean, f0_std=args.f0_std,
         energy_mean=args.energy_mean, energy_std=args.energy_std,
-        bucket_single=True, device=args.device)
+        bucket_single=True, use_amp=args.use_amp,
+        weight_dtype=args.weight_dtype, device=args.device)
     print(f"[serve] loaded '{args.radtts_path}' on {synth.device}",
           flush=True)
 

@@ -6,8 +6,15 @@ raises when CUDA is absent; pass device="cpu" to run the plain path.
 Precision is pinned to full fp32 (no TF32 in cuDNN convolutions or cuBLAS
 matmuls): the 1024-wide WN couplings compound reduced-precision error over
 the 8 inverse flows.
+
+Two reduced-precision options, as the JAX engine has them: use_amp runs
+the durations and decode stages' bf16 regions (ops/amp.py; the vocoder
+and denoiser stay fp32), and weight_dtype="bfloat16" stores the RADTTS
+conv kernels in bf16 (ops/fold_norms.py:store_conv_weights, on a copy of
+the model; "auto" is fp32).
 """
 
+import copy
 import time
 
 import numpy as np
@@ -16,6 +23,8 @@ import torch
 from radtts_tpu_torch.data.dataset import data_factory
 from radtts_tpu_torch.models.hifigan import denoiser_apply
 from radtts_tpu_torch.models.radtts import infer_durations, radtts_infer
+from radtts_tpu_torch.ops import amp
+from radtts_tpu_torch.ops.fold_norms import store_conv_weights
 from radtts_tpu_torch.text.chunking import split_text_to_chunks
 from radtts_tpu_torch.train.checkpoint import load_radtts_for_inference
 from radtts_tpu_torch.vocoder_io import load_vocoder
@@ -47,7 +56,7 @@ class Synthesizer:
                  vocoder_config_path, *, seed=1234, token_dur_scaling=1.0,
                  token_duration_max=100, f0_mean=0.0, f0_std=0.0,
                  energy_mean=0.0, energy_std=0.0, bucket_single=False,
-                 device=None):
+                 use_amp=False, weight_dtype="auto", device=None):
         """Load the HiFi-GAN checkpoint and its JSON config, the RADTTS
         checkpoint (a reference state dict or the JAX package's .npz) and
         the speaker table and text frontend of config's training
@@ -72,7 +81,8 @@ class Synthesizer:
             token_dur_scaling=token_dur_scaling,
             token_duration_max=token_duration_max, f0_mean=f0_mean,
             f0_std=f0_std, energy_mean=energy_mean, energy_std=energy_std,
-            bucket_single=bucket_single, device=device)
+            bucket_single=bucket_single, use_amp=use_amp,
+            weight_dtype=weight_dtype, device=device)
         self.trainset = trainset
         self.load_phases = {"vocoder": t_voc - tic,
                             "checkpoint": t_ck - t_voc,
@@ -87,10 +97,11 @@ class Synthesizer:
                    hop_length=256, seed=1234, token_dur_scaling=1.0,
                    token_duration_max=100, f0_mean=0.0, f0_std=0.0,
                    energy_mean=0.0, energy_std=0.0, bucket_single=False,
-                   device=None):
+                   use_amp=False, weight_dtype="auto", device=None):
         """Build from in-memory modules (no checkpoint files).
         `encode_fn(text) -> int array`; `speaker_id_fn(name) -> int`.
-        The modules are moved to `device`."""
+        The modules are moved to `device`; with bf16 weights the model is
+        copied first, so the caller's keeps its fp32 kernels."""
         self = object.__new__(cls)
         self.trainset = None
         self._setup(model_config, model, vocoder, denoiser,
@@ -100,14 +111,18 @@ class Synthesizer:
                     token_duration_max=token_duration_max, f0_mean=f0_mean,
                     f0_std=f0_std, energy_mean=energy_mean,
                     energy_std=energy_std, bucket_single=bucket_single,
+                    use_amp=use_amp, weight_dtype=weight_dtype,
                     device=resolve_device(device))
         return self
 
     def _setup(self, model_config, model, vocoder, denoiser, *, encode_fn,
                speaker_id_fn, sampling_rate, hop_length, seed,
                token_dur_scaling, token_duration_max, f0_mean, f0_std,
-               energy_mean, energy_std, bucket_single, device):
+               energy_mean, energy_std, bucket_single, use_amp,
+               weight_dtype, device):
         self.device = device
+        self.use_amp = bool(use_amp)
+        self.weight_dtype = self.resolve_weight_dtype(weight_dtype)
         self.model_config = model_config
         self.group_size = model_config["n_group_size"]
         self.sampling_rate = sampling_rate
@@ -122,6 +137,13 @@ class Synthesizer:
         # (padded == exact, tested)
         self.bucket_single = bucket_single
         tic = time.perf_counter()
+        if self.weight_dtype == "bfloat16":
+            if any(getattr(m, "name", None) == "agap"
+                   for m in model.modules()):
+                raise NotImplementedError(
+                    "weight_dtype bfloat16 with an AGAP attribute model is "
+                    "not ported: its AR scan takes fp32 weights")
+            model = store_conv_weights(copy.deepcopy(model))
         self.model = model.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
         self.denoiser = denoiser.to(self.device).eval()
@@ -131,6 +153,16 @@ class Synthesizer:
         self._encode_fn = encode_fn
         self._speaker_id_fn = speaker_id_fn
         self.generator = torch.Generator(self.device).manual_seed(seed)
+
+    @staticmethod
+    def resolve_weight_dtype(weight_dtype):
+        """'auto' or None -> 'float32'; 'float32'; 'bfloat16'."""
+        if weight_dtype in (None, "auto", "float32"):
+            return "float32"
+        if weight_dtype == "bfloat16":
+            return "bfloat16"
+        raise ValueError(f"weight_dtype={weight_dtype!r}: expected 'auto', "
+                         "'float32' or 'bfloat16'")
 
     def encode(self, text):
         return np.asarray(self._encode_fn(text))
@@ -177,11 +209,12 @@ class Synthesizer:
         spk_text = self._ids(speaker_text, sid, B)
         spk_attr = self._ids(speaker_attributes, sid, B)
 
-        dur = infer_durations(
-            self.model, spk_text, text_b,
-            token_dur_scaling=self.token_dur_scaling,
-            token_duration_max=self.token_duration_max, in_lens=in_lens,
-            sigma_dur=sigma_tkndur, generator=self.generator)
+        with amp.scope(self.model, self.use_amp):
+            dur = infer_durations(
+                self.model, spk_text, text_b,
+                token_dur_scaling=self.token_dur_scaling,
+                token_duration_max=self.token_duration_max, in_lens=in_lens,
+                sigma_dur=sigma_tkndur, generator=self.generator)
         totals = dur.sum(1).cpu().numpy()
         if (totals < 1).any():  # untrained/degenerate duration guard
             valid = np.arange(N)[None, :] < lens[:, None]
@@ -190,11 +223,13 @@ class Synthesizer:
                                         device=self.device)
             totals = dur.sum(1).cpu().numpy()
         max_frames = frame_budget(totals.max(), self.group_size)
-        out = radtts_infer(
-            self.model, spk, text_b, sigma, max_frames, dur=dur,
-            sigma_f0=sigma_f0, sigma_energy=sigma_energy,
-            speaker_id_attributes=spk_attr, f0_mean=self.f0_mean,
-            f0_std=self.f0_std, in_lens=in_lens, generator=self.generator)
+        with amp.scope(self.model, self.use_amp):
+            out = radtts_infer(
+                self.model, spk, text_b, sigma, max_frames, dur=dur,
+                sigma_f0=sigma_f0, sigma_energy=sigma_energy,
+                speaker_id_attributes=spk_attr, f0_mean=self.f0_mean,
+                f0_std=self.f0_std, in_lens=in_lens,
+                generator=self.generator)
         # replicate the last valid frame into the padding so the vocoder's
         # receptive field sees no garbage at the boundary
         total = torch.as_tensor(totals, device=self.device)

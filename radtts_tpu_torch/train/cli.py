@@ -8,13 +8,14 @@ It reads the same config JSONs and -p dot-path overrides, writes config.json,
 checkpoints OUT/model_<iteration> and (where tensorboardX imports) its
 logs to train_config.output_directory, and prints one line per step as the
 JAX trainer does. It runs on CUDA unless --device names another device
-(cpu), in fp32.
+(cpu). train_config.use_amp runs the forward's bf16 regions
+(radtts_tpu_torch/ops/amp.py; a string from -p counts as true only when
+it reads 1, true, yes or on); train_config.optim_state_dtype bfloat16
+keeps the optimizer's moments in bf16.
 
 Options the port does not have yet are refused with an error, never
-ignored: train_config.use_amp true and optim_state_dtype other than
-float32 (ROADMAP.md A6), dist_config.n_model above 1 and WORLD_SIZE above 1
-(A8), and a non-empty profile_dir (A8). config_ljs_dap.json sets use_amp:
-run it with -p train_config.use_amp=false.
+ignored: dist_config.n_model above 1 and WORLD_SIZE above 1 (ROADMAP.md
+A8), and a non-empty profile_dir (A8).
 """
 
 import argparse
@@ -35,14 +36,11 @@ def _flag(value):
 def refusal(config):
     """The error for the first option the port does not have, or None."""
     tc = config["train_config"]
-    if _flag(tc.get("use_amp", False)):
-        return ("train_config.use_amp=true is not supported: the port "
-                "trains in fp32 only (ROADMAP.md A6); pass "
-                "-p train_config.use_amp=false")
-    if str(tc.get("optim_state_dtype") or "float32") != "float32":
+    if str(tc.get("optim_state_dtype") or "float32") not in ("float32",
+                                                              "bfloat16"):
         return (f"train_config.optim_state_dtype="
-                f"{tc['optim_state_dtype']} is not supported: the port "
-                "keeps fp32 optimizer moments (ROADMAP.md A6)")
+                f"{tc['optim_state_dtype']} is not supported: float32 or "
+                "bfloat16")
     if int(config.get("dist_config", {}).get("n_model", 1)) > 1:
         return ("dist_config.n_model > 1 (tensor parallelism) is not "
                 "supported: the port trains on one device (ROADMAP.md A8)")
@@ -81,4 +79,6 @@ def main(argv=None):
     error = refusal(config)
     if error:
         parser.error(error)
-    return train(config, device=args.device, **config["train_config"])
+    tc = dict(config["train_config"],
+              use_amp=_flag(config["train_config"].get("use_amp", False)))
+    return train(config, device=args.device, **tc)

@@ -8,7 +8,13 @@ sqrt(1 - b2^t) and eps outside it; lr / (1 - b1^t) * m while the
 rectification term N_sma < 5; weight decay adds wd * lr * p to the step.
 Adam: torch.optim.Adam's (L2 decay wd * p added to the gradient, eps after
 the bias correction of sqrt(v)). The step's scalars are computed in fp32,
-as the JAX package computes them. Both keep fp32 moments only.
+as the JAX package computes them.
+
+state_dtype "bfloat16" (train_config.optim_state_dtype) stores the moments
+m and v in bf16, halving their bytes; each step widens them to fp32,
+updates them and computes the step in fp32, then stores them rounded back
+to bf16, as the JAX package does (radtts_tpu/train/optim.py:72-74,
+106-108). None, "" or "float32" keeps fp32 moments.
 """
 
 import numpy as np
@@ -22,30 +28,54 @@ def _scalar(x):
 class _Moments(torch.optim.Optimizer):
     def __init__(self, params, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
                  weight_decay=0.0, state_dtype=None):
-        if state_dtype not in (None, "", "float32", torch.float32):
-            raise ValueError(f"optimizer state dtype {state_dtype!r}: only "
-                             "float32 moments are ported (ROADMAP.md A6)")
+        dtypes = {None: None, "": None, "float32": None,
+                  torch.float32: None, "bfloat16": torch.bfloat16,
+                  torch.bfloat16: torch.bfloat16}
+        if state_dtype not in dtypes:
+            raise ValueError(f"optimizer state dtype {state_dtype!r}: "
+                             "float32 or bfloat16 moments only")
+        self.state_dtype = dtypes[state_dtype]
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
                                       weight_decay=weight_decay))
 
     def _moments(self, group):
         """(params, grads, m, v, t) of a group; a parameter without a
-        gradient takes a zero one, as a masked JAX gradient is zero."""
+        gradient takes a zero one, as a masked JAX gradient is zero. With
+        bf16 state, m and v are fp32 copies (see _store)."""
         params, grads, ms, vs = [], [], [], []
         for p in group["params"]:
             state = self.state[p]
             if not state:
                 state["step"] = 0
-                state["exp_avg"] = torch.zeros_like(p)
-                state["exp_avg_sq"] = torch.zeros_like(p)
+                state["exp_avg"] = torch.zeros_like(p, dtype=self.state_dtype)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, dtype=self.state_dtype)
             state["step"] += 1
             params.append(p)
             grads.append(p.grad if p.grad is not None
                          else torch.zeros_like(p))
-            ms.append(state["exp_avg"])
-            vs.append(state["exp_avg_sq"])
+            ms.append(state["exp_avg"].to(p.dtype))
+            vs.append(state["exp_avg_sq"].to(p.dtype))
         t = self.state[group["params"][0]]["step"] if params else 0
         return params, grads, ms, vs, t
+
+    def load_state_dict(self, state_dict):
+        # torch.optim casts loaded moments to the parameters' dtype
+        super().load_state_dict(state_dict)
+        if self.state_dtype is not None:
+            for state in self.state.values():
+                for k in ("exp_avg", "exp_avg_sq"):
+                    if k in state:
+                        state[k] = state[k].to(self.state_dtype)
+
+    def _store(self, params, ms, vs):
+        """Round the updated moments back into bf16 state (a no-op with
+        fp32 state, whose m and v were updated in place)."""
+        if self.state_dtype is None:
+            return
+        for p, m, v in zip(params, ms, vs):
+            self.state[p]["exp_avg"].copy_(m)
+            self.state[p]["exp_avg_sq"].copy_(v)
 
     @staticmethod
     def _update_moments(grads, ms, vs, b1, b2):
@@ -87,6 +117,7 @@ class RAdam(_Moments):
                 torch._foreach_add_(delta, torch._foreach_mul(
                     params, _scalar(wd * lr)))
             torch._foreach_sub_(params, delta)
+            self._store(params, ms, vs)
 
 
 class Adam(_Moments):
@@ -111,6 +142,7 @@ class Adam(_Moments):
             delta = torch._foreach_mul(ms, _scalar(f(lr) / bias1))
             torch._foreach_div_(delta, denom)
             torch._foreach_sub_(params, delta)
+            self._store(params, ms, vs)
 
 
 def clip_grad_norm(params, max_norm):

@@ -27,6 +27,7 @@ import torch
 
 from radtts_tpu_torch.losses import attention_binarization_loss, radtts_loss
 from radtts_tpu_torch.models.radtts import RADTTS, radtts_forward
+from radtts_tpu_torch.ops import amp
 from radtts_tpu_torch.ops.lstm import spectral_norm_update
 from radtts_tpu_torch.train.checkpoint import (load_train_checkpoint,
                                                save_train_checkpoint,
@@ -122,14 +123,18 @@ def compute_loss(model, batch, model_config, loss_weights, sigma, binarize,
 
 def train_step(model, optimizer, trainable, batch, model_config,
                loss_weights, sigma, binarize, use_kl, grad_clip_val,
-               generator=None):
+               generator=None, use_amp=False):
     """One step in the JAX package's order: the power iteration, forward,
     losses, backward, the clip over the trainable gradients, RAdam.
+    use_amp runs the forward's bf16 regions (ops/amp.py), as the JAX
+    package's make_train_step wraps its loss; the master weights, the
+    gradients and the optimizer stay fp32, with no loss scaler.
     Returns (total, loss_dict, grad norm before the clip) as tensors."""
     spectral_norm_update(model)
-    total, loss_dict, _ = compute_loss(model, batch, model_config,
-                                       loss_weights, sigma, binarize,
-                                       use_kl, generator)
+    with amp.scope(model, use_amp):
+        total, loss_dict, _ = compute_loss(model, batch, model_config,
+                                           loss_weights, sigma, binarize,
+                                           use_kl, generator)
     optimizer.zero_grad(set_to_none=True)
     total.backward()
     for p in trainable:
@@ -253,11 +258,13 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
           include_layers, finetune_layers, warmstart_checkpoint_path,
           grad_clip_val, loss_weights, binarization_start_iter=-1,
           kl_loss_start_iter=-1, unfreeze_modules="all", log_interval=1,
-          optim_state_dtype="", device=None, **kwargs):
-    """The training loop (reference: train.py:300-455). Returns a record
-    per step: the iteration, its wall ms (host clock around the step and
-    the read-back of its losses, which waits for the device), the grad
-    norm and the losses."""
+          optim_state_dtype="", use_amp=False, device=None, **kwargs):
+    """The training loop (reference: train.py:300-455). use_amp runs each
+    step's forward in the bf16 regions (validation stays fp32, as in the
+    JAX package); optim_state_dtype "bfloat16" keeps bf16 moments.
+    Returns a record per step: the iteration, its wall ms (host clock
+    around the step and the read-back of its losses, which waits for the
+    device), the grad norm and the losses."""
     from radtts_tpu_torch.data.dataset import (DataCollate, DataLoader,
                                                data_factory)
     from radtts_tpu_torch.synthesizer import resolve_device
@@ -310,7 +317,8 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
             total, loss_dict, grad_norm = train_step(
                 model, optimizer, trainable, batch_to_device(batch, device),
                 model_config, loss_weights, sigma, binarize, use_kl,
-                grad_clip_val, step_generator(device, seed, iteration))
+                grad_clip_val, step_generator(device, seed, iteration),
+                use_amp=bool(use_amp))
             # one read-back for every logged scalar
             names = list(loss_dict)
             values = torch.stack([total, grad_norm.to(total.device)]

@@ -174,9 +174,55 @@ def test_cli_matches_jax_inference(fixtures, tmp_path, capsys):
         assert np.abs(got - want).max() <= 1e-4, name
 
 
+@pytest.mark.parametrize("flag", ["use_amp", "weight_dtype"])
+@pytest.mark.parametrize("cli", ["inference", "serve"])
+def test_honours_precision_flags(fixtures, tmp_path, monkeypatch, cli, flag):
+    """--use_amp runs the coupling predictors' bf16 regions and
+    --weight_dtype bfloat16 stores the RADTTS conv kernels in bf16, on
+    both CLIs; the audio comes out finite. (Their numbers against the
+    JAX package: tests/test_torch_amp.py.)"""
+    from radtts_tpu_torch import synthesizer
+    from radtts_tpu_torch.models import coupling
+
+    paths, _, _ = fixtures
+    casts, stored = [], []
+    real_cast, real_store = coupling.cast_in, synthesizer.store_conv_weights
+    monkeypatch.setattr(coupling, "cast_in", lambda x, on: casts.append(
+        real_cast(x, on).dtype) or real_cast(x, on))
+    monkeypatch.setattr(synthesizer, "store_conv_weights",
+                        lambda m: stored.append(real_store(m)) or m)
+    flags = (["--use_amp"] if flag == "use_amp"
+             else ["--weight_dtype", "bfloat16"])
+    text = tmp_path / "one.txt"
+    text.write_text("Short one!\n")
+    if cli == "inference":
+        written = inference.main(cli_args(
+            dict(paths, text=str(text)), tmp_path / "out", "--sigma", "0",
+            "--device", "cpu", *flags))
+        wav = wavfile.read(written[0])[1]
+    else:
+        from radtts_tpu_torch.serve import build_server
+        server, synth, _ = build_server([
+            "-c", paths["config"], "-r", paths["radtts"],
+            "-v", paths["vocoder"], "-k", paths["vocoder_config"],
+            "-s", "ljs", "--port", "0", "--device", "cpu", *flags])
+        server.server_close()
+        assert synth.use_amp == (flag == "use_amp")
+        assert synth.weight_dtype == ("bfloat16" if flag == "weight_dtype"
+                                      else "float32")
+        wav = synth.synthesize("Short one!", "ljs", sigma=0.0)[0][0]
+    assert np.isfinite(wav).all() and np.abs(wav).max() > 0
+    if flag == "use_amp":
+        assert torch.bfloat16 in casts and not stored
+    else:
+        assert set(casts) == {torch.float32} and len(stored) == 1
+        assert any(p.dtype == torch.bfloat16
+                   for p in stored[0].parameters())
+        assert all(p.dtype == torch.float32
+                   for p in stored[0].encoder.parameters())
+
+
 @pytest.mark.parametrize("flags,message", [
-    (["--use_amp"], "fp32 only"),
-    (["--weight_dtype", "bfloat16"], "fp32 weights"),
     (["--data_parallel", "2"], "one device"),
     (["--matmul_precision", "default"], "highest"),
 ])

@@ -179,9 +179,43 @@ def test_warmstart_with_frozen_decoder(config_path, trained, tmp_path):
     assert moved > 0
 
 
+@pytest.mark.parametrize("param", ["train_config.use_amp=true",
+                                   "train_config.optim_state_dtype=bfloat16"])
+def test_honours_precision_options(config_path, tmp_path, monkeypatch,
+                                   param):
+    """use_amp runs each step's forward in the bf16 regions (validation
+    in fp32); optim_state_dtype=bfloat16 keeps the optimizer's moments in
+    bf16, in the checkpoint too. Losses stay finite. (Their numbers
+    against the JAX package: tests/test_torch_amp.py.)"""
+    from radtts_tpu_torch.models import coupling
+
+    casts = []
+    real_cast = coupling.cast_in
+    monkeypatch.setattr(coupling, "cast_in", lambda x, on: casts.append(
+        (on, real_cast(x, on).dtype)) or real_cast(x, on))
+    config = json.loads(open(config_path).read())
+    config["train_config"].setdefault("optim_state_dtype", "")
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(config))
+    history = run(str(path), str(tmp_path), "train_config.epochs=2", param)
+    assert len(history) == 2
+    for h in history:
+        assert all(np.isfinite(v) for k, v in h.items()
+                   if isinstance(v, float)), h
+    state = torch.load(os.path.join(tmp_path, "model_0"),
+                       weights_only=True)["optimizer"]["state"]
+    dtypes = {t.dtype for st in state.values()
+              for k, t in st.items() if k.startswith("exp_avg")}
+    if "use_amp" in param:
+        assert (True, torch.bfloat16) in casts
+        assert (False, torch.float32) in casts      # validation
+        assert dtypes == {torch.float32}
+    else:
+        assert {on for on, _ in casts} == {False}
+        assert dtypes == {torch.bfloat16}
+
+
 @pytest.mark.parametrize("param,item", [
-    ("train_config.use_amp=true", "A6"),
-    ("train_config.optim_state_dtype=bfloat16", "A6"),
     ("dist_config.n_model=2", "A8"),
     ("train_config.profile_dir=prof", "A8"),
 ])

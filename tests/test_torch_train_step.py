@@ -132,8 +132,11 @@ def test_optimizer_update_math_matches_jax(name):
 
 
 def test_optimizer_refuses_reduced_state():
-    with pytest.raises(ValueError, match="A6"):
-        RAdam([torch.nn.Parameter(torch.zeros(2))], state_dtype="bfloat16")
+    """Moments in float32 or bfloat16 only (bfloat16:
+    tests/test_torch_amp.py)."""
+    for dtype in ("float16", torch.float16, "int8"):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            RAdam([torch.nn.Parameter(torch.zeros(2))], state_dtype=dtype)
 
 
 def test_trainable_mask_names():
