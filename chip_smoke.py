@@ -43,21 +43,33 @@ Phases, each printing a JSON or text line:
      mrf.stack_launches and mrf.launches (csrc/mrf.cu) by 0. Outputs must
      be finite and of the expected lengths; the decode and the vocoder of
      the 608-frame utterance are also held against the CPU plain path;
-  5b. AR scan kernel vs plain: ops/ar_scan.py:ar_scan
-     (csrc/ar_scan.cu) against ar_scan_plain on the card: one AR step of
+  5b. AR scan kernels vs plain: ops/ar_scan.py:ar_scan against
+     ar_scan_plain on the card at AR_SHAPES: one AR step of
      config_ljs_agap.json's f0 model at its published width, its zero-init
      head drawn at sd 0.02, at (1, 608), ragged (3, 608) with valid
-     lengths 608/411/97, ragged (8, 608) (one full group of 8 items) and
-     (16, 608) (two groups), and (2, 96) with the linear-spline and the
-     affine heads: within 1e-4 * max|plain|, with the kernel's and the
-     plain version's times, the bound and us per frame; then the block
-     count swept at (1, 608); then a second step of other weights, built
-     where the first was freed, against its own plain version;
+     lengths 608/411/97, ragged (8, 608) and (16, 608), and (2, 96) with
+     the linear-spline and the affine heads: csrc/ar_scan.cu's resident
+     kernel (the route ar_scan_plan names, asserted) within 1e-4 *
+     max|plain|, and the barrier kernel on the same inputs ("before"), with
+     both times, the plain version's, the bound and us per frame; the
+     resident kernel's block count swept at (1, 608); a second step of
+     other weights, built where the first was freed, against its own
+     plain version; then f0's and energy's steps paired in one launch at
+     (1, 608), (8, 608) ragged and (16, 608) against the two launched
+     apart and against plain, and at (24, 96), where the planner names a
+     launch each (asserted); a step of H = 1024, whose weights do not fit
+     the blocks' shared memory, on the barrier kernel (asserted); the
+     handoff probe (608 x 6 empty phases on the resident grid, joined by
+     the handoff and by the barrier kernel's grid barrier: the chain
+     floor); and the frame traced at (1, 608), one flow and the pair
+     (each phase's rows,
+     handoff and load, the attribute LSTM and the inverse, in us);
   5c. BGAP and AGAP serving: config_ljs_bgap.json and
      config_ljs_agap.json at their published widths with HiFi-GAN v1,
      random weights (seed 0; WN end convs at sd 0.002, the flows'
      zero-init last layers at sd 0.02) answer one request each, counted
-     from 0 (ar_scan 4 for AGAP, 0 for BGAP; mrf_tc 72), then the 608-frame
+     from 0 (ar_scan 2 for AGAP: f0's and energy's flows paired; 0 for
+     BGAP; mrf_tc 72), then the 608-frame
      utterance with stage times and the RTF, and f0, energy and mel held
      against the CPU plain path from the same z_f0, z_energy, residual and
      a seeded voiced mask (within 1e-3; f0 relative to its max);
@@ -91,11 +103,14 @@ Phases, each printing a JSON or text line:
      profiler, and one step at batch 2 on the card is held against the
      same step on the CPU plain path from the same state (losses and
      updates) and its generator gradients against the step in float64;
-  8. MAS kernel vs plain: ops/mas.py:mas (csrc/mas.cu) against mas_plain
-     on the card at (16, 512, 112), the flagship training batch, ragged
-     (3, 997, 61), an item with in_len > out_len, and (2, 2500, 100), whose
-     choices go to global scratch: the hard alignments must be equal; the
-     kernel's and the plain version's times and the bytes floor;
+  8. MAS kernels vs plain: ops/mas.py:mas against mas_plain on the card
+     at (16, 512, 112), the flagship training batch, ragged (3, 997, 61),
+     an item with in_len > out_len and (2, 2500, 100): csrc/mas.cu's warp
+     kernel (the route mas_route names, asserted) and the block kernel
+     kernel on the same inputs ("before"); then (2, 400, 300), whose 300
+     tokens take the block kernel (asserted): the hard alignments must be
+     equal; the kernels' and the plain version's times and the bytes
+     floor;
   9. RADTTS training path: python -m radtts_tpu_torch.train's main on a
      seeded dataset (16 training and 2 validation int16 wavs of 2-6 s,
      texts from filelists/): config_ljs_decoder.json at its published
@@ -112,7 +127,7 @@ Phases, each printing a JSON or text line:
      (durf0energyvpred) warm-started from the decoder's model_3, 2 steps
      each, counted from 0 (mas 6: two binarized steps and one validation
      a run; ar_scan 0), and one text served from each checkpoint through
-     the inference CLI (ar_scan 4 for AGAP, 0 for BGAP; mrf_tc 144);
+     the inference CLI (ar_scan 2 for AGAP, 0 for BGAP; mrf_tc 144);
      then voice conversion: python -m radtts_tpu_torch.
      inference_voice_conversion's main on the DAP checkpoint and the
      validation wavs, -n 2 at --sigma 0, injected features and
@@ -139,11 +154,12 @@ Phases, each printing a JSON or text line:
      BGAP's serving attributes stage and training step with the
      SimpleConvNets on and off cuDNN; and the energy model's float64
      gradients under fp32-sized noise in those convs (the relu flips);
- 12. the {"kernels": [...]} line with the six kernels (mrf_tc,
-     mrf_stack, mrf_conv, mel, mas, ar_scan) and their launches by path
-     (serve, serve_files, serve_v2, train, train_radtts, serve_bgap,
-     serve_agap, train_gap, serve_gap_files, vc, serve_amp, train_amp,
-     resblock2).
+ 12. the {"kernels": [...]} line with the eight kernels (mrf_tc,
+     mrf_stack, mrf_conv, mel, mas and mas_block, ar_scan and
+     ar_scan_barrier) and their launches by path (serve, serve_files,
+     serve_v2, train, train_radtts, serve_bgap, serve_agap, train_gap,
+     serve_gap_files, vc, serve_amp, train_amp, resblock2); the ar_scan
+     entry carries the chain floor.
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
@@ -1102,7 +1118,12 @@ DECODER_CONFIG = os.path.join(REPO, "configs", "config_ljs_decoder.json")
 MAS_SHAPES = [((16, 512, 112), None),          # the flagship training batch
               ((3, 997, 61), ([997, 640, 180], [61, 40, 17])),   # ragged
               ((2, 120, 90), ([120, 50], [90, 90])),   # in_len > out_len
-              ((2, 2500, 100), ([2500, 1700], [100, 64]))]  # choices global
+              ((2, 2500, 100), ([2500, 1700], [100, 64])),  # long
+              # the warp kernel's choices in global scratch (T x K words
+              # beside its ring exceed a block's shared memory)
+              ((1, 7000, 200), None)]
+# N > 256 tokens: mas_route gives the block kernel
+MAS_BLOCK_SHAPE = ((2, 400, 300), ([400, 260], [300, 211]))
 RADTTS_STEP = (16, 112, 512)       # bench_train.py's (B, N, T)
 RADTTS_TRAIN_WAVS, RADTTS_VAL_WAVS = 16, 2
 
@@ -1122,27 +1143,35 @@ def soft_attention(shape, lens, seed):
             torch.as_tensor(out_lens), torch.as_tensor(in_lens))
 
 
-def phase_mas_kernel(mas_mod, dev):
-    """csrc/mas.cu against mas_plain on the card: the hard alignments must
-    be equal. Times of both (CUDA events); the bound is the bytes floor
-    (B*T*N fp32 read and written at 3.35 TB/s; ~4 operations a cell are
-    far below it), though what bounds the kernel is the dependence over
-    frames."""
+def phase_mas_kernel(mas_mod, dev, power):
+    """csrc/mas.cu against mas_plain on the card: at every MAS_SHAPES entry
+    the warp kernel (the route mas_route names there; asserted: one warp
+    launch), and the block kernel on the same inputs (route="block",
+    its time "before"); then MAS_BLOCK_SHAPE, whose N > 256 the planner
+    gives the block kernel (asserted). The hard alignments must be equal.
+    Times of all (CUDA events); the bound is the bytes floor (B*T*N fp32
+    read and written at 3.35 TB/s; ~4 operations a cell are far below
+    it), though what bounds the kernels is the dependence over frames."""
     rows = []
-    for i, (shape, lens) in enumerate(MAS_SHAPES):
+    shapes = [(s, l, False) for s, l in MAS_SHAPES] + [
+        (*MAS_BLOCK_SHAPE, True)]
+    for i, (shape, lens, forced) in enumerate(shapes):
         attn, out_lens, in_lens = soft_attention(shape, lens, 20 + i)
         attn, out_lens, in_lens = (attn.to(dev), out_lens.to(dev),
                                    in_lens.to(dev))
+        B, T, N = shape
+        before = (mas_mod.mas.launches, mas_mod.mas.block_launches)
         got = mas_mod.mas(attn, out_lens, in_lens)
+        routed = (mas_mod.mas.launches - before[0],
+                  mas_mod.mas.block_launches - before[1])
         want = mas_mod.mas_plain(attn, out_lens, in_lens)
         torch.cuda.synchronize()
         n_diff = int((got != want).sum())
-        B, T, N = shape
         t_bytes = 2 * 4.0 * B * T * N / HBM_BYTES
         t_ops = 4.0 * B * T * N / FP32_FLOPS
-        row = {"phase": "mas_kernel_vs_plain", "shape": list(shape),
-               "in_smem": mas_mod._lib.radtts_mas_smem_bytes(T, N) > 0,
-               "cells_different": n_diff,
+        row = {"phase": "mas_kernel_vs_plain", "card": power,
+               "shape": list(shape), "route": mas_mod.mas_route(N),
+               "routed": routed, "cells_different": n_diff,
                "ones": int(want.sum()),
                "max_abs_err": (got - want).abs().max().item(),
                "ms": cuda_ms(lambda: mas_mod.mas(attn, out_lens, in_lens)),
@@ -1151,11 +1180,24 @@ def phase_mas_kernel(mas_mod, dev):
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes_floor_ms": t_bytes * 1e3}
+        if forced:
+            row["block_smem_bytes"] = mas_mod._lib.radtts_mas_smem_bytes(T, N)
+            want_routed = (0, 1)
+        else:
+            row["warp_choices_in_smem"] = \
+                mas_mod._lib.radtts_mas_warp_scratch_words(B, T, N) == 0
+            old = mas_mod.mas_cuda(attn, out_lens, in_lens, route="block")
+            torch.cuda.synchronize()
+            row["before_cells_different"] = int((old != want).sum())
+            row["before_ms"] = cuda_ms(lambda: mas_mod.mas_cuda(
+                attn, out_lens, in_lens, route="block"))
+            n_diff += row["before_cells_different"]
+            want_routed = (1, 0)
         log(row)
         rows.append(row)
-        if n_diff:
-            raise AssertionError(f"mas kernel differs from mas_plain at "
-                                 f"{shape} in {n_diff} cells")
+        if n_diff or routed != want_routed:
+            raise AssertionError(f"mas at {shape}: {n_diff} cells differ "
+                                 f"from mas_plain, routed {routed}")
     return rows
 
 
@@ -1202,17 +1244,21 @@ def _counts(mas_mod, mel_mod, mrf_mod):
     return {"mas": mas_mod.mas.launches, "mel": mel_mod.mel.launches,
             "mrf_tc": mrf_mod.mrf.tc_launches,
             "mrf_stack": mrf_mod.mrf.stack_launches,
-            "mrf_conv": mrf_mod.mrf.launches, "ar_scan": ar_scan.launches}
+            "mrf_conv": mrf_mod.mrf.launches, "ar_scan": ar_scan.launches,
+            "mas_block": mas_mod.mas.block_launches,
+            "ar_scan_barrier": ar_scan.barrier_launches}
 
 
 def _reset_counts(mas_mod, mel_mod, mrf_mod):
     from radtts_tpu_torch.ops.ar_scan import ar_scan
     mas_mod.mas.launches = 0
+    mas_mod.mas.block_launches = 0
     mel_mod.mel.launches = 0
     mrf_mod.mrf.tc_launches = 0
     mrf_mod.mrf.stack_launches = 0
     mrf_mod.mrf.launches = 0
     ar_scan.launches = 0
+    ar_scan.barrier_launches = 0
 
 
 def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
@@ -1331,10 +1377,12 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
             or [h["iteration"] for h in runs["resume"]] != [4]
             or len(runs["dap"]) != 2
             or launches != {"mas": want_mas, "mel": 0, "mrf_tc": 0,
-                            "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0}
+                            "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0,
+                            "mas_block": 0, "ar_scan_barrier": 0}
             or serve_launches != {"mas": 0, "mel": 0, "mrf_tc": 2 * 72,
                                   "mrf_stack": 0, "mrf_conv": 0,
-                                  "ar_scan": 0}
+                                  "ar_scan": 0,
+                                  "mas_block": 0, "ar_scan_barrier": 0}
             or frozen_equal < 100):
         raise AssertionError(f"curriculum {curr}, launches {launches}, "
                              f"serving {serve_launches}, {frozen_equal} "
@@ -1559,7 +1607,7 @@ AR_SHAPES = [((1, MAX_FRAMES), None, "quadratic"),
               "quadratic"),
              ((16, MAX_FRAMES), None, "quadratic"),
              ((2, 96), None, "linear"), ((2, 96), (96, 41), "affine")]
-AR_BLOCKS = [8, 16, 33, 66, 132, 264]
+AR_BLOCKS = [66, 88, 110, 132]
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 
 
@@ -1626,62 +1674,94 @@ def ar_bound(params, B, T, C):
             flop / 1e6, nbytes / 1e6)
 
 
+def _ar_counts(ar_mod):
+    return (ar_mod.ar_scan.launches, ar_mod.ar_scan.barrier_launches)
+
+
+def _routed(ar_mod, before):
+    """(resident, barrier) launches since `before`."""
+    now = _ar_counts(ar_mod)
+    return (now[0] - before[0], now[1] - before[1])
+
+
 def phase_ar_scan_kernel(ar_mod, dev, power):
-    """csrc/ar_scan.cu against ar_scan_plain on the card at AR_SHAPES:
-    within 1e-4 * max|plain| (fp32 mat-vecs summed in another order over
-    a recurrence), the step acting (output off the residual), the
-    kernel's and the plain version's times, the bound and the us per
-    frame; then the block count swept at (1, 608), each output within the
-    same limit of the default's."""
+    """The resident kernel of csrc/ar_scan.cu, the route ar_scan_plan names
+    at every AR_SHAPES entry (asserted: one resident launch, no barrier-kernel
+    launch), against ar_scan_plain on the card within 1e-4 * max|plain|
+    (fp32 mat-vecs summed in another order over a recurrence), the step
+    acting (output off the residual); its time beside the barrier kernel's on
+    the same inputs ("before", also held against plain), the plain
+    version's, the bound and the us per frame; then the resident kernel's
+    block count swept at (1, 608), each output within the same limit of
+    the default's; then a second step of other weights, built where the
+    first was freed, against its own plain version."""
     rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape, lens, head in AR_SHAPES:
         step = ar_step_at_width(head, dev)
         params, res, cproj = ar_inputs(step, shape, lens, dev, seed=11)
+        B, T = shape
+        plan = ar_mod.ar_scan_plan([params], B, sms)
         with torch.no_grad():
+            before = _ar_counts(ar_mod)
             got = ar_mod.ar_scan(params, res, cproj)
+            routed = _routed(ar_mod, before)
             want = ar_mod.ar_scan_plain(params, res, cproj)
+            old = ar_mod.ar_scan_cuda(params, res, cproj)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
+            old_err = (old - want).abs().max().item()
             scale = want.abs().max().item()
             moved = (want - res).abs().max().item()
-            ms = cuda_ms(lambda: ar_mod.ar_scan_cuda(params, res, cproj))
+            ms = cuda_ms(lambda: ar_mod.ar_scan(params, res, cproj))
+            before_ms = cuda_ms(lambda: ar_mod.ar_scan_cuda(params, res,
+                                                            cproj))
             plain_ms = cuda_ms(
                 lambda: ar_mod.ar_scan_plain(params, res, cproj), reps=2,
                 warmup=1, min_ms=0.0)
-        B, T = shape
         bound_ms, bound_by, mflop, mb = ar_bound(params, B, T, res.shape[2])
         row = {"shape": [B, T, res.shape[2]], "lens": lens, "head": head,
-               "blocks": min(ar_mod.max_blocks(params, B, res.shape[2],
-                                               128),
-                             torch.cuda.get_device_properties(
-                                 dev).multi_processor_count),
-               "ms": ms, "plain_ms": plain_ms, "us_per_frame": ms * 1e3 / T,
+               "route": plan[0]["route"], "blocks": plan[0]["blocks"],
+               "smem_bytes": plan[0]["smem"],
+               "weight_bytes_per_block_max": 4 * int(
+                   plan[0]["plans"][0]["img_floats"].max()),
+               "handoffs_per_frame": len(params["lstm"])
+               + len(params["head"]),
+               "ms": ms, "before_ms": before_ms, "plain_ms": plain_ms,
+               "us_per_frame": ms * 1e3 / T,
+               "before_us_per_frame": before_ms * 1e3 / T,
                "bound_ms": bound_ms, "bound_by": bound_by, "mflop": mflop,
-               "mbytes": mb, "max_abs_err": err, "max_abs_plain": scale,
-               "max_change": moved, "library_ms": None}
+               "mbytes": mb, "max_abs_err": err, "before_max_abs_err": old_err,
+               "max_abs_plain": scale, "max_change": moved,
+               "library_ms": None}
         log({"phase": "ar_scan_kernel_vs_plain", "card": power, **row})
-        if not err <= 1e-4 * scale or not moved > 1e-2:
-            raise AssertionError(f"ar_scan at {shape} {head}: err {err} "
-                                 f"of {scale}, change {moved}")
+        if (routed != (1, 0) or plan[0]["route"] != "resident"
+                or not err <= 1e-4 * scale or not old_err <= 1e-4 * scale
+                or not moved > 1e-2):
+            raise AssertionError(f"ar_scan at {shape} {head}: routed "
+                                 f"{routed}, err {err} (barrier kernel "
+                                 f"{old_err}) of {scale}, change {moved}")
         rows.append(row)
     step = ar_step_at_width("quadratic", dev)
     params, res, cproj = ar_inputs(step, AR_SHAPES[0][0], None, dev, 11)
-    limit = ar_mod.max_blocks(params, 1, 1, 128)
     sweep = []
     with torch.no_grad():
-        ref = ar_mod.ar_scan_cuda(params, res, cproj)
-        for nb in [b for b in AR_BLOCKS if b <= limit]:
-            out = ar_mod.ar_scan_cuda(params, res, cproj, blocks=nb)
+        ref = ar_mod.ar_scan(params, res, cproj)
+        for nb in AR_BLOCKS:
+            before = _ar_counts(ar_mod)
+            out = ar_mod.ar_scan_multi([(params, res, cproj)], blocks=nb)[0]
+            if _routed(ar_mod, before) != (1, 0):
+                continue             # the weights do not fit nb blocks
             diff = (out - ref).abs().max().item()
-            ms = cuda_ms(lambda: ar_mod.ar_scan_cuda(params, res, cproj,
-                                                     blocks=nb))
+            ms = cuda_ms(lambda: ar_mod.ar_scan_multi(
+                [(params, res, cproj)], blocks=nb))
             sweep.append({"blocks": nb, "ms": ms,
                           "us_per_frame": ms * 1e3 / MAX_FRAMES,
                           "max_abs_diff_vs_default": diff})
             if not diff <= 1e-4 * ref.abs().max().item():
                 raise AssertionError(f"ar_scan blocks={nb}: {diff}")
     log({"phase": "ar_scan_blocks", "card": power, "shape": [1, MAX_FRAMES],
-         "max_resident_blocks": limit, "sweep": sweep})
+         "sweep": sweep})
     # a second step built where the first was freed (the caching allocator
     # hands it the same blocks): the kernel must run the second's weights
     del step, params, ref, out
@@ -1703,6 +1783,171 @@ def phase_ar_scan_kernel(ar_mod, dev, power):
     if not apart > 1e-2:
         raise AssertionError(f"ar_scan: two models' outputs equal ({apart})")
     return rows, sweep
+
+
+# (B, T), valid lengths: f0's and energy's steps paired in one launch
+AR_PAIRS = [((1, MAX_FRAMES), None), ((8, MAX_FRAMES),
+                                      (608, 577, 501, 411, 320, 256, 97, 1)),
+            ((16, MAX_FRAMES), None)]
+AR_APART = ((24, 96), None)      # the pair does not fit one launch: two
+
+
+def phase_ar_scan_pair(ar_mod, dev, power):
+    """Two published AGAP steps of other weights (f0's and energy's shape)
+    at AR_PAIRS: one resident launch of both (asserted) against the two
+    run one after the other (two launches) and against plain, within 1e-4
+    * max; both times. Then AR_APART, where the planner names a resident
+    launch each (asserted: two launches, no barrier-kernel launch)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    steps = [ar_step_at_width("quadratic", dev, seed=s) for s in (0, 1)]
+    rows = []
+    for shape, lens in AR_PAIRS + [AR_APART]:
+        problems = [ar_inputs(st, shape, lens, dev, seed=11 + k)
+                    for k, st in enumerate(steps)]
+        plan = ar_mod.ar_scan_plan([p[0] for p in problems], shape[0], sms)
+        with torch.no_grad():
+            before = _ar_counts(ar_mod)
+            pair = ar_mod.ar_scan_multi(problems)
+            routed = _routed(ar_mod, before)
+            alone = [ar_mod.ar_scan(*p) for p in problems]
+            plain = [ar_mod.ar_scan_plain(*p) for p in problems]
+            torch.cuda.synchronize()
+            scale = max(w.abs().max().item() for w in plain)
+            err = max((g - w).abs().max().item() for g, w in zip(pair, plain))
+            vs_alone = max((g - a).abs().max().item()
+                           for g, a in zip(pair, alone))
+            pair_ms = cuda_ms(lambda: ar_mod.ar_scan_multi(problems))
+            alone_ms = cuda_ms(lambda: [ar_mod.ar_scan(*p)
+                                        for p in problems])
+        B, T = shape
+        bound = [ar_bound(p[0], B, T, 1) for p in problems]
+        row = {"shape": [B, T, 1], "lens": lens,
+               "routes": [lc["route"] for lc in plan],
+               "launches": [lc["problems"] for lc in plan],
+               "blocks": [[pl["blocks"] for pl in lc["plans"]] for lc in plan],
+               "smem_bytes": [lc["smem"] for lc in plan],
+               "paired_ms": pair_ms, "two_launches_ms": alone_ms,
+               "bound_ms": sum(b[0] for b in bound),
+               "max_abs_err": err, "max_abs_diff_vs_alone": vs_alone,
+               "max_abs_plain": scale, "routed": routed}
+        log({"phase": "ar_scan_pair", "card": power, **row})
+        want = (len(plan), 0)
+        if (routed != want or not err <= 1e-4 * scale
+                or not vs_alone <= 1e-4 * scale
+                or (shape != AR_APART[0]) != (len(plan) == 1)):
+            raise AssertionError(f"ar_scan pair at {shape}: {row}")
+        rows.append(row)
+    return rows
+
+
+def wide_step(dev, H=1024, seed=3):
+    """A step no configuration gives: H = 1024 with the dense affine head
+    (~50 MB of weights, more than 132 blocks' shared memory), seeded."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen)
+                / math.sqrt(shape[-1])).to(dev)
+    return {"attr": (rnd(4 * H, 1), rnd(4 * H, H),
+                     (rnd(4 * H), rnd(4 * H))),
+            "lstm": [(rnd(4 * H, H), rnd(4 * H, H), None)],
+            "head": [(rnd(H, H), rnd(H), "tanh"), (rnd(2, H), rnd(2), None)],
+            "kind": "affine", "scaling_fn": "tanh"}
+
+
+def phase_ar_scan_barrier_route(ar_mod, dev, power):
+    """wide_step at (1, 32): the planner names the barrier kernel by shape
+    (asserted: one barrier launch, no resident launch), within 1e-4 * max
+    of plain."""
+    params = wide_step(dev)
+    gen = torch.Generator().manual_seed(4)
+    res = (torch.randn(1, 32, 1, generator=gen) * 0.8).to(dev)
+    cproj = torch.randn(1, 32, 4 * 1024, generator=gen).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ar_mod.ar_scan_plan([params], 1, sms)
+    with torch.no_grad():
+        before = _ar_counts(ar_mod)
+        got = ar_mod.ar_scan(params, res, cproj)
+        routed = _routed(ar_mod, before)
+        want = ar_mod.ar_scan_plain(params, res, cproj)
+        torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    row = {"shape": [1, 32, 1], "H": 1024, "route": plan[0]["route"],
+           "routed": routed, "max_abs_err": err, "max_abs_plain": scale,
+           "weight_bytes": ar_mod.weight_bytes(params)}
+    log({"phase": "ar_scan_barrier_route", "card": power, **row})
+    if routed != (0, 1) or plan[0]["route"] != "barrier" \
+            or not err <= 1e-4 * scale:
+        raise AssertionError(f"ar_scan barrier route: {row}")
+    return row
+
+
+def phase_ar_scan_trace(ar_mod, dev, power):
+    """Where a resident launch's frame goes: block 0's clock at each phase
+    boundary (ar_scan_multi(..., trace=)), one flow at (1, 608) and the
+    f0 + energy pair at (1, 608); per frame (mean over frames 1..607, us):
+    the attribute LSTM, then each phase's rows, its handoff (the wait for
+    the slowest producer included) and its input's load, then the
+    inverse. With the launch's time traced and not (the trace's cost)."""
+    steps = [ar_step_at_width("quadratic", dev, seed=s) for s in (0, 1)]
+    problems = [ar_inputs(st, (1, MAX_FRAMES), None, dev, seed=11 + k)
+                for k, st in enumerate(steps)]
+    out = {}
+    for name, probs in (("one", problems[:1]), ("pair", problems)):
+        n_phases = len(probs[0][0]["lstm"]) + len(probs[0][0]["head"])
+        with torch.no_grad():
+            trace = ar_mod.trace_buffer(dev)
+            ar_mod.ar_scan_multi(probs, trace=trace)
+            torch.cuda.synchronize()
+            tr = trace.cpu().numpy()[:MAX_FRAMES].astype(np.float64) / 1e3
+            plain = cuda_ms(lambda: ar_mod.ar_scan_multi(probs))
+            traced = cuda_ms(lambda: ar_mod.ar_scan_multi(
+                probs, trace=ar_mod.trace_buffer(dev)))
+        frames = slice(1, MAX_FRAMES - 1)
+
+        def mean(a, b):
+            return float(np.mean(tr[frames, b] - tr[frames, a]))
+        phases = [{"rows_us": mean(1 if p == 0 else 3 * p + 1, 3 * p + 2),
+                   "handoff_us": mean(3 * p + 2, 3 * p + 3),
+                   "load_us": mean(3 * p + 3, 3 * p + 4)}
+                  for p in range(n_phases)]
+        last = 3 * n_phases + 2
+        out[name] = {
+            "frame_us": float(np.mean(tr[2:MAX_FRAMES, 0]
+                                      - tr[1:MAX_FRAMES - 1, 0])),
+            "attr_us": mean(0, 1), "phases": phases,
+            "inverse_us": mean(last - 1, last),
+            "handoffs_us": sum(p["handoff_us"] for p in phases),
+            "loads_us": sum(p["load_us"] for p in phases),
+            "rows_us": sum(p["rows_us"] for p in phases),
+            "ms": plain, "traced_ms": traced}
+    log({"phase": "ar_scan_trace", "card": power, **out})
+    return out
+
+
+def phase_handoff_probe(ar_mod, dev, power, blocks, smem, n_phases, T):
+    """csrc/ar_scan.cu's handoff_probe_kernel on the resident launch's grid
+    (blocks, smem) at (1, 608): T x n_phases empty phases joined by the
+    handoff, and by the barrier kernel's grid barrier. Its time is the chain
+    floor of a resident launch; the counters must end at T x blocks (the
+    handoff) and the barrier's generation at T x n_phases."""
+    out = {"blocks": blocks, "smem_bytes": smem, "phases": n_phases,
+           "frames": T}
+    for mode in ("handoff", "barrier"):
+        ctr = ar_mod.handoff_probe(n_phases, T, mode, blocks, smem, dev)
+        torch.cuda.synchronize()
+        c = ctr.cpu().tolist()
+        ok = (c[2:] == [T * blocks] * n_phases if mode == "handoff"
+              else c[:2] == [0, T * n_phases])
+        if not ok:
+            raise AssertionError(f"handoff probe {mode}: counters {c}")
+        ms = cuda_ms(lambda: ar_mod.handoff_probe(n_phases, T, mode, blocks,
+                                                  smem, dev))
+        out[f"{mode}_ms"] = ms
+        out[f"{mode}_us_each"] = ms * 1e3 / (T * n_phases)
+    log({"phase": "handoff_probe", "card": power, **out})
+    return out
 
 
 def gap_parts(kind, dev):
@@ -1733,14 +1978,17 @@ def gap_parts(kind, dev):
 def phase_serve_gap(kind, vocoder, denoiser, tp, mods, dev, power):
     """A Synthesizer of gap_parts(kind) with HiFi-GAN v1 answers one
     request (TEXTS[1], sigma_f0 = sigma_energy = 0.8), its launches
-    counted from 0: ar_scan 4 for AGAP (2 AR flows x f0 and energy), 0 for
+    counted from 0: ar_scan 2 for AGAP (2 AR flows, f0's and energy's steps
+    paired in one launch each), 0 for
     BGAP, mrf_tc 72 (one generator call). Then the 608-frame flagship
-    utterance runs with stage times (durations; attributes alone;
+    utterance runs with stage times (durations; attributes alone, AGAP's
+    f0 and energy paired as radtts_infer pairs them;
     attributes + decode; vocoder + denoiser; medians of 3) and the RTF,
     and f0, energy and mel on the card against the CPU plain path from
     the same z_f0, z_energy, residual and a seeded voiced mask: within
     1e-3 (f0 relative to its max, in Hz)."""
-    from radtts_tpu_torch.models.attributes import attribute_model_infer
+    from radtts_tpu_torch.models.attributes import (agap_infer_multi,
+                                                    attribute_model_infer)
     from radtts_tpu_torch.models.hifigan import denoiser_apply
     from radtts_tpu_torch.models.radtts import (apply_voice_mask_to_text,
                                                 encode_speaker, encode_text,
@@ -1789,6 +2037,10 @@ def phase_serve_gap(kind, vocoder, denoiser, tp, mods, dev, power):
             model.v_pred_module, x, spk_vec, dur.sum(1))[..., 0]) > 0.5
               ).float()
         x = apply_voice_mask_to_text(model, x, vm)
+        if kind == "agap":     # as radtts_infer: the two in lock step
+            return agap_infer_multi(
+                [model.f0_pred_module, model.energy_pred_module],
+                [z_f0, z_e], [x, x], [spk_vec, spk_vec], dur.sum(1))
         return [attribute_model_infer(m, x, spk_vec, dur.sum(1), z=z)
                 for m, z in ((model.f0_pred_module, z_f0),
                              (model.energy_pred_module, z_e))]
@@ -1824,7 +2076,7 @@ def phase_serve_gap(kind, vocoder, denoiser, tp, mods, dev, power):
     for key in ("f0", "energy_avg", "mel"):
         errs[key] = (out[key].cpu() - ref[key]).abs().max().item()
         errs[key + "_max_abs"] = ref[key].abs().max().item()
-    want_ar = 4 if kind == "agap" else 0
+    want_ar = 2 if kind == "agap" else 0
     log({"phase": f"serve_{kind}", "card": power, "frames": MAX_FRAMES,
          "stage_ms": med, "stage_ms_all": stage, "rtf": rtf,
          "first_decode_ms": t_dec, "first_vocoder_ms": t_voc,
@@ -1833,7 +2085,8 @@ def phase_serve_gap(kind, vocoder, denoiser, tp, mods, dev, power):
          "voiced_frames": int(out["voiced_mask"].sum())})
     if (launches["ar_scan"] != want_ar or launches["mrf_tc"] != 72
             or launches["mas"] or launches["mel"] or launches["mrf_stack"]
-            or launches["mrf_conv"]):
+            or launches["mrf_conv"] or launches["mas_block"]
+            or launches["ar_scan_barrier"]):
         raise AssertionError(f"serve_{kind} launches {launches}")
     if not (errs["f0_max_abs"] > 0 and
             errs["f0"] <= 1e-3 * errs["f0_max_abs"]
@@ -1854,7 +2107,7 @@ def phase_train_gap(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
     one text through python -m radtts_tpu_torch.inference's main. Counted
     from 0 before the first run and read after the last training run
     (mas: 2 binarized steps and 1 validation batch a run; ar_scan 0), the
-    serving apart (ar_scan 4 for AGAP's text, 0 for BGAP's)."""
+    serving apart (ar_scan 2 for AGAP's text, 0 for BGAP's)."""
     from radtts_tpu_torch.inference import main as inference_main
     from radtts_tpu_torch.train import main as train_main
 
@@ -1907,9 +2160,12 @@ def phase_train_gap(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
          "launches": launches, "serve": serve})
     if (any(len(hs) != 2 for hs in runs.values())
             or launches != {"mas": 6, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
-                            "mrf_conv": 0, "ar_scan": 0}
-            or serve["agap"]["launches"]["ar_scan"] != 4
+                            "mrf_conv": 0, "ar_scan": 0,
+                            "mas_block": 0, "ar_scan_barrier": 0}
+            or serve["agap"]["launches"]["ar_scan"] != 2
             or serve["bgap"]["launches"]["ar_scan"] != 0
+            or any(v["launches"]["ar_scan_barrier"]
+                   or v["launches"]["mas_block"] for v in serve.values())
             or any(v["launches"]["mrf_tc"] != 2 * 72
                    for v in serve.values())):
         raise AssertionError(f"train_gap: steps "
@@ -2297,7 +2553,8 @@ def phase_vc(mods, dev, power, root, dap_ckpt, dap_config):
         wavs = [_check_wav(p, p) for p in written]
         want = {"mas": VC_SAMPLES, "mel": 0,
                 "mrf_tc": 72 * (VC_SAMPLES + 1), "mrf_stack": 0,
-                "mrf_conv": 0, "ar_scan": 0}
+                "mrf_conv": 0, "ar_scan": 0,
+                "mas_block": 0, "ar_scan_barrier": 0}
         if len(written) != VC_SAMPLES or launches != want:
             raise AssertionError(f"vc {mode}: {len(written)} wavs, "
                                  f"launches {launches} != {want}")
@@ -2547,7 +2804,8 @@ def phase_amp_serve(config, model, vocoder, denoiser, tp, mods, dev, power):
          "generator_calls": n_calls, "amp_decode_profile": profile,
          "amp_lstm_kernels": n_lstm})
     if launches != {"mas": 0, "mel": 0, "mrf_tc": 72 * n_calls,
-                    "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0}:
+                    "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0,
+                    "mas_block": 0, "ar_scan_barrier": 0}:
         raise AssertionError(f"amp serve launches {launches}, "
                              f"{n_calls} generator calls")
     for name, row in rows.items():
@@ -2623,7 +2881,8 @@ def phase_amp_train(mods, dev, power, root, files, dec_ckpt):
             or any(rows[k]["optimizer_state_dtypes"] != v
                    for k, v in want_dtypes.items())
             or launches != {"mas": 6, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
-                            "mrf_conv": 0, "ar_scan": 0}):
+                            "mrf_conv": 0, "ar_scan": 0,
+                            "mas_block": 0, "ar_scan_barrier": 0}):
         raise AssertionError(f"amp train: {rows}, launches {launches}")
     return launches
 
@@ -2758,6 +3017,12 @@ def main():
     files_launches = phase_serve_files(synth, mrf_mod, dev, power)
     mods = (mas_mod, mel_mod, mrf_mod)
     ar_rows, ar_sweep = phase_ar_scan_kernel(ar_mod, dev, power)
+    ar_pairs = phase_ar_scan_pair(ar_mod, dev, power)
+    ar_wide = phase_ar_scan_barrier_route(ar_mod, dev, power)
+    probe = phase_handoff_probe(
+        ar_mod, dev, power, ar_rows[0]["blocks"], ar_rows[0]["smem_bytes"],
+        ar_rows[0]["handoffs_per_frame"], MAX_FRAMES)
+    ar_trace = phase_ar_scan_trace(ar_mod, dev, power)
     gap_launches = {kind: phase_serve_gap(kind, vocoder, denoiser, tp, mods,
                                           dev, power)
                     for kind in GAP_CONFIGS}
@@ -2769,7 +3034,8 @@ def main():
     train_launches = phase_training(mel_mod, mrf_mod, dev, data_config)
     phase_train_profile(dev, mel_kw)
     phase_train_vs_cpu(dev, mel_kw)
-    mas_rows = phase_mas_kernel(mas_mod, dev)
+    mas_rows = phase_mas_kernel(mas_mod, dev, power)
+    mas_warp, mas_block = mas_rows[:-1], mas_rows[-1]
     def after_radtts(root, files, dec_ckpt, voc, voc_cfg, text, dap_ckpt,
                      dap_config):
         out = phase_train_gap(mods, dev, power, root, files, dec_ckpt, voc,
@@ -2888,49 +3154,104 @@ def main():
     }, {
         "name": "mas",
         "route": "cuda",
-        "source": "radtts_tpu_torch/csrc/mas.cu",
+        "source": "radtts_tpu_torch/csrc/mas.cu (mas_warp_kernel)",
         "replaces": "radtts_tpu/ops/mas.py:70 (XLA scan, not Pallas)",
         "launches": sum(by_path("mas").values()),
         "launches_by_path": by_path("mas"),
-        "max_abs_err": max(r["max_abs_err"] for r in mas_rows),
-        "ms": mas_rows[0]["ms"],
-        "plain_ms": mas_rows[0]["plain_ms"],
-        "bound_ms": mas_rows[0]["bound_ms"],
-        "bound_by": mas_rows[0]["bound_by"],
+        "max_abs_err": max(r["max_abs_err"] for r in mas_warp),
+        "ms": mas_warp[0]["ms"],
+        "before_ms": mas_warp[0]["before_ms"],
+        "plain_ms": mas_warp[0]["plain_ms"],
+        "bound_ms": mas_warp[0]["bound_ms"],
+        "bound_by": mas_warp[0]["bound_by"],
         "library_ms": None,
-        "note": "times at (16, 512, 112), the flagship training batch; no "
-                "PyTorch call computes MAS; bound_ms is the bytes floor, "
-                "but the dependence over frames (a chain of out_len steps "
-                "per block, B blocks) bounds the kernel",
-        "shapes": [{k: r[k] for k in ("shape", "in_smem", "ms", "plain_ms",
-                                      "bound_ms", "bound_by",
-                                      "cells_different", "max_abs_err")}
-                   for r in mas_rows],
+        "note": "one warp an utterance (N <= 256, mas_route); times at (16, "
+                "512, 112), the flagship training batch; before_ms: the "
+                "block kernel on the same inputs; no PyTorch call computes "
+                "MAS; bound_ms is the bytes floor, but the dependence over "
+                "frames (a chain of out_len steps an utterance) bounds it",
+        "shapes": [{k: r[k] for k in (
+            "shape", "warp_choices_in_smem", "ms", "before_ms", "plain_ms",
+            "bound_ms", "bound_by", "cells_different",
+            "before_cells_different", "max_abs_err")} for r in mas_warp],
+    }, {
+        "name": "mas_block",
+        "route": "cuda",
+        "source": "radtts_tpu_torch/csrc/mas.cu (mas_kernel)",
+        "replaces": "radtts_tpu/ops/mas.py:70 (XLA scan, not Pallas)",
+        "launches": sum(by_path("mas_block").values()),
+        "launches_by_path": by_path("mas_block"),
+        "max_abs_err": mas_block["max_abs_err"],
+        "ms": mas_warp[0]["before_ms"],
+        "plain_ms": mas_warp[0]["plain_ms"],
+        "bound_ms": mas_warp[0]["bound_ms"],
+        "bound_by": mas_warp[0]["bound_by"],
+        "library_ms": None,
+        "note": "The block kernel, one block an utterance, the route of texts "
+                "of N > 256 tokens (0 launches on every path); held at "
+                f"{mas_block['shape']} ({mas_block['ms']} ms there); ms, "
+                "plain_ms and bound_ms at (16, 512, 112), route='block'",
     }, {
         "name": "ar_scan",
         "route": "cuda",
-        "source": "radtts_tpu_torch/csrc/ar_scan.cu",
+        "source": "radtts_tpu_torch/csrc/ar_scan.cu "
+                  "(ar_scan_resident_kernel)",
         "replaces": "radtts_tpu/models/attributes.py:458 (XLA scan, not "
                     "Pallas)",
         "launches": sum(by_path("ar_scan").values()),
         "launches_by_path": by_path("ar_scan"),
-        "max_abs_err": max(r["max_abs_err"] for r in ar_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in ar_rows + ar_pairs),
         "ms": ar_rows[0]["ms"],
+        "before_ms": ar_rows[0]["before_ms"],
         "plain_ms": ar_rows[0]["plain_ms"],
         "bound_ms": ar_rows[0]["bound_ms"],
         "bound_by": ar_rows[0]["bound_by"],
         "library_ms": None,
+        "chain_floor_ms": probe["handoff_ms"],
+        "barrier_chain_ms": probe["barrier_ms"],
+        "handoffs_per_frame": ar_rows[0]["handoffs_per_frame"],
         "us_per_frame": ar_rows[0]["us_per_frame"],
-        "note": "times at (1, 608, 1), one AR flow of config_ljs_agap.json's "
-                "f0 model over the flagship utterance (4 launches a "
-                "request); no PyTorch call computes the AR inverse; "
-                "bound_ms: the FLOP at 67 TFLOP/s fp32 or the bytes (weights "
-                "once, residual, context_proj, output) at 3.35 TB/s",
+        "note": "weights resident in shared memory, one handoff a phase; "
+                "times at (1, 608, 1), one AR flow of config_ljs_agap.json's "
+                "f0 model over the flagship utterance (an AGAP request pairs "
+                "f0's and energy's flows: 2 launches); before_ms: the barrier "
+                "kernel on the same inputs; chain_floor_ms: the handoff "
+                "probe, 608 x 6 empty phases on the same grid "
+                "(barrier_chain_ms: the same with the barrier kernel's "
+                "grid barrier); no "
+                "PyTorch call computes the AR inverse; bound_ms: the FLOP "
+                "at 67 TFLOP/s fp32 or the bytes (weights once, residual, "
+                "context_proj, output) at 3.35 TB/s",
         "shapes": [{k: r[k] for k in ("shape", "lens", "head", "blocks",
-                                      "ms", "plain_ms", "us_per_frame",
+                                      "smem_bytes", "ms", "before_ms",
+                                      "plain_ms", "us_per_frame",
                                       "bound_ms", "bound_by",
                                       "max_abs_err")} for r in ar_rows],
+        "pairs": ar_pairs,
         "blocks_sweep": ar_sweep,
+        "handoff_probe": probe,
+        "frame_trace": ar_trace,
+    }, {
+        "name": "ar_scan_barrier",
+        "route": "cuda",
+        "source": "radtts_tpu_torch/csrc/ar_scan.cu (ar_scan_kernel)",
+        "replaces": "radtts_tpu/models/attributes.py:458 (XLA scan, not "
+                    "Pallas)",
+        "launches": sum(by_path("ar_scan_barrier").values()),
+        "launches_by_path": by_path("ar_scan_barrier"),
+        "max_abs_err": max([ar_wide["max_abs_err"]]
+                           + [r["before_max_abs_err"] for r in ar_rows]),
+        "ms": ar_rows[0]["before_ms"],
+        "plain_ms": ar_rows[0]["plain_ms"],
+        "bound_ms": ar_rows[0]["bound_ms"],
+        "bound_by": ar_rows[0]["bound_by"],
+        "library_ms": None,
+        "note": "The barrier kernel (a grid barrier, weights from L2), "
+                "the route of steps whose weights do not fit the blocks' "
+                "shared "
+                "memory (0 launches on every path; held at H = 1024, "
+                "(1, 32)); times at (1, 608, 1) on the resident kernel's "
+                "inputs",
     }]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(power, flush=True)

@@ -25,7 +25,7 @@ from torch import nn
 from radtts_tpu_torch.models.coupling import (AffineCoupling, SplineAR,
                                               SplineCoupling)
 from radtts_tpu_torch.ops.amp import cast_in, cast_out
-from radtts_tpu_torch.ops.ar_scan import ar_scan
+from radtts_tpu_torch.ops.ar_scan import ar_scan, ar_scan_multi
 from radtts_tpu_torch.ops.conv import ConvNorm
 from radtts_tpu_torch.ops.dropout import dropout
 from radtts_tpu_torch.ops.invertible import InvConv1x1, scaling_and_log_s
@@ -356,13 +356,20 @@ def ar_step_forward(step, x, context, lens, scaling_fn):
     return s * x + bias, log_s
 
 
-def ar_step_infer(step, residual, context, scaling_fn):
-    """The step's inverse, frame by frame (ops/ar_scan.py). residual,
-    context: (B, T, C)."""
+def ar_step_problem(step, residual, context, scaling_fn):
+    """The step's inverse as ops/ar_scan.py takes it: (scan params,
+    residual, the context half of the stacked LSTM's first input
+    projection with both biases, for every frame)."""
     w_ih, _, (b_ih, b_hh) = step.lstm.weights(0)
     H = step.lstm.lstm.hidden_size
     context_proj = torch.matmul(context, w_ih[:, H:].T) + (b_ih + b_hh)
-    return ar_scan(step.scan_params(scaling_fn), residual, context_proj)
+    return step.scan_params(scaling_fn), residual, context_proj
+
+
+def ar_step_infer(step, residual, context, scaling_fn):
+    """The step's inverse, frame by frame (ops/ar_scan.py). residual,
+    context: (B, T, C)."""
+    return ar_scan(*ar_step_problem(step, residual, context, scaling_fn))
 
 
 class AGAP(nn.Module):
@@ -439,27 +446,45 @@ def agap_infer(model, z, txt_enc, spk_emb, seq_lens=None):
     grouping) makes padded batches exact: the back steps reverse each
     item's valid prefix, as training does, instead of the padded axis; a
     grouped truncation is reflect-padded back to T frames."""
-    g = model.n_group_size
-    n_frames = z.shape[1]
-    z = unfold_group(z, g)
-    context = model.context(txt_enc, spk_emb)
-    lens_g = None if seq_lens is None else seq_lens // g
+    return agap_infer_multi([model], [z], [txt_enc], [spk_emb], seq_lens)[0]
 
-    def rev(t):
+
+def agap_infer_multi(models, zs, txt_encs, spk_embs, seq_lens=None):
+    """agap_infer of several AGAP models of as many flows in lock step (f0
+    and energy): each flow index's steps go to ops/ar_scan.py as one
+    ar_scan_multi call, one launch on the card where they fit."""
+    if len({len(m.flows) for m in models}) != 1:
+        raise ValueError("agap_infer_multi: the models' flow counts differ")
+    states = []
+    for m, z, txt_enc, spk_emb in zip(models, zs, txt_encs, spk_embs):
+        g = m.n_group_size
+        lens_g = None if seq_lens is None else seq_lens // g
+        states.append({"n_frames": z.shape[1], "z": unfold_group(z, g),
+                       "context": m.context(txt_enc, spk_emb),
+                       "lens": lens_g})
+
+    def rev(t, lens_g):
         return t.flip(1) if lens_g is None else _flip_roll(t, lens_g)
 
-    for i in reversed(range(len(model.flows))):
-        step = model.flows[i]
-        if i % 2 == 0:
-            z = ar_step_infer(step, z, context, model.scaling_fn)
-        else:
-            z = rev(ar_step_infer(step, rev(z), rev(context),
-                                  model.scaling_fn))
-    x_hat = fold_group(z, g)
-    if x_hat.shape[1] < n_frames:
-        pad = n_frames - x_hat.shape[1]
-        x_hat = torch.cat([x_hat, x_hat[:, -pad - 1:-1].flip(1)], dim=1)
-    return attr_denormalize(x_hat, model.take_log_of_input)
+    for i in reversed(range(len(models[0].flows))):
+        back = i % 2 == 1
+        problems = []
+        for m, s in zip(models, states):
+            res, ctx = s["z"], s["context"]
+            if back:
+                res, ctx = rev(res, s["lens"]), rev(ctx, s["lens"])
+            problems.append(ar_step_problem(m.flows[i], res, ctx,
+                                            m.scaling_fn))
+        for s, out in zip(states, ar_scan_multi(problems)):
+            s["z"] = rev(out, s["lens"]) if back else out
+    outs = []
+    for m, s in zip(models, states):
+        x_hat = fold_group(s["z"], m.n_group_size)
+        if x_hat.shape[1] < s["n_frames"]:
+            pad = s["n_frames"] - x_hat.shape[1]
+            x_hat = torch.cat([x_hat, x_hat[:, -pad - 1:-1].flip(1)], dim=1)
+        outs.append(attr_denormalize(x_hat, m.take_log_of_input))
+    return outs
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from radtts_tpu_torch.models.attention import ConvAttention
 from radtts_tpu_torch.models.attributes import (attribute_model,
                                                 attribute_model_forward,
                                                 attribute_model_infer,
+                                                agap_infer_multi,
                                                 fold_group, unfold_group)
 from radtts_tpu_torch.models.coupling import AffineCoupling
 from radtts_tpu_torch.models.encoder import Encoder
@@ -594,10 +595,26 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
                                 device=txt_enc.device) * sig
             return z
 
+        f0_mod, e_mod = model.f0_pred_module, model.energy_pred_module
+        if (f0 is None and energy_avg is None
+                and getattr(f0_mod, "name", None) == "agap"
+                and getattr(e_mod, "name", None) == "agap"
+                and len(f0_mod.flows) == len(e_mod.flows)):
+            # both AGAP: the two predictors in lock step, each flow pair's
+            # scans in one launch; the noise drawn in the same order
+            # (energy takes spk_vec, not spk_vec_attrs, as in the JAX
+            # package)
+            zs = [noise(f0_mod, z_f0, sigma_f0),
+                  noise(e_mod, z_energy, sigma_energy)]
+            f0_raw, e_raw = agap_infer_multi(
+                [f0_mod, e_mod], zs, [ap_txt_enc, ap_txt_enc],
+                [spk_vec_attrs, spk_vec], out_lens)
+            f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
+            energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
         if f0 is None:
             f0_raw = attribute_model_infer(
-                model.f0_pred_module, ap_txt_enc, spk_vec_attrs, out_lens,
-                z=noise(model.f0_pred_module, z_f0, sigma_f0))
+                f0_mod, ap_txt_enc, spk_vec_attrs, out_lens,
+                z=noise(f0_mod, z_f0, sigma_f0))
             f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
         if f0_mean > 0.0:
             f0 = renormalize_f0(f0, voiced_mask, f0_mean, f0_std,
@@ -605,8 +622,8 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
         if energy_avg is None:
             # energy takes spk_vec, not spk_vec_attrs, as in the JAX package
             e_raw = attribute_model_infer(
-                model.energy_pred_module, ap_txt_enc, spk_vec, out_lens,
-                z=noise(model.energy_pred_module, z_energy, sigma_energy))
+                e_mod, ap_txt_enc, spk_vec, out_lens,
+                z=noise(e_mod, z_energy, sigma_energy))
             energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
 
         if meta["decoder_use_unvoiced_bias"]:

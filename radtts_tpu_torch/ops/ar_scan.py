@@ -4,10 +4,15 @@ stacked layer's (h, c)) carried from frame to frame.
 
 Port of radtts_tpu/models/attributes.py:ar_step_infer, which the JAX
 package compiles as one lax.scan over frames (not a Pallas kernel). On the
-card `ar_scan` launches the hand-written kernel csrc/ar_scan.cu once per
-call (one cooperative launch; see its header for the design and what
-bounds it); `ar_scan_plain` is the same loop over frames in plain PyTorch,
-which the CPU path and the tests use. Both take the step's weights as
+card `ar_scan_multi` runs one or more steps ("problems": f0's and energy's
+flows) in the launches `ar_scan_plan` names: by default one cooperative
+launch of csrc/ar_scan.cu's resident kernel, every block holding its slice
+of the weights in shared memory, the blocks split between the problems by
+their weight bytes; a problem whose weights and state do not fit the
+blocks' shared memory runs csrc/ar_scan.cu's barrier kernel (`ar_scan_cuda`),
+a choice by shape. See the kernel's header for both designs.
+`ar_scan_plain` is the same loop over frames in plain PyTorch, which the
+CPU path and the tests use. All take the step's weights as
 `ARStep.scan_params()` gives them and the context half of the stacked
 LSTM's first input projection precomputed for every frame
 (`context_proj`, (B, T, 4H)): the same math as the JAX scan, summed in
@@ -30,6 +35,16 @@ MAX_LAYERS = 4        # csrc/ar_scan.cu kMaxLayers
 MAX_HEAD = 8          # kMaxHead
 MAX_BINS = 64         # kMaxBins
 N_SCALARS = 10        # kNumScalars
+# the resident kernel (csrc/ar_scan.cu ar_scan_resident_kernel)
+MAX_PROBLEMS = 4      # kMaxProblems
+MAX_SEGS = 2 + MAX_LAYERS + MAX_HEAD   # kMaxSegs
+SEG_INTS = 4          # kSegInts
+MAX_PHASES = MAX_LAYERS + MAX_HEAD     # kMaxPhases
+RES_SCALARS = 22      # rNumScalars
+RES_INTS = RES_SCALARS + MAX_SEGS + 4 * MAX_HEAD + MAX_PHASES  # kResInts
+# a block's dynamic shared memory: the card's 232448 bytes less the
+# kernel's static slice table and problem
+SMEM_CAP = 232448 - 1024
 _lib = None
 
 
@@ -104,6 +119,18 @@ def build():
     lib.radtts_ar_scan_max_blocks.restype = ctypes.c_int
     lib.radtts_ar_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.radtts_ar_scan_smem_bytes.restype = ctypes.c_int
+    lib.radtts_ar_scan_resident.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.radtts_ar_scan_resident.restype = ctypes.c_int
+    lib.radtts_ar_scan_resident_ints.restype = ctypes.c_int
+    lib.radtts_ar_scan_trace_frames.restype = ctypes.c_int
+    lib.radtts_ar_scan_trace_stamps.restype = ctypes.c_int
+    lib.radtts_handoff_probe.argtypes = [ctypes.c_void_p] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.radtts_handoff_probe.restype = ctypes.c_int
+    if lib.radtts_ar_scan_resident_ints() != RES_INTS:
+        raise RuntimeError("ar_scan: csrc/ar_scan.cu's kResInts differs "
+                           "from ops/ar_scan.py's RES_INTS")
     _lib = lib
     return lib, log, seconds
 
@@ -180,6 +207,13 @@ def check_shapes(params, B, T, C, H):
         if n_out != C * nb:
             raise ValueError(f"ar_scan: spline head gives {n_out} values, "
                              f"C={C} with {nb} bins needs {C * nb}")
+    widths = [H] + [w.shape[0] for w, _, _ in params["head"]]
+    if [w.shape[1] for w, _, _ in params["head"]] != widths[:-1]:
+        raise ValueError(f"ar_scan: head widths {widths[1:]} do not chain "
+                         f"from H={H}")
+    if any(w_ih.shape[1] != H for w_ih, _, _ in params["lstm"]):
+        raise ValueError("ar_scan: a stacked layer's input (without "
+                         f"context) is not H={H} wide")
 
 
 def _widths(params, C, H):
@@ -214,33 +248,15 @@ def config(params, offsets, B, T, C, H):
     return icfg, fcfg, off, kmax, nq
 
 
-def max_blocks(params, B, C, H):
-    """The most blocks the cooperative launch can take at this shape."""
-    if _lib is None:
-        build()
-    kmax, nq = _widths(params, C, H)
-    return _lib.radtts_ar_scan_max_blocks(
-        _lib.radtts_ar_scan_smem_bytes(B, C, kmax, nq))
-
-
 def ar_scan_cuda(params, residual, context_proj, blocks=None):
-    """csrc/ar_scan.cu on the card; `blocks` overrides the block count
-    (by default one per SM, as many as can be resident)."""
+    """csrc/ar_scan.cu's barrier kernel (the grid barrier, weights read from
+    L2) on the card: the route of a problem that does not fit the resident
+    kernel; `blocks` overrides the block count (by default one per SM, as
+    many as can be resident)."""
     B, T, C = residual.shape
     H = params["attr"][1].shape[1]
     dev = residual.device
-    for name, t, shape in (("residual", residual, (B, T, C)),
-                           ("context_proj", context_proj, (B, T, 4 * H))):
-        if (t.dtype != torch.float32 or t.device != dev
-                or tuple(t.shape) != shape):
-            raise ValueError(f"ar_scan: {name} must be float32 {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    for t in _weights(params):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError("ar_scan: weights must be float32 on "
-                             f"{dev}, got {t.dtype} on {t.device}")
-    check_shapes(params, B, T, C, H)
+    _check_inputs(params, residual, context_proj)
     if B == 0 or T == 0:
         return residual.new_zeros(B, T, C)
     if _lib is None:
@@ -274,29 +290,411 @@ def ar_scan_cuda(params, residual, context_proj, blocks=None):
         raise RuntimeError(f"ar_scan: kernel launch failed with cudaError "
                            f"{err} (B={B}, T={T}, C={C}, H={H}, "
                            f"blocks={blocks})")
-    ar_scan.launches += 1
+    ar_scan.barrier_launches += 1
     return out
+
+
+def _check_inputs(params, residual, context_proj):
+    B, T, C = residual.shape
+    H = params["attr"][1].shape[1]
+    dev = residual.device
+    for name, t, shape in (("residual", residual, (B, T, C)),
+                           ("context_proj", context_proj, (B, T, 4 * H))):
+        if (t.dtype != torch.float32 or t.device != dev
+                or tuple(t.shape) != shape):
+            raise ValueError(f"ar_scan: {name} must be float32 {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    for t in _weights(params):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError("ar_scan: weights must be float32 on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+    check_shapes(params, B, T, C, H)
+
+
+# ---------------------------------------------------------------------------
+# the resident kernel: its plan, its weight images, its launch
+# ---------------------------------------------------------------------------
+
+
+def _pad4(n):
+    return (n + 3) // 4 * 4
+
+
+def _segments(params):
+    """The sliced weight segments of one step, in the kernel's order (the
+    attribute LSTM's recurrent rows, each stacked layer, each head layer):
+    (units, rows a unit, row length K, biased). An LSTM unit is its four
+    gate rows."""
+    H = params["attr"][1].shape[1]
+    segs = [(H, 4, H, False)]
+    for w_ih, w_hh, b in params["lstm"]:
+        segs.append((H, 4, w_ih.shape[1] + H, b is not None))
+    segs += [(w.shape[0], 1, w.shape[1], True) for w, _, _ in params["head"]]
+    return segs
+
+
+def _split(units, blocks):
+    """Contiguous slices of `units` over `blocks` blocks: (starts, counts)."""
+    edges = (np.arange(blocks + 1) * units) // blocks
+    return edges[:-1], np.diff(edges)
+
+
+def problem_plan(params, B, blocks):
+    """One problem's layout on `blocks` blocks of the resident kernel: each
+    block's slice of every segment and where it sits in the block's shared
+    memory (`table`, (blocks, MAX_SEGS, 4): first unit or row, count,
+    weight and bias offsets in floats), the activation offsets, the bytes
+    a block, and each phase's producers (the blocks that own rows of it)."""
+    C, H = params["attr"][0].shape[1], params["attr"][1].shape[1]
+    L, head = len(params["lstm"]), params["head"]
+    segs = _segments(params)
+    split = [_split(units, blocks) for units, _, _, _ in segs]
+    n_common = _pad4(4 * H * C) + _pad4(4 * H)
+    cmax = int(max(counts.max() for _, counts in split[1:1 + L]))
+    nq = head[-1][0].shape[0]
+    xmax = max([4 * H] + [w.shape[1] for w, _, _ in head[1:]])
+    off, sizes = {}, [("hs", (L + 1) * B * H), ("cattr", B * H),
+                      ("cown", L * cmax * B), ("xs", B * xmax),
+                      ("qs", B * nq), ("prev", B * C),
+                      ("ctx", 2 * cmax * 4 * B), ("res", 2 * B * C)]
+    o = 0
+    for name, n in sizes:
+        off[name] = o
+        o += _pad4(n)
+    off["img"] = o
+    table = np.zeros((blocks, MAX_SEGS, SEG_INTS), np.int32)
+    table[:, 0] = (0, 0, o, o + _pad4(4 * H * C))
+    img = np.full(blocks, n_common)
+    for s, ((_, rows, K, biased), (starts, counts)) in enumerate(
+            zip(segs, split)):
+        n = counts * rows
+        table[:, s + 1, 0] = starts
+        table[:, s + 1, 1] = counts
+        table[:, s + 1, 2] = o + img
+        img = img + n * _pad4(K)
+        table[:, s + 1, 3] = np.where(biased, o + img, 0)
+        if biased:
+            img = img + (n + 3) // 4 * 4
+    stride = int(_pad4(img.max()))
+    producers = [int(((split[0][1] if li == 0 else 0) + split[1 + li][1]
+                      > 0).sum()) for li in range(L)]
+    producers += [int((counts > 0).sum()) for _, counts in split[1 + L:]]
+    return {"blocks": blocks, "B": B, "C": C, "H": H, "L": L,
+            "segments": segs, "table": table, "offsets": off, "cmax": cmax,
+            "xmax": xmax, "img_floats": img, "img_stride": stride,
+            "smem": 4 * (o + stride), "producers": producers,
+            "ld": [_pad4(K) for _, _, K, _ in segs]}
+
+
+def item_group(B):
+    """Items a warp of the resident kernel takes at once (its template G):
+    the least power of two >= B, at most 8."""
+    return min(8, 1 << max(0, int(B) - 1).bit_length())
+
+
+def resident_widths_ok(params):
+    """The resident kernel reads every activation in float4s: H and every
+    head layer's input width must be multiples of 4."""
+    H = params["attr"][1].shape[1]
+    return H % 4 == 0 and all(w.shape[1] % 4 == 0
+                              for w, _, _ in params["head"])
+
+
+def _max_rows(params):
+    return max(units for units, _, _, _ in _segments(params))
+
+
+def _split_blocks(params_list, total):
+    """`total` blocks split between the problems by their weight bytes,
+    each at least 1 and at most its widest segment's rows (so that every
+    block owns rows of some phase)."""
+    w = np.array([weight_bytes(p) for p in params_list], np.float64)
+    n = np.maximum(1, np.floor(total * w / w.sum()).astype(int))
+    while n.sum() < total:
+        n[np.argmax(w / n)] += 1
+    while n.sum() > total:
+        n[np.argmax(n)] -= 1
+    return [int(min(k, _max_rows(p))) for k, p in zip(n, params_list)]
+
+
+def ar_scan_plan(params_list, B, sms, smem_cap=SMEM_CAP, blocks=None):
+    """The launches that run these problems (each an AR step's
+    scan_params; B an int or one per problem) on a card of `sms` SMs, a
+    block at most `smem_cap` bytes of dynamic shared memory. Chosen by
+    shape alone:
+      1. all problems in one resident launch, `blocks` (default `sms`)
+         split between them by weight bytes;
+      2. else each problem in a resident launch of its own on every block;
+      3. a problem that does not fit alone, or whose widths are not
+         multiples of 4 (resident_widths_ok): the barrier kernel ("barrier").
+    Returns a list of {"route", "problems": [indices], "plans", "blocks",
+    "smem"} in the order they run."""
+    n = len(params_list)
+    Bs = [B] * n if isinstance(B, int) else list(B)
+    total = blocks or sms
+
+    def resident(idx, counts):
+        if not all(resident_widths_ok(params_list[i]) for i in idx):
+            return None
+        plans = [problem_plan(params_list[i], Bs[i], k)
+                 for i, k in zip(idx, counts)]
+        smem = max(p["smem"] for p in plans)
+        if smem > smem_cap or n > MAX_PROBLEMS:
+            return None
+        return {"route": "resident", "problems": list(idx), "plans": plans,
+                "blocks": sum(counts), "smem": smem}
+
+    if n > 1:
+        one = resident(range(n), _split_blocks(params_list, total))
+        if one is not None:
+            return [one]
+    launches = []
+    for i, p in enumerate(params_list):
+        alone = resident([i], [min(total, _max_rows(p))])
+        launches.append(alone or {"route": "barrier", "problems": [i],
+                                  "plans": None, "blocks": None,
+                                  "smem": None})
+    return launches
+
+
+def _mats(params):
+    """The matrices the weight images gather from, in _segments' order,
+    after the common part (W_ih_attr, the attribute bias)."""
+    w_ih_a, w_hh_a, b_a = params["attr"]
+    mats = [w_ih_a, _bias(b_a), w_hh_a]
+    biases = [None]
+    for w_ih, w_hh, b in params["lstm"]:
+        mats.append(torch.cat([w_ih, w_hh], dim=1))
+        biases.append(_bias(b))
+    for w, b, _ in params["head"]:
+        mats.append(w)
+        biases.append(b)
+    return mats, biases
+
+
+def image_index(plan):
+    """(blocks, img_stride) int64 indices into the flat concatenation of
+    _mats (weights, then the biases of the biased segments, then one
+    zero): each block's shared-memory image. Depends on shapes alone."""
+    segs, table, H = plan["segments"], plan["table"], plan["H"]
+    C = plan["C"]
+    sizes = [4 * H * C, 4 * H] + [u * r * K for u, r, K, _ in segs]
+    bias_sizes = [u * r for u, r, _, b in segs if b]
+    base = np.concatenate([[0], np.cumsum(sizes + bias_sizes)])
+    zero = int(base[-1])
+    bias_base = iter(base[len(sizes):])
+    bias_at = [next(bias_base) if b else None for _, _, _, b in segs]
+    off_img = plan["offsets"]["img"]
+    idx = np.full((plan["blocks"], plan["img_stride"]), zero, np.int64)
+    for i in range(plan["blocks"]):
+        row = idx[i]
+        row[:4 * H * C] = np.arange(4 * H * C)
+        o = int(table[i, 0, 3]) - off_img
+        row[o:o + 4 * H] = base[1] + np.arange(4 * H)
+        for s, (units, rows, K, biased) in enumerate(segs):
+            start, count, w_off, b_off = (int(v) for v in table[i, s + 1])
+            if count == 0:
+                continue
+            u = start + np.arange(count)
+            if rows == 4:        # unit u's gate rows q * H + u, q = 0..3
+                src = (np.arange(4)[None, :] * units + u[:, None]).reshape(-1)
+            else:
+                src = u
+            ld = _pad4(K)
+            o = w_off - off_img
+            block = row[o:o + len(src) * ld].reshape(len(src), ld)
+            block[:, :K] = base[2 + s] + src[:, None] * K + np.arange(K)
+            if biased:
+                o = b_off - off_img
+                row[o:o + len(src)] = bias_at[s] + src
+    return idx
+
+
+_index_cache = {}
+
+
+def _signature(params):
+    return (tuple(params["attr"][0].shape), tuple(params["attr"][1].shape),
+            tuple((tuple(w_ih.shape), b is None)
+                  for w_ih, _, b in params["lstm"]),
+            tuple(tuple(w.shape) for w, _, _ in params["head"]))
+
+
+def resident_pack(params, plan, device):
+    """The blocks' weight images, (blocks, img_stride) fp32 on `device`,
+    gathered anew from the weights at every launch (the gather's indices
+    depend on shapes alone and are cached by them)."""
+    key = (_signature(params), plan["blocks"], str(device))
+    idx = _index_cache.get(key)
+    if idx is None:
+        idx = torch.from_numpy(image_index(plan)).to(device)
+        _index_cache[key] = idx
+    mats, biases = _mats(params)
+    flat = torch.cat([m.detach().float().reshape(-1) for m in mats]
+                     + [b.detach().float().reshape(-1) for b in biases
+                        if b is not None]
+                     + [mats[0].new_zeros(1)])
+    return flat[idx]
+
+
+def resident_config(params, plan, T, block0):
+    """(icfg, fcfg, head act offsets, act floats) of one problem as
+    csrc/ar_scan.cu's radtts_ar_scan_resident reads them."""
+    head = params["head"]
+    off = plan["offsets"]
+    B = plan["B"]
+    pad = [0] * (MAX_HEAD - len(head))
+    act_off, n_act = [], 0
+    for w, _, _ in head:
+        act_off.append(n_act)
+        n_act += 2 * B * w.shape[0]
+    icfg = [B, T, plan["C"], plan["H"], plan["L"], KINDS[params["kind"]],
+            SCALINGS.get(params.get("scaling_fn"), 0),
+            params.get("n_bins") or 0, len(head), block0, plan["blocks"],
+            plan["img_stride"], off["hs"], off["cattr"], off["cown"],
+            off["xs"], off["qs"], off["prev"], off["ctx"], off["res"],
+            off["img"], plan["cmax"]]
+    assert len(icfg) == RES_SCALARS
+    icfg += [0] + plan["ld"] + [0] * (MAX_SEGS - 1 - len(plan["ld"]))
+    icfg += [w.shape[1] for w, _, _ in head] + pad
+    icfg += [w.shape[0] for w, _, _ in head] + pad
+    icfg += [ACTS[a] for _, _, a in head] + pad
+    icfg += act_off + pad
+    icfg += plan["producers"] + [0] * (MAX_PHASES - len(plan["producers"]))
+    assert len(icfg) == RES_INTS
+    fcfg = list(params.get("bounds") or (0.0, 0.0, 0.0, 1.0))
+    return icfg, fcfg, n_act
+
+
+def trace_buffer(device):
+    """A zeroed trace for ar_scan_multi(..., trace=): (frames, stamps)
+    int64, block 0's %globaltimer (ns) at each phase boundary of the first
+    frames (csrc/ar_scan.cu kTraceFrames, kStamps)."""
+    if _lib is None:
+        build()
+    return torch.zeros(_lib.radtts_ar_scan_trace_frames(),
+                       _lib.radtts_ar_scan_trace_stamps(),
+                       dtype=torch.int64, device=device)
+
+
+def _launch_resident(launch, problems, trace=None):
+    """One cooperative launch of the resident kernel over `problems`
+    (params, residual, context_proj) as `launch` plans them; `trace` from
+    trace_buffer, or None."""
+    dev = problems[0][1].device
+    icfg, fcfg, ptrs, keep, outs = [], [], [], [], []
+    block0 = 0
+    for (params, res, cproj), plan in zip(problems, launch["plans"]):
+        B, T, C = res.shape
+        H, L = plan["H"], plan["L"]
+        ic, fc, n_act = resident_config(params, plan, T, block0)
+        block0 += plan["blocks"]
+        res, cproj = res.contiguous(), cproj.contiguous()
+        out = torch.empty_like(res)
+        tensors = [res, cproj, out, resident_pack(params, plan, dev),
+                   torch.from_numpy(plan["table"]).to(dev),
+                   torch.empty(L * 2 * B * H, device=dev),
+                   torch.empty(2 * B * 4 * H, device=dev),
+                   torch.empty(n_act, device=dev),
+                   torch.zeros(L + len(params["head"]), dtype=torch.int32,
+                               device=dev)]
+        icfg += ic
+        fcfg += fc
+        ptrs += [t.data_ptr() for t in tensors]
+        keep += tensors
+        outs.append(out)
+    icfg_c = (ctypes.c_int * len(icfg))(*icfg)
+    fcfg_c = (ctypes.c_float * len(fcfg))(*fcfg)
+    ptrs_c = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    err = _lib.radtts_ar_scan_resident(
+        ctypes.addressof(icfg_c), ctypes.addressof(fcfg_c),
+        ctypes.addressof(ptrs_c), len(problems), launch["blocks"],
+        launch["smem"], item_group(max(p["B"] for p in launch["plans"])),
+        None if trace is None else trace.data_ptr(), 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"ar_scan: resident kernel launch failed with cudaError {err} "
+            f"({len(problems)} problems, blocks={launch['blocks']}, "
+            f"smem={launch['smem']})")
+    ar_scan.launches += 1
+    return outs
+
+
+def ar_scan_multi(problems, blocks=None, trace=None):
+    """Each problem (params, residual, context_proj) -> its inverse over
+    every frame, as ar_scan. A CPU tensor runs ar_scan_plain on each; CUDA
+    tensors run the launches ar_scan_plan names (`blocks`: its block
+    count), or raise: no failure falls back to another route. `trace`
+    (trace_buffer) records the first resident launch's block 0."""
+    dev = problems[0][1].device
+    if dev.type == "cpu":
+        return [ar_scan_plain(*p) for p in problems]
+    if dev.type != "cuda":
+        raise ValueError(f"ar_scan: unsupported device {dev}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for params, res, cproj in problems
+            for t in [res, cproj] + _weights(params)):
+        raise RuntimeError("ar_scan: the CUDA kernel has no backward, and "
+                           "its output would carry no gradient; run it "
+                           "under torch.no_grad()")
+    for params, res, cproj in problems:
+        if res.device != dev:
+            raise ValueError("ar_scan: problems on different devices")
+        _check_inputs(params, res, cproj)
+    outs = [None] * len(problems)
+    live = [i for i, (_, res, _) in enumerate(problems)
+            if res.shape[0] and res.shape[1]]
+    for i in set(range(len(problems))) - set(live):
+        outs[i] = problems[i][1].new_zeros(problems[i][1].shape)
+    if not live:
+        return outs
+    if _lib is None:
+        build()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ar_scan_plan([problems[i][0] for i in live],
+                        [problems[i][1].shape[0] for i in live], sms,
+                        blocks=blocks)
+    for launch in plan:
+        idx = [live[k] for k in launch["problems"]]
+        if launch["route"] == "barrier":
+            outs[idx[0]] = ar_scan_cuda(*problems[idx[0]])
+        else:
+            for i, o in zip(idx, _launch_resident(
+                    launch, [problems[i] for i in idx], trace)):
+                outs[i] = o
+            trace = None
+    return outs
 
 
 def ar_scan(params, residual, context_proj):
     """One AR step's inverse over every frame. A CPU tensor runs
-    ar_scan_plain; a CUDA tensor launches csrc/ar_scan.cu, or raises. The
-    kernel has no backward: with grad enabled and an input or a weight
-    requiring grad it raises."""
-    if residual.device.type == "cpu":
-        return ar_scan_plain(params, residual, context_proj)
-    if residual.device.type != "cuda":
-        raise ValueError(f"ar_scan: unsupported device {residual.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in [residual, context_proj]
-            + _weights(params)):
-        raise RuntimeError("ar_scan: the CUDA kernel has no backward, and "
-                           "its output would carry no gradient; run it "
-                           "under torch.no_grad()")
-    return ar_scan_cuda(params, residual, context_proj)
+    ar_scan_plain; a CUDA tensor launches csrc/ar_scan.cu (the route
+    ar_scan_plan names), or raises. The kernels have no backward: with grad
+    enabled and an input or a weight requiring grad it raises."""
+    return ar_scan_multi([(params, residual, context_proj)])[0]
 
 
-ar_scan.launches = 0
+ar_scan.launches = 0           # the resident kernel's launches
+ar_scan.barrier_launches = 0   # the barrier kernel's
+
+
+def handoff_probe(n_phases, T, mode, blocks, smem, device):
+    """One launch of csrc/ar_scan.cu's handoff_probe_kernel: `blocks`
+    blocks with `smem` bytes each run T x n_phases empty phases joined by
+    the resident kernel's handoff (mode "handoff") or the barrier kernel's
+    grid barrier (mode "barrier")."""
+    if _lib is None:
+        build()
+    counters = torch.zeros(2 + n_phases, dtype=torch.int32, device=device)
+    err = _lib.radtts_handoff_probe(
+        counters.data_ptr(), n_phases, T, {"handoff": 0, "barrier": 1}[mode],
+        blocks, smem, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"handoff_probe: launch failed with cudaError "
+                           f"{err}")
+    return counters
 
 
 def macs_per_frame(params, C):

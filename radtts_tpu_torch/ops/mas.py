@@ -3,13 +3,15 @@ binarizes the soft text-mel alignment during training.
 
 Port of radtts_tpu/ops/mas.py:mas_width1, which the JAX package compiles as
 one XLA scan over mel frames (not a Pallas kernel). On the card `mas`
-launches the hand-written kernel csrc/mas.cu once per call (one block per
-utterance, the DP row in shared memory; see its header for the design and
-what bounds it); `mas_plain` is the same function in plain PyTorch, a loop
-over frames vectorized over the batch and the tokens, which the CPU path
-and the tests use. Both give the JAX package's 0/1 matrix exactly: its
-tie-break (prefer the token before when the scores tie), its -1e30 fill,
-and its quirk of also setting opt[0, 0] = 1.
+launches a hand-written kernel of csrc/mas.cu once per call, the one
+`mas_route(N)` names by shape: "warp" (one warp an utterance, the DP row in
+registers, for N <= 256 tokens) or "block" (one block an utterance,
+the DP row in shared memory, for longer texts); see its header for both
+designs and what bounds them. `mas_plain` is the same function in plain
+PyTorch, a loop over frames vectorized over the batch and the tokens,
+which the CPU path and the tests use. Both give the JAX package's 0/1
+matrix exactly: its tie-break (prefer the token before when the scores
+tie), its -1e30 fill, and its quirk of also setting opt[0, 0] = 1.
 """
 
 import ctypes
@@ -19,6 +21,7 @@ import torch
 from radtts_tpu_torch.ops.cuda_build import build_library
 
 NEG_INF = -1e30
+WARP_MAX_N = 256    # csrc/mas.cu kWarpMaxN
 _lib = None
 
 
@@ -73,49 +76,78 @@ def build():
     fn.restype = ctypes.c_int
     lib.radtts_mas_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.radtts_mas_smem_bytes.restype = ctypes.c_int
+    lib.radtts_mas_warp.argtypes = fn.argtypes
+    lib.radtts_mas_warp.restype = ctypes.c_int
+    lib.radtts_mas_warp_scratch_words.argtypes = [ctypes.c_int] * 3
+    lib.radtts_mas_warp_scratch_words.restype = ctypes.c_int
     _lib = lib
     return lib, log, seconds
 
 
-def _launch(attn, out_lens, in_lens):
+def mas_route(N):
+    """The kernel a call with N tokens runs, by shape alone: "warp" (one
+    warp an utterance) for N <= WARP_MAX_N, else "block"."""
+    return "warp" if N <= WARP_MAX_N else "block"
+
+
+def mas_cuda(attn, out_lens, in_lens, route=None):
+    """csrc/mas.cu on the card, on `route` (default mas_route(N); "warp"
+    raises above WARP_MAX_N tokens)."""
     B, T, N = attn.shape
     if attn.dtype != torch.float32 or not attn.is_contiguous():
         raise ValueError("mas: attn must be contiguous float32, got "
                          f"{attn.dtype}")
+    route = route or mas_route(N)
+    if route not in ("warp", "block"):
+        raise ValueError(f"mas: unknown route {route!r}")
+    if route == "warp" and N > WARP_MAX_N:
+        raise ValueError(f"mas: the warp kernel takes N <= {WARP_MAX_N}, "
+                         f"got {N}")
     if B == 0 or T == 0 or N == 0:
         return torch.zeros_like(attn)
     if _lib is None:
         build()
-    out_l = out_lens.to(attn.device, torch.int32).contiguous()
-    in_l = in_lens.to(attn.device, torch.int32).contiguous()
-    out = torch.empty_like(attn)
-    # the choices go to global scratch only when they do not fit in the
-    # block's shared memory (see csrc/mas.cu)
-    smem = _lib.radtts_mas_smem_bytes(T, N)
-    scratch = (torch.empty(0, dtype=torch.uint8, device=attn.device)
-               if smem > 0 else
-               torch.empty(B * T * N, dtype=torch.uint8, device=attn.device))
-    err = _lib.radtts_mas(attn.data_ptr(), out_l.data_ptr(),
-                          in_l.data_ptr(), out.data_ptr(),
-                          scratch.data_ptr(), B, T, N,
-                          torch.cuda.current_stream(attn.device).cuda_stream)
+    dev = attn.device
+    out_l = out_lens.to(dev, torch.int32).contiguous()
+    in_l = in_lens.to(dev, torch.int32).contiguous()
+    if route == "warp":
+        # the warp kernel writes the path's ones into a zeroed output
+        out = torch.zeros_like(attn)
+        # the choices go to global scratch only when one utterance's do
+        # not fit a block's shared memory
+        words = _lib.radtts_mas_warp_scratch_words(B, T, N)
+        scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+        fn = _lib.radtts_mas_warp
+    else:
+        out = torch.empty_like(attn)
+        smem = _lib.radtts_mas_smem_bytes(T, N)
+        scratch = torch.empty(1 if smem > 0 else B * T * N,
+                              dtype=torch.uint8, device=dev)
+        fn = _lib.radtts_mas
+    err = fn(attn.data_ptr(), out_l.data_ptr(), in_l.data_ptr(),
+             out.data_ptr(), scratch.data_ptr(), B, T, N,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"mas: kernel launch failed with cudaError {err} "
-                           f"(B={B}, T={T}, N={N})")
-    mas.launches += 1
+        raise RuntimeError(f"mas: {route} kernel launch failed with "
+                           f"cudaError {err} (B={B}, T={T}, N={N})")
+    if route == "warp":
+        mas.launches += 1
+    else:
+        mas.block_launches += 1
     return out
 
 
 @torch.no_grad()
 def mas(attn, out_lens, in_lens):
     """Hard attention from soft attention (B, T_mel, T_text), no gradient.
-    A CPU tensor runs mas_plain; a CUDA tensor launches csrc/mas.cu, or
-    raises."""
+    A CPU tensor runs mas_plain; a CUDA tensor launches csrc/mas.cu on the
+    route mas_route names, or raises."""
     if attn.device.type == "cpu":
         return mas_plain(attn, out_lens, in_lens)
     if attn.device.type != "cuda":
         raise ValueError(f"mas: unsupported device {attn.device}")
-    return _launch(attn, out_lens, in_lens)
+    return mas_cuda(attn, out_lens, in_lens)
 
 
-mas.launches = 0
+mas.launches = 0          # the warp kernel's launches
+mas.block_launches = 0    # the block kernel's
