@@ -58,7 +58,8 @@ Phases, each printing a JSON or text line:
      (1, 608), (8, 608) ragged and (16, 608) against the two launched
      apart and against plain, and at (24, 96), where the planner names a
      launch each (asserted); a step of H = 1024, whose weights do not fit
-     the blocks' shared memory, on the barrier kernel (asserted); the
+     the blocks' shared memory, on the barrier kernel (asserted, timed
+     beside the plain version and the bound); the
      handoff probe (608 x 6 empty phases on the resident grid, joined by
      the handoff and by the barrier kernel's grid barrier: the chain
      floor); and the frame traced at (1, 608), one flow and the pair
@@ -81,6 +82,18 @@ Phases, each printing a JSON or text line:
      run in bf16 inside; stage times and the RTF; the resident conv-kernel
      bytes; a profiled AMP decode (which LSTM kernels ran); mrf_tc 72 per
      vocoder call;
+  5e. model options served at published widths with HiFi-GAN v1:
+     config_ljs_dap.json with its duration, f0 and energy DAPs on the
+     FFTransformer (use_transformer set through update_params, as -p
+     sets it) and with a plain-W decoder (matrix_decomposition ""): one
+     request counted from 0 (mrf_tc 72), the 608-frame utterance's
+     stage times and RTF (the FFTransformer's attributes stage beside
+     the ConvLSTM DAP's in the same call), the decode against the CPU
+     within 1e-3 and the vocoder within 1e-3 * max; and
+     config_ljs_agap.json with weight_dtype="bfloat16" beside fp32: one
+     request counted (ar_scan 2, mrf_tc 72), the bf16 mel's distance
+     from the card's fp32 at most 3x the CPU's own (or 1e-3), the RTF
+     and the resident conv-kernel bytes;
   6. HiFi-GAN V2 serving: the generator of the public config_v2.json (v1
      with upsample_initial_channel 128; random weights, seed 5) on a
      seeded 608-frame mel, stages (1, 4864, 64), (1, 38912, 32), (1, 77824,
@@ -136,7 +149,16 @@ Phases, each printing a JSON or text line:
      wav against the CPU (the CPU decodes from the card's durations), ms
      an utterance; then config_ljs_dap.json as published (use_amp true)
      for 2 steps and 2 more with bf16 optimizer moments (step ms, peak
-     memory, the moments' bytes and dtypes; mas 3 a run);
+     memory, the moments' bytes and dtypes; mas 3 a run); then (PR 11)
+     the FFTransformer DAP config trained 2 steps (dropout on, mas 3),
+     served from its checkpoint (mrf_tc 144) and stepped at batch 2
+     against the CPU with dropout off; the plain-W config trained 2 steps
+     from random weights, every module trainable (mas 3); and
+     config_ljs_dap.json trained one step with its vocoder paths naming
+     a seeded HiFi-GAN v1 and profile_dir set (the trace must hold CUDA
+     kernels), then its checkpoint's validation with and without the
+     audio samples (JAX's five tags at 22050 Hz, finite, not silent;
+     mrf_tc 6 x 72, mas 1), timed;
  10. RADTTS step time: the config_ljs_dap.json model, every module
      trainable, binarize and KL on, fp32, at bench_train.py's (16, 112,
      512): step ms (median of steps 2-5), mel frames/s, peak memory and a
@@ -158,8 +180,10 @@ Phases, each printing a JSON or text line:
      mrf_stack, mrf_conv, mel, mas and mas_block, ar_scan and
      ar_scan_barrier) and their launches by path (serve, serve_files,
      serve_v2, train, train_radtts, serve_bgap, serve_agap, train_gap,
-     serve_gap_files, vc, serve_amp, train_amp, resblock2); the ar_scan
-     entry carries the chain floor.
+     serve_gap_files, vc, serve_amp, train_amp, resblock2, serve_fft,
+     train_fft, serve_fft_files, serve_plain_w, train_plain_w,
+     serve_agap_bf16, train_audio_samples); the ar_scan entry carries the
+     chain floor, the ar_scan_barrier entry its H = 1024 timing.
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result.
@@ -1858,7 +1882,9 @@ def wide_step(dev, H=1024, seed=3):
 def phase_ar_scan_barrier_route(ar_mod, dev, power):
     """wide_step at (1, 32): the planner names the barrier kernel by shape
     (asserted: one barrier launch, no resident launch), within 1e-4 * max
-    of plain."""
+    of plain; the kernel's time, the plain version's and the bound (the
+    FLOP at 67 TFLOP/s fp32 or the bytes at 3.35 TB/s, as ar_bound counts
+    them)."""
     params = wide_step(dev)
     gen = torch.Generator().manual_seed(4)
     res = (torch.randn(1, 32, 1, generator=gen) * 0.8).to(dev)
@@ -1871,11 +1897,17 @@ def phase_ar_scan_barrier_route(ar_mod, dev, power):
         routed = _routed(ar_mod, before)
         want = ar_mod.ar_scan_plain(params, res, cproj)
         torch.cuda.synchronize()
+        ms = cuda_ms(lambda: ar_mod.ar_scan(params, res, cproj))
+        plain_ms = cuda_ms(lambda: ar_mod.ar_scan_plain(params, res, cproj),
+                           reps=3, warmup=1)
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
+    bound_ms, bound_by, mflop, mbytes = ar_bound(params, 1, 32, 1)
     row = {"shape": [1, 32, 1], "H": 1024, "route": plan[0]["route"],
            "routed": routed, "max_abs_err": err, "max_abs_plain": scale,
-           "weight_bytes": ar_mod.weight_bytes(params)}
+           "weight_bytes": ar_mod.weight_bytes(params), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "mflop": mflop, "mbytes": mbytes}
     log({"phase": "ar_scan_barrier_route", "card": power, **row})
     if routed != (0, 1) or plan[0]["route"] != "barrier" \
             or not err <= 1e-4 * scale:
@@ -2931,6 +2963,467 @@ def phase_resblock2(mods, dev, power):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# model options and trainer features: the FFTransformer DAPs, the plain-W
+# decoder, bf16 weights with an AGAP, the validation's audio samples and
+# the profiler window
+# ---------------------------------------------------------------------------
+
+FFT_DAPS = ("dur_model_config", "f0_model_config", "energy_model_config")
+AUDIO_TAGS = ["decoder_sample_gt_attributes"] + [
+    f"sample_attribute_sigma_{s}" for s in (0.1, 0.5, 0.8, 1.0)]
+
+
+def dap_variant_config(kind):
+    """config_ljs_dap.json with one model option set through update_params,
+    as -p sets it: "fft", the duration, f0 and energy DAPs on the
+    FFTransformer (use_transformer true; the duration DAP's config holds
+    no such key, so it is added as false first, since -p sets only keys
+    a config holds); "plain_w", the decoder's 1x1s with a plain W
+    (matrix_decomposition "")."""
+    from radtts_tpu_torch.config import update_params
+
+    with open(CONFIG) as f:
+        config = json.load(f)
+    if kind == "fft":
+        for key in FFT_DAPS:
+            config["model_config"][key]["hparams"].setdefault(
+                "use_transformer", False)
+        update_params(config, [f"model_config.{key}.hparams."
+                               "use_transformer=True" for key in FFT_DAPS])
+    else:
+        update_params(config, ['model_config.matrix_decomposition=""'])
+    return config
+
+
+def _dap_attributes(model, text, dur, spk):
+    """The attributes stage of a DAP model on the card: the voicing DAP,
+    then the f0 and energy DAPs (as radtts_infer runs them)."""
+    from radtts_tpu_torch.models.attributes import attribute_model_infer
+    from radtts_tpu_torch.models.radtts import (apply_voice_mask_to_text,
+                                                encode_speaker, encode_text)
+    from radtts_tpu_torch.ops.length_regulator import regulate_length
+
+    txt_enc, _ = encode_text(model, text, None)
+    x = regulate_length(txt_enc, dur, MAX_FRAMES)
+    spk_vec = encode_speaker(model, spk)
+    lens = dur.sum(1)
+    vm = (torch.sigmoid(attribute_model_infer(
+        model.v_pred_module, x, spk_vec, lens)[..., 0]) > 0.5).float()
+    x = apply_voice_mask_to_text(model, x, vm)
+    return [attribute_model_infer(m, x, spk_vec, lens)
+            for m in (model.f0_pred_module, model.energy_pred_module)]
+
+
+def phase_serve_dap_variant(kind, vocoder, denoiser, tp, mods, dev, power,
+                            convlstm_model=None):
+    """dap_variant_config(kind)'s model at its published widths, random
+    from seed 0 (the WN end convs at sd 0.002), with HiFi-GAN v1: one
+    request (TEXTS[1]) counted from 0 (mrf_tc 72, the others 0); the
+    608-frame utterance with stage times (durations, attributes alone,
+    attributes + decode, vocoder + denoiser; medians of 3) and the RTF,
+    with the ConvLSTM DAP model's attributes stage (convlstm_model, the
+    flagship) timed beside in the same call; then the decode from a
+    seeded residual on the card against the CPU (within 1e-3) and the
+    vocoder of the card's mel against the CPU's (within 1e-3 * max)."""
+    from radtts_tpu_torch.models.hifigan import denoiser_apply
+    from radtts_tpu_torch.models.radtts import (RADTTS, infer_durations,
+                                                radtts_infer)
+    from radtts_tpu_torch.synthesizer import Synthesizer
+
+    config = dap_variant_config(kind)
+    mc, dc = config["model_config"], config["data_config"]
+    torch.manual_seed(0)
+    model = RADTTS(mc).eval().requires_grad_(False)
+    with torch.no_grad():
+        for flow in model.flows:
+            torch.nn.init.normal_(flow.affine.pred.end.weight, std=0.002)
+    synth = Synthesizer.from_parts(
+        mc, model, vocoder, denoiser, encode_fn=tp.encode_text,
+        speaker_id_fn=lambda name: 0, sampling_rate=dc["sampling_rate"],
+        hop_length=dc["hop_length"], seed=0, device=dev)
+    _reset_counts(*mods)
+    wavs, aux = synth.synthesize(TEXTS[1], "ljs")
+    torch.cuda.synchronize()
+    launches = _counts(*mods)
+    if not np.isfinite(wavs[0]).all() or wavs[0].shape != (
+            int(aux["n_frames"][0]) * dc["hop_length"],):
+        raise AssertionError(f"serve_{kind}: bad request output")
+    text, dur = (t.to(dev) for t in flagship_input(synth))
+    spk = torch.zeros(1, dtype=torch.int64, device=dev)
+    g, n_mel = mc["n_group_size"], mc["n_mel_channels"]
+    res = torch.randn(1, MAX_FRAMES // g, n_mel * g,
+                      generator=torch.Generator().manual_seed(3)) * 0.8
+
+    def decode():
+        return radtts_infer(model, spk, text, 0.8, MAX_FRAMES, dur=dur,
+                            residual=res.to(dev))
+
+    with torch.inference_mode():
+        out, _ = timed(decode)
+        stage = {"durations": [], "attributes": [], "decode": [],
+                 "vocoder_denoiser": []}
+        convlstm_ms = []
+        for _ in range(3):
+            stage["durations"].append(timed(
+                lambda: infer_durations(model, spk, text))[1])
+            stage["attributes"].append(timed(
+                lambda: _dap_attributes(model, text, dur, spk))[1])
+            if convlstm_model is not None:
+                convlstm_ms.append(timed(lambda: _dap_attributes(
+                    convlstm_model, text, dur, spk))[1])
+            stage["decode"].append(timed(decode)[1])
+            stage["vocoder_denoiser"].append(timed(lambda: denoiser_apply(
+                denoiser, vocoder(out["mel"]), strength=0.0))[1])
+        wav = vocoder(out["mel"])
+        med = {k: statistics.median(v) for k, v in stage.items()}
+        seconds = MAX_FRAMES * dc["hop_length"] / dc["sampling_rate"]
+        rtf = (med["durations"] + med["decode"]
+               + med["vocoder_denoiser"]) / 1e3 / seconds
+        model.to("cpu")
+        ref = radtts_infer(model, spk.cpu(), text.cpu(), 0.8, MAX_FRAMES,
+                           dur=dur.cpu(), residual=res)["mel"]
+        model.to(dev)
+        wav_cpu = vocoder.to("cpu")(out["mel"].cpu())
+        vocoder.to(dev)
+    errs = {"mel": (out["mel"].cpu() - ref).abs().max().item(),
+            "mel_max_abs": ref.abs().max().item(),
+            "wav": (wav.cpu() - wav_cpu).abs().max().item(),
+            "wav_max_abs": wav_cpu.abs().max().item()}
+    row = {"phase": f"serve_{kind}", "card": power, "frames": MAX_FRAMES,
+           "stage_ms": med, "stage_ms_all": stage, "rtf": rtf,
+           "launches": launches, "card_vs_cpu": errs,
+           "request_samples": int(wavs[0].size)}
+    if convlstm_model is not None:
+        row["convlstm_attributes_ms"] = statistics.median(convlstm_ms)
+        row["convlstm_attributes_ms_all"] = convlstm_ms
+    log(row)
+    if launches != {"mas": 0, "mel": 0, "mrf_tc": 72, "mrf_stack": 0,
+                    "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
+                    "ar_scan_barrier": 0}:
+        raise AssertionError(f"serve_{kind} launches {launches}")
+    if not (errs["mel"] <= 1e-3 and errs["wav"] <= 1e-3 * errs["wav_max_abs"]
+            and torch.isfinite(out["mel"]).all()):
+        raise AssertionError(f"serve_{kind} card vs CPU: {errs}")
+    return launches
+
+
+def phase_serve_agap_bf16(vocoder, denoiser, tp, mods, dev, power):
+    """gap_parts("agap") served with weight_dtype="bfloat16" beside fp32:
+    one bf16 request counted from 0 (ar_scan 2: f0's and energy's flows
+    paired, mrf_tc 72); the 608-frame utterance from seeded z_f0,
+    z_energy, residual and voiced mask: the bf16 mel's distance from the
+    card's fp32 mel at most 3x the CPU's own bf16-to-fp32 distance (or
+    1e-3), f0 and energy beside; the stage times and the RTF (medians of
+    3); the resident conv-kernel bytes fp32 and bf16."""
+    from radtts_tpu_torch.models.hifigan import denoiser_apply
+    from radtts_tpu_torch.models.radtts import infer_durations, radtts_infer
+    from radtts_tpu_torch.ops.fold_norms import (conv_weight_bytes,
+                                                 store_conv_weights)
+    from radtts_tpu_torch.synthesizer import Synthesizer
+
+    config, model = gap_parts("agap", dev)
+    mc, dc = config["model_config"], config["data_config"]
+    synths = {w: Synthesizer.from_parts(
+        mc, model, vocoder, denoiser, encode_fn=tp.encode_text,
+        speaker_id_fn=lambda name: 0, sampling_rate=dc["sampling_rate"],
+        hop_length=dc["hop_length"], seed=0, device=dev, weight_dtype=w)
+        for w in ("float32", "bfloat16")}
+    _reset_counts(*mods)
+    wavs, aux = synths["bfloat16"].synthesize(TEXTS[1], "ljs",
+                                              sigma_f0=0.8, sigma_energy=0.8)
+    torch.cuda.synchronize()
+    launches = _counts(*mods)
+    if not np.isfinite(wavs[0]).all() or not np.isfinite(aux["f0"]).all():
+        raise AssertionError("serve_agap_bf16: non-finite request output")
+    text, dur = flagship_input(synths["float32"])
+    spk = torch.zeros(1, dtype=torch.int64)
+    g, n_mel = mc["n_group_size"], mc["n_mel_channels"]
+    gen = torch.Generator().manual_seed(5)
+    z_f0 = torch.randn(1, MAX_FRAMES, 1, generator=gen) * 0.8
+    z_e = torch.randn(1, MAX_FRAMES, 1, generator=gen) * 0.8
+    res = torch.randn(1, MAX_FRAMES // g, n_mel * g, generator=gen) * 0.8
+    vm = (torch.rand(1, MAX_FRAMES, generator=gen) < 0.7).float()
+
+    def decode(m, device):
+        return radtts_infer(
+            m, spk.to(device), text.to(device), 0.8, MAX_FRAMES,
+            dur=dur.to(device), residual=res.to(device),
+            z_f0=z_f0.to(device), z_energy=z_e.to(device),
+            voiced_mask=vm.to(device))
+
+    model_cpu = copy.deepcopy(model).cpu()
+    cpu_models = {"float32": model_cpu,
+                  "bfloat16": store_conv_weights(copy.deepcopy(model_cpu))}
+    outs, rows = {}, {}
+    seconds = MAX_FRAMES * dc["hop_length"] / dc["sampling_rate"]
+    with torch.inference_mode():
+        for w, s in synths.items():
+            outs[w] = (decode(s.model, dev), decode(cpu_models[w], "cpu"))
+            text_d, dur_d, spk_d = text.to(dev), dur.to(dev), spk.to(dev)
+            stage = {"durations": [], "decode": [], "vocoder_denoiser": []}
+            for _ in range(3):
+                stage["durations"].append(timed(lambda: infer_durations(
+                    s.model, spk_d, text_d))[1])
+                o, t_dec = timed(lambda: radtts_infer(
+                    s.model, spk_d, text_d, 0.8, MAX_FRAMES, dur=dur_d,
+                    generator=s.generator))
+                stage["decode"].append(t_dec)
+                stage["vocoder_denoiser"].append(timed(lambda: denoiser_apply(
+                    s.denoiser, s.vocoder(o["mel"]), strength=0.0))[1])
+            med = {k: statistics.median(v) for k, v in stage.items()}
+            rows[w] = {"stage_ms": med,
+                       "rtf": sum(med.values()) / 1e3 / seconds,
+                       "conv_weight_bytes": conv_weight_bytes(s.model)}
+
+    def dist(a, b, key):
+        return (a[key].cpu() - b[key].cpu()).abs().max().item()
+
+    for key in ("mel", "f0", "energy_avg"):
+        rows["bfloat16"][key + "_dist_from_fp32_card"] = dist(
+            outs["bfloat16"][0], outs["float32"][0], key)
+        rows["bfloat16"][key + "_dist_from_fp32_cpu"] = dist(
+            outs["bfloat16"][1], outs["float32"][1], key)
+        rows["bfloat16"][key + "_card_vs_cpu"] = dist(
+            outs["bfloat16"][0], outs["bfloat16"][1], key)
+    rows["float32"]["f0_max_abs"] = outs["float32"][1]["f0"].abs().max(
+    ).item()
+    log({"phase": "serve_agap_bf16", "card": power, "frames": MAX_FRAMES,
+         "variants": rows, "launches": launches})
+    card = rows["bfloat16"]["mel_dist_from_fp32_card"]
+    cpu = rows["bfloat16"]["mel_dist_from_fp32_cpu"]
+    if launches != {"mas": 0, "mel": 0, "mrf_tc": 72, "mrf_stack": 0,
+                    "mrf_conv": 0, "ar_scan": 2, "mas_block": 0,
+                    "ar_scan_barrier": 0}:
+        raise AssertionError(f"serve_agap_bf16 launches {launches}")
+    if not (card > 0 and card <= max(3 * cpu, 1e-3)):
+        raise AssertionError(f"serve_agap_bf16: the card's mel distance "
+                             f"from fp32 {card}, the CPU's {cpu}")
+    if not (rows["bfloat16"]["conv_weight_bytes"]
+            < rows["float32"]["conv_weight_bytes"]):
+        raise AssertionError("serve_agap_bf16: conv bytes did not fall")
+    return launches
+
+
+def _write_config(config, root, name, files):
+    config["data_config"].update(
+        files, betabinom_cache_path=os.path.join(root, "cache"))
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
+def phase_train_fft(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
+                    text):
+    """python -m radtts_tpu_torch.train's main on dap_variant_config("fft")
+    (use_amp true and unfreeze_modules durf0energyvpred as published,
+    so the FFTransformer DAPs train with their dropout on; batch 16)
+    warm-started from the decoder checkpoint, 2 steps with a validation
+    and a checkpoint at step 0, counted from 0 (mas 3: 2 binarized steps
+    and 1 validation batch); one text served from its checkpoint through
+    python -m radtts_tpu_torch.inference (mrf_tc 144, mas 0); then one
+    step at batch 2 on the card against the CPU with dropout off
+    (phase_radtts_vs_cpu's rule)."""
+    from radtts_tpu_torch.inference import main as inference_main
+    from radtts_tpu_torch.train import main as train_main
+
+    path = _write_config(dap_variant_config("fft"), root, "fft", files)
+    _reset_counts(*mods)
+    history = train_main([
+        "-c", path, "-p", f"train_config.output_directory={root}/fft_out",
+        "train_config.epochs=2", "train_config.seed=0",
+        "train_config.batch_size=16",
+        f"train_config.warmstart_checkpoint_path={dec_ckpt}"])
+    launches = _counts(*mods)
+    _reset_counts(*mods)
+    tic = time.perf_counter()
+    written = inference_main([
+        "-c", path, "-r", f"{root}/fft_out/model_0", "-v", voc, "-k",
+        voc_cfg, "-t", text, "-s", "ljs", "-o",
+        os.path.join(root, "fft_wavs"), "--seed", "0"])
+    serve = {"seconds": time.perf_counter() - tic,
+             "launches": _counts(*mods),
+             "samples": int(_check_wav(written[0], written[0]).size)}
+    for h in history:
+        vals = [v for v in h.values() if isinstance(v, float)]
+        if not all(np.isfinite(vals)):
+            raise AssertionError(f"train_fft: non-finite step {h}")
+    log({"phase": "train_fft", "card": power,
+         "steps": [{k: h[k] for k in ("iteration", "ms", "total",
+                                      "grad_norm", "loss_duration",
+                                      "loss_f0", "loss_energy")
+                    if k in h} for h in history],
+         "validation": [h["validation"] for h in history
+                        if "validation" in h],
+         "launches": launches, "serve": serve})
+    if (len(history) != 2
+            or launches != {"mas": 3, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
+                            "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
+                            "ar_scan_barrier": 0}
+            or serve["launches"]["mrf_tc"] != 2 * 72
+            or serve["launches"]["mas"]):
+        raise AssertionError(f"train_fft: {len(history)} steps, launches "
+                             f"{launches}, serving {serve}")
+    phase_radtts_vs_cpu(dev, config_path=path, unfreeze="durf0energyvpred",
+                        phase="fft_train_step_card_vs_cpu")
+    return {"train_fft": launches, "serve_fft_files": serve["launches"]}
+
+
+def phase_train_plain_w(mods, dev, power, root, files):
+    """python -m radtts_tpu_torch.train's main on dap_variant_config(
+    "plain_w") from random weights, every module trainable (so the plain
+    W trains, its log-determinant by slogdet), use_amp false, batch 16:
+    2 steps with a validation at step 0, counted from 0 (mas 3); the
+    checkpoint's 8 plain Ws finite."""
+    from radtts_tpu_torch.train import main as train_main
+
+    path = _write_config(dap_variant_config("plain_w"), root, "plain_w",
+                         files)
+    _reset_counts(*mods)
+    history = train_main([
+        "-c", path, "-p", f"train_config.output_directory={root}/pw_out",
+        "train_config.epochs=2", "train_config.seed=0",
+        "train_config.batch_size=16", "train_config.use_amp=false",
+        "train_config.unfreeze_modules=all",
+        "train_config.warmstart_checkpoint_path="])
+    launches = _counts(*mods)
+    state = torch.load(f"{root}/pw_out/model_0", map_location="cpu",
+                       weights_only=True)["model"]
+    w_keys = [k for k in state if k.endswith(".inv.w1x1")]
+    for h in history:
+        vals = [v for v in h.values() if isinstance(v, float)]
+        if not all(np.isfinite(vals)):
+            raise AssertionError(f"train_plain_w: non-finite step {h}")
+    log({"phase": "train_plain_w", "card": power,
+         "steps": [{k: h[k] for k in ("iteration", "ms", "total",
+                                      "grad_norm", "loss_mel")}
+                   for h in history],
+         "plain_w_tensors": len(w_keys), "launches": launches})
+    if (len(history) != 2 or len(w_keys) != 8
+            or not all(torch.isfinite(state[k]).all() for k in w_keys)
+            or launches != {"mas": 3, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
+                            "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
+                            "ar_scan_barrier": 0}):
+        raise AssertionError(f"train_plain_w: {len(history)} steps, "
+                             f"{len(w_keys)} plain Ws, launches {launches}")
+    return launches
+
+
+class AudioRecorder:
+    """A logger that keeps the audio the trainer's validation writes and
+    drops its scalars and images."""
+
+    def __init__(self):
+        self.audio = []
+
+    def add_audio(self, tag, audio, step, sample_rate):
+        self.audio.append((tag, np.asarray(audio), step, sample_rate))
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    add_image = add_scalar
+
+
+def phase_train_audio_samples(mods, dev, power, root, files, dec_ckpt, voc,
+                              voc_cfg):
+    """python -m radtts_tpu_torch.train's main on config_ljs_dap.json as
+    published (log_decoder_samples and log_attribute_samples on), its
+    vocoder_checkpoint_path and vocoder_config_path naming the seeded
+    HiFi-GAN v1 the port's writer put in the temporary directory, batch
+    16, warm-started from the decoder checkpoint: one step and its
+    validation, with profile_dir set over iteration 0, counted from 0
+    (mas 2: the step, the validation batch). The trace in profile_dir
+    must hold CUDA kernel events. The CLI logs (and so samples) only where
+    tensorboardX imports, as the JAX trainer does: mrf_tc 6 x 72 there,
+    else 0. Then the validation of the checkpoint it wrote (the trainer's
+    compute_validation_loss), timed with and without the samples, into a
+    recording logger: with them it must get the same five tags, counted
+    from 0 (mrf_tc 6 x 72: the denoiser's bias at the vocoder's load and
+    5 samples; mas 1), without them no sample (mrf_tc 0)."""
+    from radtts_tpu_torch.data.dataset import DataCollate, data_factory
+    from radtts_tpu_torch.train import main as train_main
+    from radtts_tpu_torch.train.checkpoint import load_train_checkpoint
+    from radtts_tpu_torch.train.trainer import (compute_validation_loss,
+                                                init_model)
+
+    with open(CONFIG) as f:
+        config = json.load(f)
+    config["train_config"].update(vocoder_checkpoint_path=voc,
+                                  vocoder_config_path=voc_cfg,
+                                  profile_dir="", profile_start_iter=5,
+                                  profile_n_iters=5)
+    path = _write_config(config, root, "samples", files)
+    out, prof = os.path.join(root, "samples_out"), os.path.join(root, "prof")
+    try:
+        import tensorboardX  # noqa: F401
+        has_tbx = True
+    except ImportError:
+        has_tbx = False
+    _reset_counts(*mods)
+    tic = time.perf_counter()
+    history = train_main([
+        "-c", path, "-p", f"train_config.output_directory={out}",
+        "train_config.epochs=1", "train_config.seed=0",
+        "train_config.batch_size=16",
+        f"train_config.warmstart_checkpoint_path={dec_ckpt}",
+        f"train_config.profile_dir={prof}",
+        "train_config.profile_start_iter=0",
+        "train_config.profile_n_iters=0"])
+    cli_s = time.perf_counter() - tic
+    cli_launches = _counts(*mods)
+    with open(os.path.join(prof, "trace_0_0.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    cuda_kernels = sum(e.get("cat") == "kernel" for e in trace)
+
+    with open(path) as f:
+        config = json.load(f)
+    mc, dc, tc = (config["model_config"], config["data_config"],
+                  config["train_config"])
+    model = init_model(mc, 0, dev)
+    load_train_checkpoint(f"{out}/model_0", model, None, mc)
+    trainset = data_factory(dc, "training_files")
+    valset = data_factory(dc, "validation_files", trainset.speaker_ids)
+    val_ms, recorders, launches = {}, {}, {}
+    for name, train_config in (("without_samples", None),
+                               ("with_samples", tc)):
+        recorders[name] = AudioRecorder()
+        _reset_counts(*mods)
+        _, val_ms[name] = timed(lambda: compute_validation_loss(
+            model, valset, DataCollate(), 16, dev, mc, tc["loss_weights"],
+            tc["sigma"], 0, recorders[name], train_config=train_config,
+            sampling_rate=dc["sampling_rate"]))
+        launches[name] = _counts(*mods)
+    recorded = recorders["with_samples"].audio
+    log({"phase": "train_audio_samples", "card": power,
+         "tensorboardX": has_tbx, "cli_seconds": cli_s,
+         "step_ms": [h["ms"] for h in history], "validation_ms": val_ms,
+         "cli_launches": cli_launches, "validation_launches": launches,
+         "recorded_audio": [{"tag": t, "sample_rate": sr,
+                             "samples": int(a.size),
+                             "max_abs": float(np.abs(a).max())}
+                            for t, a, _, sr in recorded],
+         "trace_events": len(trace), "trace_cuda_kernels": cuda_kernels})
+    zero = {"mas": 0, "mel": 0, "mrf_tc": 0, "mrf_stack": 0, "mrf_conv": 0,
+            "ar_scan": 0, "mas_block": 0, "ar_scan_barrier": 0}
+    if (cli_launches != dict(zero, mas=2, mrf_tc=6 * 72 if has_tbx else 0)
+            or launches["with_samples"] != dict(zero, mas=1, mrf_tc=6 * 72)
+            or launches["without_samples"] != dict(zero, mas=1)):
+        raise AssertionError(f"train_audio_samples launches: CLI "
+                             f"{cli_launches}, validation {launches}")
+    if [t for t, _, _, _ in recorded] != AUDIO_TAGS or any(
+            sr != 22050 or not np.isfinite(a).all()
+            or not np.abs(a).max() > 1e-3 for _, a, _, sr in recorded):
+        raise AssertionError(f"train_audio_samples: "
+                             f"{[(t, sr) for t, _, _, sr in recorded]}")
+    if recorders["without_samples"].audio or not cuda_kernels:
+        raise AssertionError("train_audio_samples: samples without a "
+                             f"train_config, or {cuda_kernels} CUDA kernel "
+                             "events in the trace")
+    return launches["with_samples"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3028,6 +3521,13 @@ def main():
                     for kind in GAP_CONFIGS}
     amp_serve_launches = phase_amp_serve(config, model, vocoder, denoiser,
                                          tp, mods, dev, power)
+    fft_launches = phase_serve_dap_variant("fft", vocoder, denoiser, tp,
+                                           mods, dev, power,
+                                           convlstm_model=model)
+    plain_w_launches = phase_serve_dap_variant("plain_w", vocoder, denoiser,
+                                               tp, mods, dev, power)
+    agap_bf16_launches = phase_serve_agap_bf16(vocoder, denoiser, tp, mods,
+                                               dev, power)
     del synth, model, vocoder, denoiser
     v2_launches, v2_ms = phase_serve_v2(mrf_mod, dev, power)
     rb2_launches = phase_resblock2(mods, dev, power)
@@ -3043,6 +3543,12 @@ def main():
         out["vc"] = phase_vc(mods, dev, power, root, dap_ckpt, dap_config)
         out["train_amp"] = phase_amp_train(mods, dev, power, root, files,
                                            dec_ckpt)
+        out.update(phase_train_fft(mods, dev, power, root, files, dec_ckpt,
+                                   voc, voc_cfg, text))
+        out["train_plain_w"] = phase_train_plain_w(mods, dev, power, root,
+                                                   files)
+        out["train_audio_samples"] = phase_train_audio_samples(
+            mods, dev, power, root, files, dec_ckpt, voc, voc_cfg)
         return out
     radtts_launches, gap_train = phase_train_radtts(
         mas_mod, mel_mod, mrf_mod, dev, power, then=after_radtts)
@@ -3063,7 +3569,13 @@ def main():
              "train_gap": gap_train["train_gap"],
              "serve_gap_files": gap_train["serve_gap_files"],
              "vc": gap_train["vc"], "serve_amp": amp_serve_launches,
-             "train_amp": gap_train["train_amp"], "resblock2": rb2_launches}
+             "train_amp": gap_train["train_amp"], "resblock2": rb2_launches,
+             "serve_fft": fft_launches, "train_fft": gap_train["train_fft"],
+             "serve_fft_files": gap_train["serve_fft_files"],
+             "serve_plain_w": plain_w_launches,
+             "train_plain_w": gap_train["train_plain_w"],
+             "serve_agap_bf16": agap_bf16_launches,
+             "train_audio_samples": gap_train["train_audio_samples"]}
 
     def by_path(kernel):
         return {p: c.get(kernel, 0) for p, c in paths.items()}
@@ -3246,12 +3758,15 @@ def main():
         "bound_ms": ar_rows[0]["bound_ms"],
         "bound_by": ar_rows[0]["bound_by"],
         "library_ms": None,
+        "wide": {k: ar_wide[k] for k in ("shape", "H", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "max_abs_err")},
         "note": "The barrier kernel (a grid barrier, weights from L2), "
                 "the route of steps whose weights do not fit the blocks' "
                 "shared "
-                "memory (0 launches on every path; held at H = 1024, "
-                "(1, 32)); times at (1, 608, 1) on the resident kernel's "
-                "inputs",
+                "memory (0 launches on every path; held and timed at H = "
+                "1024, (1, 32): `wide`); times at (1, 608, 1) on the "
+                "resident kernel's inputs",
     }]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(power, flush=True)

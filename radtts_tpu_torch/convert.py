@@ -12,9 +12,10 @@ MRF resblock convs keep the taps-major (n, K, C_in, C_out) layout the
 kernel reads. The discriminators' kernels go to torch's conv layouts.
 
 The attribute models carry over by family: the DAP's convs, spectral-normed
-LSTM and dense; the BGAP's plain-W 1x1s and SimpleConvNets; the AGAP's
-plain LSTMs (nn.LSTM layout) and spline or dense heads
-(`attribute_from_jax` loads one alone).
+LSTM and dense, or its FFTransformer; the BGAP's plain-W 1x1s and
+SimpleConvNets; the AGAP's plain LSTMs (nn.LSTM layout) and spline or dense
+heads (`attribute_from_jax` loads one alone). The decoder's 1x1s are LU
+factors or a plain W, its couplings WNs or SimpleConvNets.
 
 `radtts_train_from_jax` carries the unfolded tree into the training form
 (RADTTS(..., factored=True)): weight-normed convs as weight_v / weight_g,
@@ -81,8 +82,13 @@ def _lstm(mod, p):
 
 
 def _invertible(mod, p):
-    for name in ("p", "lower", "upper", "upper_diag"):
-        _set(getattr(mod, name), p[name])
+    """An LU-decomposed 1x1 {p, lower, upper, upper_diag}, or a plain-W
+    one {w1x1}; the inference form computes its inverse."""
+    if "w1x1" in p:
+        _set(mod.w1x1, p["w1x1"])
+    else:
+        for name in ("p", "lower", "upper", "upper_diag"):
+            _set(getattr(mod, name), p[name])
     if not mod.trainable:
         mod.precompute_inverse()
 
@@ -106,9 +112,7 @@ def _simple_convnet(mod, p):
 def _bgap(mod, p):
     _conv(mod.bottleneck.proj, p["bottleneck"]["proj"])
     for inv, ip in zip(mod.convinv, p["convinv"]):
-        _set(inv.w1x1, ip["w1x1"])
-        if not inv.trainable:
-            inv.precompute_inverse()
+        _invertible(inv, ip)
     for transform, tp in zip(mod.transforms, p["transforms"]):
         _simple_convnet(transform.pred, tp["pred"])
 
@@ -130,9 +134,25 @@ def _attribute(mod, p):
     {"dap": _dap, "bgap": _bgap, "agap": _agap}[mod.name](mod, p)
 
 
+def _fft(mod, p):
+    for layer, lp in zip(mod.layers, p["layers"]):
+        attn, ff = layer["attn"], layer["ff"]
+        _linear(attn.qkv, lp["attn"]["qkv"])
+        _linear(attn.o, lp["attn"]["o"])
+        _conv(ff.conv1, lp["ff"]["conv1"])
+        _conv(ff.conv2, lp["ff"]["conv2"])
+        for ln, lnp in ((attn.ln, lp["attn"]["ln"]), (ff.ln, lp["ff"]["ln"])):
+            _set(ln.gamma, lnp["gamma"])
+            _set(ln.beta, lnp["beta"])
+    _linear(mod.dense, p["dense"])
+
+
 def _dap(mod, p):
     _conv(mod.bottleneck.proj, p["bottleneck"]["proj"])
     feat = p["feat"]
+    if mod.use_transformer:
+        _fft(mod.feat, feat)
+        return
     for conv, cp in zip(mod.feat.convs, feat["convs"]):
         _conv(conv, cp)
     if mod.feat.lstm is not None:
@@ -211,7 +231,10 @@ def _radtts_load(model, p, partial=False):
     def flows():
         for flow, fp in zip(model.flows, p["flows"]):
             _invertible(flow.inv, fp["inv"])
-            _wn(flow.affine.pred, fp["affine"]["pred"])
+            if flow.affine.affine_model == "wavenet":
+                _wn(flow.affine.pred, fp["affine"]["pred"])
+            else:
+                _simple_convnet(flow.affine.pred, fp["affine"]["pred"])
 
     def table(name):
         _set(getattr(model, name).weight, p[name]["table"])
@@ -334,16 +357,36 @@ def _bilstm_sd(sd, prefix, norm):
             "bwd": _lstm_cell_sd(sd, prefix, "_reverse", norm)}
 
 
-def _check_attribute(config):
-    if config["name"] == "dap" and config["hparams"].get("use_transformer",
-                                                         False):
-        raise NotImplementedError("DAP with use_transformer is not ported "
-                                  "yet")
+def _layer_norm_sd(sd, prefix):
+    return {"gamma": _np(sd[prefix + ".weight"]),
+            "beta": _np(sd[prefix + ".bias"])}
+
+
+def _fft_sd(sd, prefix, n_layers):
+    """(radtts_tpu/convert.py:231-250): layers.i.dec_attn.{qkv_net, o_net
+    (no bias), layer_norm}, layers.i.pos_ff.{CoreNet.0, CoreNet.2,
+    layer_norm}, dense.linear_layer."""
+    layers = []
+    for i in range(n_layers):
+        base = f"{prefix}.layers.{i}"
+        layers.append({
+            "attn": {"qkv": _linear_sd(sd, base + ".dec_attn.qkv_net"),
+                     "o": {"w": _np_t(sd[base + ".dec_attn.o_net.weight"])},
+                     "ln": _layer_norm_sd(sd, base + ".dec_attn.layer_norm")},
+            "ff": {"conv1": _conv_sd(sd, base + ".pos_ff.CoreNet.0"),
+                   "conv2": _conv_sd(sd, base + ".pos_ff.CoreNet.2"),
+                   "ln": _layer_norm_sd(sd, base + ".pos_ff.layer_norm")}})
+    return {"layers": layers,
+            "dense": _linear_sd(sd, prefix + ".dense.linear_layer")}
 
 
 def _dap_sd(sd, prefix, config):
     arch = config["hparams"]["arch_hparams"]
     fp = prefix + ".feat_pred_fn"
+    if config["hparams"].get("use_transformer", False):
+        # fft_init's default depth where the arch names none
+        return {"bottleneck": _bottleneck_sd(sd, prefix),
+                "feat": _fft_sd(sd, fp, arch.get("n_layers", 6))}
     feat = {"convs": [_conv_sd(sd, f"{fp}.convolutions.{i}", True)
                       for i in range(arch["n_layers"])]}
     lstm_type = arch.get("lstm_type", "bilstm")
@@ -427,14 +470,24 @@ def _attribute_sd(sd, prefix, config):
     return fn[config["name"]](sd, prefix, config)
 
 
-def _flow_sd(sd, prefix, n_layers):
-    inv = {k: _np(sd[f"{prefix}.invtbl_conv.{k}"])
-           for k in ("p", "lower", "upper", "upper_diag")}
-    # the reference's unit diagonal of L, a constant buffer
-    diag_key = f"{prefix}.invtbl_conv.lower_diag"
-    if diag_key in sd and not (_np(sd[diag_key]) == 1.0).all():
-        raise ValueError(f"{diag_key} is not all ones")
+def _flow_sd(sd, prefix, n_layers, lus=True, affine_model="wavenet"):
+    """A decoder flow step (radtts_tpu/convert.py:365-377): the LU 1x1's
+    factors, or a plain W from invtbl_conv.conv.weight (c, c, 1); the WN or
+    the SimpleConvNet coupling."""
+    if lus:
+        inv = {k: _np(sd[f"{prefix}.invtbl_conv.{k}"])
+               for k in ("p", "lower", "upper", "upper_diag")}
+        # the reference's unit diagonal of L, a constant buffer
+        diag_key = f"{prefix}.invtbl_conv.lower_diag"
+        if diag_key in sd and not (_np(sd[diag_key]) == 1.0).all():
+            raise ValueError(f"{diag_key} is not all ones")
+    else:
+        inv = {"w1x1": np.ascontiguousarray(_np(
+            sd[f"{prefix}.invtbl_conv.conv.weight"])[:, :, 0])}
     wn = prefix + ".affine_tfn.affine_param_predictor"
+    if affine_model != "wavenet":
+        return {"inv": inv,
+                "affine": {"pred": _simple_convnet_sd(sd, wn, n_layers)}}
     pred = {"start": _conv_sd(sd, wn + ".start", True),
             "end": _conv_sd(sd, wn + ".end"),
             "in_layers": [_conv_sd(sd, f"{wn}.in_layers.{j}.conv", True)
@@ -448,19 +501,10 @@ def radtts_from_torch(sd, model_config):
     """A reference RADTTS state dict (the reference checkpoint's
     'state_dict') as the JAX-format numpy tree radtts_from_jax takes, for
     the modules RADTTS(model_config) builds, their norm factorizations
-    kept, the alignment attention included where the file has it. A
-    configuration the port cannot build raises by name before anything is
-    read."""
+    kept, the alignment attention included where the file has it."""
     cfg = dict(model_config)
     g = cfg.get
     include = g("include_modules", "dec")
-    if "dec" in include:
-        if g("matrix_decomposition", "") != "LUS":
-            raise NotImplementedError("only the LUS 1x1 convolution is "
-                                      "ported")
-        if g("affine_model", "simple_conv") != "wavenet":
-            raise NotImplementedError(f"{g('affine_model', 'simple_conv')} "
-                                      "affine model is not ported yet")
     use_unvoiced_bias = bool(g("decoder_use_unvoiced_bias", True)
                              or g("ap_use_unvoiced_bias", True))
     voiced_embeddings = g("ap_use_voiced_embeddings", True)
@@ -472,8 +516,6 @@ def radtts_from_torch(sd, model_config):
     if "apm" in include:
         attributes += [("f0_pred_module", "f0_model_config"),
                        ("energy_pred_module", "energy_model_config")]
-    for _, key in attributes:
-        _check_attribute(cfg[key])
 
     p = {"speaker_embedding": {"table": _np(sd["speaker_embedding.weight"])},
          "embedding": {"table": _np(sd["embedding.weight"])},
@@ -497,7 +539,9 @@ def radtts_from_torch(sd, model_config):
         p["context_lstm"] = _bilstm_sd(sd, "context_lstm",
                                        _norm_kind(g("context_lstm_norm")))
     if "dec" in include:
-        p["flows"] = [_flow_sd(sd, f"flows.{i}", cfg["n_conv_layers_per_step"])
+        p["flows"] = [_flow_sd(sd, f"flows.{i}", cfg["n_conv_layers_per_step"],
+                               g("matrix_decomposition", "") == "LUS",
+                               g("affine_model", "simple_conv"))
                       for i in range(cfg["n_flows"])]
     for name, key in attributes:
         p[name] = _attribute_sd(sd, name, cfg[key])

@@ -10,7 +10,11 @@ that u . (W v) = 1; a weight-normed one as _v = W and _g = its row norms.
 The JAX package's fold and the reference in eval mode both give back W,
 up to fp32 rounding.
 
-The BGAP's plain-W 1x1s are written as convinv.k.conv.weight (c, c, 1),
+A DAP on the FFTransformer is written under the reference's
+feat_pred_fn.layers.i.{dec_attn, pos_ff} and feat_pred_fn.dense.linear_layer
+names. A decoder's plain-W 1x1 is written as invtbl_conv.conv.weight (c, c,
+1), its simple_conv coupling as the SimpleConvNet below. The BGAP's
+plain-W 1x1s are written as convinv.k.conv.weight (c, c, 1),
 its couplings' SimpleConvNets as (affine_)param_predictor.layers.i.conv
 and .last_layer; the AGAP's plain LSTMs under nn.LSTM's names, its odd
 steps under flows.i.ar_step (radtts_tpu/export.py:196-238).
@@ -23,6 +27,8 @@ the file with strict=True. A training-form model is folded first
 
 import numpy as np
 import torch
+
+from radtts_tpu_torch.ops.invertible import InvConv1x1LUS
 
 
 def _t(a):
@@ -46,7 +52,27 @@ def _conv(sd, prefix, conv, weight_norm=False):
 
 def _linear(sd, prefix, linear):
     sd[prefix + ".weight"] = _t(_np(linear.weight))
-    sd[prefix + ".bias"] = _t(_np(linear.bias))
+    if linear.bias is not None:
+        sd[prefix + ".bias"] = _t(_np(linear.bias))
+
+
+def _layer_norm(sd, prefix, ln):
+    sd[prefix + ".weight"] = _t(_np(ln.gamma))
+    sd[prefix + ".bias"] = _t(_np(ln.beta))
+
+
+def _fft(sd, prefix, fft):
+    """(radtts_tpu/export.py:172-186)."""
+    for i, layer in enumerate(fft.layers):
+        base = f"{prefix}.layers.{i}"
+        attn, ff = layer["attn"], layer["ff"]
+        _linear(sd, base + ".dec_attn.qkv_net", attn.qkv)
+        _linear(sd, base + ".dec_attn.o_net", attn.o)
+        _layer_norm(sd, base + ".dec_attn.layer_norm", attn.ln)
+        _conv(sd, base + ".pos_ff.CoreNet.0", ff.conv1)
+        _conv(sd, base + ".pos_ff.CoreNet.2", ff.conv2)
+        _layer_norm(sd, base + ".pos_ff.layer_norm", ff.ln)
+    _linear(sd, prefix + ".dense.linear_layer", fft.dense)
 
 
 def _lstm(sd, prefix, mod):
@@ -75,6 +101,9 @@ def _dap(sd, prefix, dap):
     _conv(sd, prefix + ".bottleneck_layer.projection_fn.conv",
           dap.bottleneck.proj, weight_norm=True)
     fp = prefix + ".feat_pred_fn"
+    if dap.use_transformer:
+        _fft(sd, fp, dap.feat)
+        return
     for i, conv in enumerate(dap.feat.convs):
         _conv(sd, f"{fp}.convolutions.{i}", conv, weight_norm=True)
     if dap.feat.lstm is not None:
@@ -152,11 +181,17 @@ def radtts_to_torch(model):
         _lstm(sd, "context_lstm", model.context_lstm)
     for i, flow in enumerate(model.flows):
         inv = f"flows.{i}.invtbl_conv"
-        for name in ("p", "lower", "upper", "upper_diag"):
-            sd[f"{inv}.{name}"] = _t(_np(getattr(flow.inv, name)))
-        sd[f"{inv}.lower_diag"] = torch.ones(flow.inv.p.shape[0])
+        if isinstance(flow.inv, InvConv1x1LUS):
+            for name in ("p", "lower", "upper", "upper_diag"):
+                sd[f"{inv}.{name}"] = _t(_np(getattr(flow.inv, name)))
+            sd[f"{inv}.lower_diag"] = torch.ones(flow.inv.p.shape[0])
+        else:
+            sd[f"{inv}.conv.weight"] = _t(_np(flow.inv.w1x1)[:, :, None])
         wn, pred = f"flows.{i}.affine_tfn.affine_param_predictor", \
             flow.affine.pred
+        if flow.affine.affine_model != "wavenet":
+            _simple_convnet(sd, wn, pred)
+            continue
         _conv(sd, wn + ".start", pred.start, weight_norm=True)
         _conv(sd, wn + ".end", pred.end)
         for j, conv in enumerate(pred.in_layers):

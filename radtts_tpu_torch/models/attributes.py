@@ -2,8 +2,9 @@
 (radtts_tpu/models/attributes.py), in three families chosen per attribute
 by the config's name:
 
-  * DAP: the deterministic regressor (bottleneck + ConvLSTMLinear); its
-    training forward draws dropout from an explicit generator;
+  * DAP: the deterministic regressor (bottleneck + ConvLSTMLinear, or
+    with use_transformer the FFTransformer); its training forward draws
+    dropout from an explicit generator;
   * BGAP: a bipartite flow over grouped frames, affine (simple_conv)
     couplings then spline couplings, each after an invertible 1x1;
   * AGAP: an autoregressive flow, forward and backward AR steps with LSTM
@@ -24,6 +25,7 @@ from torch import nn
 
 from radtts_tpu_torch.models.coupling import (AffineCoupling, SplineAR,
                                               SplineCoupling)
+from radtts_tpu_torch.models.fftransformer import FFTransformer
 from radtts_tpu_torch.ops.amp import cast_in, cast_out
 from radtts_tpu_torch.ops.ar_scan import ar_scan, ar_scan_multi
 from radtts_tpu_torch.ops.conv import ConvNorm
@@ -137,21 +139,24 @@ class DAP(nn.Module):
 
     def __init__(self, hparams, factored=False):
         super().__init__()
-        if hparams.get("use_transformer", False):
-            raise NotImplementedError("DAP with use_transformer is not "
-                                      "ported yet")
         self.bottleneck = Bottleneck(**hparams["bottleneck_hparams"],
                                      factored=factored)
         arch = hparams["arch_hparams"]
-        self.feat = ConvLSTMLinear(
-            self.bottleneck.out_dim + hparams["n_speaker_dim"],
-            arch["out_dim"], n_layers=arch["n_layers"],
-            n_channels=arch["n_channels"], kernel_size=arch["kernel_size"],
-            p_dropout=arch["p_dropout"],
-            lstm_type=arch.get("lstm_type", "bilstm"),
-            use_linear=bool(arch.get("use_linear", True)),
-            factored=factored)
+        in_dim = self.bottleneck.out_dim + hparams["n_speaker_dim"]
         self.take_log_of_input = bool(hparams["take_log_of_input"])
+        self.use_transformer = bool(hparams.get("use_transformer", False))
+        if self.use_transformer:
+            # its arch keys as fft_init takes them
+            # (radtts_tpu/models/attributes.py:193-198)
+            self.feat = FFTransformer(**dict(arch, in_dim=in_dim))
+        else:
+            self.feat = ConvLSTMLinear(
+                in_dim, arch["out_dim"], n_layers=arch["n_layers"],
+                n_channels=arch["n_channels"],
+                kernel_size=arch["kernel_size"], p_dropout=arch["p_dropout"],
+                lstm_type=arch.get("lstm_type", "bilstm"),
+                use_linear=bool(arch.get("use_linear", True)),
+                factored=factored)
 
     def context(self, txt_enc, spk_emb):
         h = self.bottleneck(txt_enc)

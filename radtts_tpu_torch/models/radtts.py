@@ -17,6 +17,7 @@ import copy
 import torch
 from torch import nn
 
+from radtts_tpu_torch.debug import check_finite
 from radtts_tpu_torch.models.attention import ConvAttention
 from radtts_tpu_torch.models.attributes import (attribute_model,
                                                 attribute_model_forward,
@@ -124,16 +125,17 @@ class RADTTS(nn.Module):
         exit_steps = []
         self.flows = nn.ModuleList()
         if "dec" in include_modules:
-            if g("matrix_decomposition", "") != "LUS":
-                raise NotImplementedError("only the LUS 1x1 convolution "
-                                          "is ported")
+            # the LU-decomposed 1x1, or the plain W for any other
+            # matrix_decomposition (radtts_tpu/models/radtts.py:144-147)
+            inv1x1 = (InvConv1x1LUS if g("matrix_decomposition", "") == "LUS"
+                      else InvConv1x1)
             ch = cfg["n_mel_channels"] * n_group_size
             for i in range(cfg["n_flows"]):
                 if i > 0 and i % cfg["n_early_every"] == 0:
                     ch -= cfg["n_early_size"]
                     exit_steps.append(i)
                 self.flows.append(FlowStep(
-                    InvConv1x1LUS(ch, trainable=factored),
+                    inv1x1(ch, trainable=factored),
                     AffineCoupling(ch, n_flowstep_cond_dims,
                                    cfg["n_conv_layers_per_step"],
                                    affine_model=g("affine_model",
@@ -275,6 +277,7 @@ def is_attribute_unconditional(meta):
 def binarize_attention(attn_soft, in_lens, out_lens):
     """MAS over the detached soft attention, without gradient
     (ops/mas.py: the kernel on the card)."""
+    attn_soft = check_finite(attn_soft, "soft attention map")
     return mas(attn_soft.detach(), out_lens, in_lens)
 
 
@@ -296,6 +299,8 @@ def _flow_step_forward(model, flow, z, context, mask):
         z, context, scaling_fn=meta["scaling_fn"],
         affine_activation=meta["affine_activation"], mask=mask,
         use_partial_padding=meta["decoder_use_partial_padding"])
+    log_s = check_finite(log_s, "decoder flow log_s")
+    log_det_W = check_finite(log_det_W, "decoder flow log_det_W")
     return z, log_det_W, log_s
 
 

@@ -24,6 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
+from radtts_tpu_torch.debug import check_finite
 from radtts_tpu_torch.ops.cuda_build import build_library
 from radtts_tpu_torch.ops.invertible import scaling_and_log_s
 from radtts_tpu_torch.ops.splines import spline_transform
@@ -628,9 +629,12 @@ def ar_scan_multi(problems, blocks=None, trace=None):
     tensors run the launches ar_scan_plan names (`blocks`: its block
     count), or raise: no failure falls back to another route. `trace`
     (trace_buffer) records the first resident launch's block 0."""
+    problems = [(widened(params), res, cproj)
+                for params, res, cproj in problems]
     dev = problems[0][1].device
     if dev.type == "cpu":
-        return [ar_scan_plain(*p) for p in problems]
+        return [_checked(params, ar_scan_plain(params, res, cproj))
+                for params, res, cproj in problems]
     if dev.type != "cuda":
         raise ValueError(f"ar_scan: unsupported device {dev}")
     if torch.is_grad_enabled() and any(
@@ -665,7 +669,34 @@ def ar_scan_multi(problems, blocks=None, trace=None):
                     launch, [problems[i] for i in idx], trace)):
                 outs[i] = o
             trace = None
-    return outs
+    return [_checked(params, o) for (params, _, _), o in zip(problems, outs)]
+
+
+def widened(params):
+    """params with every bf16-stored weight (ops/fold_norms.py:
+    store_conv_weights casts the spline head's and the affine head's
+    convs) widened to fp32, as the JAX package's products take bf16
+    kernels with fp32 sums; the fp32 ones as they are."""
+    def w(t):
+        return t if t is None or t.dtype == torch.float32 else t.float()
+
+    out = dict(params)
+    out["attr"] = (w(params["attr"][0]), w(params["attr"][1]),
+                   params["attr"][2])
+    out["lstm"] = [(w(a), w(b), c) for a, b, c in params["lstm"]]
+    out["head"] = [(w(a), w(b), act) for a, b, act in params["head"]]
+    return out
+
+
+# the debug sentinel's name for the spline inverse the scan runs in its
+# head (csrc/ar_scan.cu runs it inside the launch): its output is checked
+_SENTINELS = {"quadratic": "piecewise_quadratic bin input",
+              "linear": "piecewise_linear_inverse bin input"}
+
+
+def _checked(params, out):
+    name = _SENTINELS.get(params["kind"])
+    return out if name is None else check_finite(out, name)
 
 
 def ar_scan(params, residual, context_proj):

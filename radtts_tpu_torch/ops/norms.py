@@ -1,7 +1,8 @@
 """Masked instance norm: the text encoder's per-sample InstanceNorm1d over
-valid frames, as one batched op."""
+valid frames, as one batched op; and the FFTransformer's LayerNorm."""
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -24,3 +25,18 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x, mask):
         return masked_instance_norm(x, mask, self.gamma, self.beta)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis at eps 1e-5, with the JAX package's
+    gamma and beta (radtts_tpu/ops/norms.py:33-37)."""
+
+    def __init__(self, dim, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(dim))
+        self.beta = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return F.layer_norm(x, x.shape[-1:], self.gamma.to(x.dtype),
+                            self.beta.to(x.dtype), self.eps)

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from radtts_tpu_torch.debug import check_finite
+
 _EPS32 = float(np.finfo(np.float32).eps)
 
 
@@ -30,10 +32,14 @@ def _left_edges(q, w):
 def piecewise_linear_forward(x, q_tilde):
     """x: (N, k) in [0, 1]; q_tilde: (N, k, b) unnormalized bin heights.
     Returns (y, log_j) with log_j summed over k: (N,)."""
+    x = check_finite(x, "piecewise_linear_forward bin input")
     b = q_tilde.shape[-1]
     w = 1.0 / b
     q = torch.softmax(q_tilde, dim=-1) / w
-    mx = torch.clamp(torch.floor(b * x), 0, b - 1).to(torch.int64)
+    # a NaN input takes bin 0, as XLA's float-to-int conversion gives it
+    # (the debug sentinel above is what reports it)
+    mx = torch.clamp(torch.nan_to_num(torch.floor(b * x), nan=0.0), 0,
+                     b - 1).to(torch.int64)
     alpha = x - mx * w
     slopes = _take(q, mx)
     out = alpha * slopes + _take(_left_edges(q, w), mx)
@@ -47,6 +53,7 @@ def piecewise_linear_forward(x, q_tilde):
 def piecewise_linear_inverse(y, q_tilde):
     """Inverse of piecewise_linear_forward: (x, log_j). x carries no
     gradient (the JAX package stops it)."""
+    y = check_finite(y, "piecewise_linear_inverse bin input")
     b = q_tilde.shape[-1]
     w = 1.0 / b
     q = torch.softmax(q_tilde, dim=-1) / w
@@ -79,6 +86,7 @@ def piecewise_quadratic(x, w_tilde, v_tilde, inverse=False):
     """Monotone quadratic spline on [0, 1) (the Neural Importance Sampling
     parametrization). x: (...,); w_tilde: (..., K); v_tilde: (..., K+1).
     Returns (y, log_j); log_j is None for the inverse."""
+    x = check_finite(x, "piecewise_quadratic bin input")
     eps = _EPS32
     w = torch.softmax(w_tilde, dim=-1)
     v = _weighted_softmax(v_tilde, w)

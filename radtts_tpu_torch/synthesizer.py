@@ -138,11 +138,6 @@ class Synthesizer:
         self.bucket_single = bucket_single
         tic = time.perf_counter()
         if self.weight_dtype == "bfloat16":
-            if any(getattr(m, "name", None) == "agap"
-                   for m in model.modules()):
-                raise NotImplementedError(
-                    "weight_dtype bfloat16 with an AGAP attribute model is "
-                    "not ported: its AR scan takes fp32 weights")
             model = store_conv_weights(copy.deepcopy(model))
         self.model = model.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()

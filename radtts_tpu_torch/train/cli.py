@@ -11,11 +11,16 @@ JAX trainer does. It runs on CUDA unless --device names another device
 (cpu). train_config.use_amp runs the forward's bf16 regions
 (radtts_tpu_torch/ops/amp.py; a string from -p counts as true only when
 it reads 1, true, yes or on); train_config.optim_state_dtype bfloat16
-keeps the optimizer's moments in bf16.
+keeps the optimizer's moments in bf16. A non-empty
+train_config.profile_dir writes a torch.profiler trace of iterations
+profile_start_iter (5) to profile_start_iter + profile_n_iters (5 more)
+there. With vocoder_checkpoint_path and vocoder_config_path naming files,
+each validation writes audio samples (log_decoder_samples,
+log_attribute_samples) to the logs.
 
 Options the port does not have yet are refused with an error, never
 ignored: dist_config.n_model above 1 and WORLD_SIZE above 1 (ROADMAP.md
-A8), and a non-empty profile_dir (A8).
+A8).
 """
 
 import argparse
@@ -47,9 +52,6 @@ def refusal(config):
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         return ("WORLD_SIZE > 1 (data parallelism) is not supported: the "
                 "port trains on one device (ROADMAP.md A8)")
-    if tc.get("profile_dir"):
-        return ("train_config.profile_dir is not supported: the port has "
-                "no profiler trace option (ROADMAP.md A8)")
     return None
 
 

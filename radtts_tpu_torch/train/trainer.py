@@ -1,7 +1,8 @@
 """RADTTS training loop of the port (radtts_tpu/train/trainer.py:61-630):
 trainable masks and freezing, the train step (power iteration, forward,
-losses, backward, global-norm clip, RAdam), the curriculum, validation,
-checkpoints, warm start and resume, on one device.
+losses, backward, global-norm clip, RAdam), the curriculum, validation
+with its audio samples, checkpoints, warm start and resume, a profiler
+window, on one device.
 
 The model is the training form of RADTTS (its norm factorizations held as
 parameters and buffers). A frozen parameter has requires_grad False and is
@@ -158,9 +159,11 @@ def eval_step(model, batch, model_config, loss_weights, sigma):
 
 def compute_validation_loss(model, valset, collate_fn, batch_size, device,
                             model_config, loss_weights, sigma, iteration=0,
-                            logger=None):
+                            logger=None, train_config=None,
+                            sampling_rate=22050):
     """The validation set's mean losses (reference: train.py:200-297), the
-    attention maps to tensorboardX when a logger is given."""
+    attention maps to tensorboardX when a logger is given, and with a
+    train_config the audio samples it asks for (_log_audio_samples)."""
     from radtts_tpu_torch.data.dataset import DataLoader
 
     was_training = model.training
@@ -189,7 +192,94 @@ def compute_validation_loss(model, valset, collate_fn, batch_size, device,
                 logger.add_image(tag, _alignment_image(
                     a[0].float().cpu().numpy().T, name), iteration,
                     dataformats="HWC")
+        if train_config is not None and last is not None:
+            _log_audio_samples(iteration, model, model_config, train_config,
+                               last, attn, logger, sampling_rate, device)
     return totals
+
+
+def _log_audio_samples(iteration, model, model_config, train_config, batch,
+                       attn, logger, sampling_rate, device):
+    """Synthesize the validation batch's first text through the vocoder of
+    train_config (vocoder_checkpoint_path, vocoder_config_path): with the
+    ground-truth attributes when log_decoder_samples is set, at attribute
+    sigmas 0.1-1.0 when log_attribute_samples is (radtts_tpu/train/
+    trainer.py:627-697; reference train.py:247-295). Durations come from
+    the MAS map; decoder sigma 0.8, the noise from a generator seeded
+    with the iteration. Skipped without both vocoder files; a sigma whose
+    synthesis raises is reported and skipped."""
+    voc_ckpt = train_config.get("vocoder_checkpoint_path", "")
+    voc_cfg = train_config.get("vocoder_config_path", "")
+    if not (voc_ckpt and voc_cfg and os.path.exists(voc_ckpt)
+            and os.path.exists(voc_cfg)):
+        return
+    try:
+        from radtts_tpu_torch.models.hifigan import denoiser_apply
+        from radtts_tpu_torch.models.radtts import (fold_radtts,
+                                                    is_attribute_unconditional,
+                                                    radtts_infer)
+        from radtts_tpu_torch.vocoder_io import load_vocoder
+
+        vocoder, denoiser = load_vocoder(voc_ckpt, voc_cfg, device)
+        attribute_sigmas = []
+        if train_config.get("log_decoder_samples"):
+            attribute_sigmas.append(-1)
+        if train_config.get("log_attribute_samples"):
+            if is_attribute_unconditional(model.meta):
+                attribute_sigmas.extend([1.0])
+            else:
+                attribute_sigmas.extend([0.1, 0.5, 0.8, 1.0])
+        if not attribute_sigmas:
+            return
+        durations = attn[0].float().sum(0).cpu().numpy()
+        durations = np.floor(durations + 0.5).astype(np.int32)
+        g = model_config["n_group_size"]
+        total = int(durations.sum())
+        max_frames = ((total + 16 * g - 1) // (16 * g)) * 16 * g
+
+        def gt_frames(key):
+            # the batch's padded T can be shorter than max_frames (a
+            # 16*group multiple): zero-padded; frames past `total` are
+            # sliced off the mel before the vocoder
+            arr = np.asarray(batch[key][:1], np.float32)
+            if arr.shape[1] < max_frames:
+                arr = np.pad(arr, ((0, 0), (0, max_frames - arr.shape[1])))
+            return torch.from_numpy(arr[:, :max_frames]).to(device)
+
+        infer_model = fold_radtts(model)
+        speaker = torch.as_tensor(np.asarray(batch["speaker_ids"][:1]),
+                                  device=device)
+        text = torch.as_tensor(np.asarray(batch["text"][:1]), device=device)
+        dur = torch.from_numpy(durations)[None].to(device)
+        for attribute_sigma in attribute_sigmas:
+            try:
+                if attribute_sigma <= 0:
+                    kwargs = dict(f0=gt_frames("f0"),
+                                  energy_avg=gt_frames("energy_avg"),
+                                  voiced_mask=gt_frames("voiced_mask"))
+                else:
+                    kwargs = dict(sigma_f0=attribute_sigma,
+                                  sigma_energy=attribute_sigma)
+                with torch.no_grad():
+                    out = radtts_infer(
+                        infer_model, speaker, text, 0.8, max_frames,
+                        dur=dur, generator=torch.Generator(
+                            device).manual_seed(iteration), **kwargs)
+                    audio = denoiser_apply(
+                        denoiser, vocoder(out["mel"][:, :total]),
+                        strength=1e-5)
+                audio = audio[0].float().cpu().numpy()
+                audio = audio / max(np.abs(audio).max(), 1e-5)
+                tag = ("decoder_sample_gt_attributes"
+                       if attribute_sigma < 0 else
+                       f"sample_attribute_sigma_{attribute_sigma}")
+                logger.add_audio(tag, audio, iteration, sampling_rate)
+            except Exception as exc:  # instability guard (train.py:282-284)
+                print("Instability or issue occured during inference, "
+                      "skipping sample generation for TB logger", exc)
+                continue
+    except Exception as exc:
+        print("vocoder logging skipped:", exc)
 
 
 def _alignment_image(alignment, title):
@@ -258,10 +348,16 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
           include_layers, finetune_layers, warmstart_checkpoint_path,
           grad_clip_val, loss_weights, binarization_start_iter=-1,
           kl_loss_start_iter=-1, unfreeze_modules="all", log_interval=1,
-          optim_state_dtype="", use_amp=False, device=None, **kwargs):
+          optim_state_dtype="", use_amp=False, profile_dir="",
+          profile_start_iter=5, profile_n_iters=5, device=None, **kwargs):
     """The training loop (reference: train.py:300-455). use_amp runs each
     step's forward in the bf16 regions (validation stays fp32, as in the
-    JAX package); optim_state_dtype "bfloat16" keeps bf16 moments.
+    JAX package); optim_state_dtype "bfloat16" keeps bf16 moments. With a
+    profile_dir, a torch.profiler trace (host and, on the card, CUDA
+    activity) covers iterations profile_start_iter to profile_start_iter +
+    profile_n_iters, as the JAX package's jax.profiler window does
+    (radtts_tpu/train/trainer.py:504-512), and is written there as
+    trace_<start>_<stop>.json (Chrome trace format).
     Returns a record per step: the iteration, its wall ms (host clock
     around the step and the read-back of its losses, which waits for the
     device), the grad norm and the losses."""
@@ -306,6 +402,8 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
     logger = prepare_output_folder(output_directory, config)
 
     history = []
+    profiler = None
+    profile_stop = profile_start_iter + profile_n_iters
     epoch_offset = max(0, iteration // max(len(train_loader), 1))
     for epoch in range(epoch_offset, epochs):
         train_loader.set_epoch(epoch)
@@ -314,11 +412,17 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
             tic = time.perf_counter()
             binarize = iteration >= binarization_start_iter
             use_kl = binarize and iteration >= kl_loss_start_iter
+            if profile_dir and iteration == profile_start_iter:
+                profiler = start_profiler(device)
             total, loss_dict, grad_norm = train_step(
                 model, optimizer, trainable, batch_to_device(batch, device),
                 model_config, loss_weights, sigma, binarize, use_kl,
                 grad_clip_val, step_generator(device, seed, iteration),
                 use_amp=bool(use_amp))
+            if profiler is not None and iteration == profile_stop:
+                stop_profiler(profiler, device, profile_dir,
+                              profile_start_iter, profile_stop)
+                profiler = None
             # one read-back for every logged scalar
             names = list(loss_dict)
             values = torch.stack([total, grad_norm.to(total.device)]
@@ -343,7 +447,9 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
             if iteration % iters_per_checkpoint == 0:
                 val_losses = compute_validation_loss(
                     model, valset, collate_fn, batch_size, device,
-                    model_config, loss_weights, sigma, iteration, logger)
+                    model_config, loss_weights, sigma, iteration, logger,
+                    train_config=config["train_config"],
+                    sampling_rate=data_config["sampling_rate"])
                 path = os.path.join(output_directory, f"model_{iteration}")
                 save_train_checkpoint(path, model, optimizer, iteration,
                                       learning_rate)
@@ -352,3 +458,24 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
             iteration += 1
     train_loader.close()
     return history
+
+
+def start_profiler(device):
+    """A started torch.profiler over the host and, on the card, CUDA."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def stop_profiler(profiler, device, profile_dir, start, stop):
+    """Wait for the device, stop the profiler, write its trace."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    profiler.export_chrome_trace(
+        os.path.join(profile_dir, f"trace_{start}_{stop}.json"))
+    print(f"profiler trace written to {profile_dir}", flush=True)

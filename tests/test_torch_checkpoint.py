@@ -158,15 +158,24 @@ def test_loader_builds_radtts_from_jax_module(case, tmp_path, fmt):
                                       err_msg=k)
 
 
-def test_refuses_unported_attribute_model():
-    """An attribute model the port does not build (a DAP on the
-    FFTransformer; BGAP and AGAP are ported) raises by name before
-    anything is read."""
+def test_reads_transformer_attribute_model():
+    """A DAP on the FFTransformer, which the reader once refused: the
+    JAX package's exported reference state dict of a model whose f0 DAP
+    uses the transformer reads into JAX's convert.radtts_from_torch tree,
+    every entry read, and loads into the port's module."""
     cfg = copy.deepcopy(MODEL_CONFIG)
-    cfg["f0_model_config"] = {"name": "dap", "hparams": {
-        "use_transformer": True}}
-    with pytest.raises(NotImplementedError, match="use_transformer"):
-        radtts_from_torch({}, cfg)
+    cfg["f0_model_config"] = copy.deepcopy(cfg["f0_model_config"])
+    cfg["f0_model_config"]["hparams"]["use_transformer"] = True
+    params = _converge_spectral_norms(radtts_init(jax.random.PRNGKey(2), cfg))
+    sd = jax_to_torch(params)
+    rec = _Recorder(sd)
+    got = radtts_from_torch(rec, cfg)
+    assert_trees_equal(got, np_tree(jax_from_torch(sd, cfg,
+                                                   template=params)))
+    assert not sorted(set(sd) - rec.read)
+    assert any(".feat_pred_fn.layers.1.dec_attn.qkv_net." in k
+               for k in rec.read)
+    assert radtts_from_jax(got, cfg).f0_pred_module.use_transformer
 
 
 def test_writer_keys_and_shapes_match_jax(case, tmp_path):

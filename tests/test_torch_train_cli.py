@@ -3,8 +3,8 @@ recipe of tests/test_train_e2e.py) at tests/small_model.py widths: it
 crosses both curriculum points, validates and checkpoints, resumes where
 an uninterrupted run would be, warm-starts with the include/ignore
 filters (from its own files, the JAX package's .npz and a reference state
-dict) and with a frozen decoder, serves from its checkpoint, and refuses
-each option the port does not have."""
+dict) and with a frozen decoder, serves from its checkpoint, writes a
+profiler trace, and refuses each option the port does not have."""
 
 import copy
 import json
@@ -217,13 +217,11 @@ def test_honours_precision_options(config_path, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("param,item", [
     ("dist_config.n_model=2", "A8"),
-    ("train_config.profile_dir=prof", "A8"),
 ])
 def test_refuses_unsupported_options(config_path, tmp_path, capsys, param,
                                      item):
     config = json.loads(open(config_path).read())
     config["train_config"].setdefault("optim_state_dtype", "")
-    config["train_config"].setdefault("profile_dir", "")
     config["dist_config"].setdefault("n_model", 1)
     path = tmp_path / "c.json"
     path.write_text(json.dumps(config))
@@ -232,6 +230,28 @@ def test_refuses_unsupported_options(config_path, tmp_path, capsys, param,
     assert err.value.code == 2
     assert item in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
+
+
+def test_profile_dir_writes_a_trace(config_path, tmp_path, capsys):
+    """train_config.profile_dir, which the CLI once refused: a
+    torch.profiler trace of iterations profile_start_iter to
+    profile_start_iter + profile_n_iters, written there on the CPU."""
+    config = json.loads(open(config_path).read())
+    config["train_config"].update(profile_dir="", profile_start_iter=5,
+                                  profile_n_iters=5)
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(config))
+    prof = tmp_path / "prof"
+    history = run(str(path), str(tmp_path / "o"), "train_config.epochs=2",
+                  f"train_config.profile_dir={prof}",
+                  "train_config.profile_start_iter=0",
+                  "train_config.profile_n_iters=1")
+    assert len(history) == 2
+    assert f"profiler trace written to {prof}" in capsys.readouterr().out
+    assert os.listdir(prof) == ["trace_0_1.json"]
+    with open(prof / "trace_0_1.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
 
 
 def test_refuses_world_size(config_path, tmp_path, capsys, monkeypatch):
