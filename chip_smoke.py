@@ -6,9 +6,10 @@
 Phases, each printing a JSON or text line:
   1. device: the card's name and power limit, torch/CUDA versions, the
      pinned TF32 flags;
-  2. build: nvcc of radtts_tpu_torch/csrc/mrf_tc.cu, csrc/mrf_stack.cu,
-     csrc/mrf.cu, csrc/mel.cu, csrc/mas.cu and csrc/ar_scan.cu for
-     sm_90a, all six at once, with seconds
+  2. build: nvcc of radtts_tpu_torch/csrc/mrf_tc.cu (twice: 3xTF32 and
+     the one-pass -DMRF_TC_PASSES=1), csrc/mrf_stack.cu, csrc/mrf.cu,
+     csrc/mel.cu, csrc/mas.cu and csrc/ar_scan.cu for sm_90a, all seven
+     at once, with seconds
      and ptxas register/spill lines; then each kernel's shared memory per
      block;
   3. MRF kernels vs plain: ops/mrf.py:mrf against mrf_plain on the card,
@@ -26,7 +27,10 @@ Phases, each printing a JSON or text line:
      C=64, 32, 16 and 8 also csrc/mrf.cu's time on the same inputs
      (route="conv", the kernel those stages ran before). Then the
      tensor-core kernel's tile shapes at the v1 serving stages and the
-     stack kernel's tile rows at the V2 ones;
+     stack kernel's tile rows at the V2 ones; then the one-pass
+     build against mrf_plain(passes=1) at the four v1 serving stages,
+     timed beside the 3xTF32 build, the plain version, the cuDNN chain at
+     TF32 and the bound at the TF32 rate;
   4. mel kernel vs plain: ops/mel.py:mel (the shared-memory real FFT)
      against mel_plain at (16, 8192), (1, 155648) and (3, 9001): log-mel
      within 1e-3 (fp32 sums in another order, amplified by the log near
@@ -43,6 +47,12 @@ Phases, each printing a JSON or text line:
      mrf.stack_launches and mrf.launches (csrc/mrf.cu) by 0. Outputs must
      be finite and of the expected lengths; the decode and the vocoder of
      the 608-frame utterance are also held against the CPU plain path;
+     then the same Synthesizer at each --matmul_precision
+     (highest, high, default): a request, the 608-frame utterance's stage
+     times and RTF, its mel's and waveform's distance from highest's,
+     counted from 0 (72 launches a generator call of mrf_tc at highest
+     and high, of the one-pass build at default); and the utterance's
+     counted FLOP by stage (ops/flops.py) over its time;
   5b. AR scan kernels vs plain: ops/ar_scan.py:ar_scan against
      ar_scan_plain on the card at AR_SHAPES: one AR step of
      config_ljs_agap.json's f0 model at its published width, its zero-init
@@ -64,7 +74,12 @@ Phases, each printing a JSON or text line:
      the handoff and by the barrier kernel's grid barrier: the chain
      floor); and the frame traced at (1, 608), one flow and the pair
      (each phase's rows,
-     handoff and load, the attribute LSTM and the inverse, in us);
+     handoff and load, the attribute LSTM and the inverse, in us); and
+     a step with bf16-stored head kernels on both kernels against the
+     repaired plain scan (the head's inputs rounded to bf16; within
+     1e-3 * max, at most 4 outputs past 1e-4 * max, the mean distance
+     at most 0.1 of that from the unrounded scan), and both kernels with
+     the rounding flag cleared, which that check must reject;
   5c. BGAP and AGAP serving: config_ljs_bgap.json and
      config_ljs_agap.json at their published widths with HiFi-GAN v1,
      random weights (seed 0; WN end convs at sd 0.002, the flows'
@@ -126,7 +141,9 @@ Phases, each printing a JSON or text line:
      floor;
   9. RADTTS training path: python -m radtts_tpu_torch.train's main on a
      seeded dataset (16 training and 2 validation int16 wavs of 2-6 s,
-     texts from filelists/): config_ljs_decoder.json at its published
+     texts from filelists/), its caches first warmed by python -m
+     radtts_tpu_torch.data -j 2 (the training runs must rewrite
+     none of them): config_ljs_decoder.json at its published
      widths, 4 steps across both curriculum points with a validation and
      a checkpoint at steps 0 and 3, one step resumed from model_3,
      config_ljs_dap.json (use_amp=false) warm-started from it for 2 steps
@@ -162,7 +179,8 @@ Phases, each printing a JSON or text line:
  10. RADTTS step time: the config_ljs_dap.json model, every module
      trainable, binarize and KL on, fp32, at bench_train.py's (16, 112,
      512): step ms (median of steps 2-5), mel frames/s, peak memory and a
-     profiled step (device busy and idle share, top kernels);
+     profiled step (device busy and idle share, top kernels), and
+     one step's counted FLOP over the step time;
  11. RADTTS card against CPU: one step at batch 2 from the same state on
      the card, the CPU and the CPU in float64 (the CPU steps take the
      card's alignment, which must equal mas_plain's on the CPU's soft
@@ -176,13 +194,14 @@ Phases, each printing a JSON or text line:
      BGAP's serving attributes stage and training step with the
      SimpleConvNets on and off cuDNN; and the energy model's float64
      gradients under fp32-sized noise in those convs (the relu flips);
- 12. the {"kernels": [...]} line with the eight kernels (mrf_tc,
-     mrf_stack, mrf_conv, mel, mas and mas_block, ar_scan and
-     ar_scan_barrier) and their launches by path (serve, serve_files,
+ 12. the {"kernels": [...]} line with the nine kernels (mrf_tc,
+     mrf_tc_one_pass, mrf_stack, mrf_conv, mel, mas and mas_block, ar_scan
+     and ar_scan_barrier) and their launches by path (serve, serve_files,
      serve_v2, train, train_radtts, serve_bgap, serve_agap, train_gap,
      serve_gap_files, vc, serve_amp, train_amp, resblock2, serve_fft,
      train_fft, serve_fft_files, serve_plain_w, train_plain_w,
-     serve_agap_bf16, train_audio_samples); the ar_scan entry carries the
+     serve_agap_bf16, train_audio_samples, serve_high, serve_default);
+     the ar_scan entry carries the
      chain floor, the ar_scan_barrier entry its H = 1024 timing.
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
@@ -191,6 +210,7 @@ it, it exits 1 and prints no result.
 
 import base64
 import copy
+import itertools
 import json
 import math
 import os
@@ -301,6 +321,15 @@ def library_mrf(xc, torch_weights):
     return out / len(torch_weights)
 
 
+def library_inputs(x, weights):
+    """library_mrf's inputs: x channels-first, the taps as (C_out, C_in,
+    K)."""
+    return x.transpose(1, 2).contiguous(), [
+        tuple(t.permute(0, 3, 2, 1).contiguous() if t.dim() == 4 else t
+              for t in (wd["w1"], wd["b1"], wd["w2"], wd["b2"]))
+        for wd in weights]
+
+
 def tc_tiles(C):
     """The tensor-core kernel's tile shapes (TN, NWG) at width C: TN = C
     at C=64 and C=32 (one or two warpgroups), four at the wider stages."""
@@ -379,11 +408,7 @@ def phase_kernels(mrf_mod, dev):
             if not row["conv_route_max_abs_err"] <= 1e-4 * scale:
                 raise AssertionError(f"mrf_conv disagrees at {(B, T, C)}")
         if (B, T, C) in timed_shapes:
-            xc = x.transpose(1, 2).contiguous()
-            tw = [tuple(t.permute(0, 3, 2, 1).contiguous()
-                        if t.dim() == 4 else t
-                        for t in (wd["w1"], wd["b1"], wd["w2"], wd["b2"]))
-                  for wd in w]
+            xc, tw = library_inputs(x, w)
             bound_ms, bound_by, flop, fp32_bound_ms, chain_ms = mrf_bound(
                 B, T, C)
             row.update(
@@ -601,9 +626,7 @@ def phase_main_path(synth, mrf_mod, dev, power):
 
     hop = synth.hop_length
     n_generator_calls = 0
-    mrf_mod.mrf.launches = 0
-    mrf_mod.mrf.tc_launches = 0
-    mrf_mod.mrf.stack_launches = 0
+    _reset_mrf(mrf_mod)
     requests = [(TEXTS[0], {}), (TEXTS, {}),
                 (TEXTS[1], {"denoising_strength": 0.1, "sigma": 0.6})]
     for texts, kw in requests:
@@ -636,14 +659,12 @@ def phase_main_path(synth, mrf_mod, dev, power):
         times = {k: [t[k] for _, t in runs] for k in runs[0][1]}
         profile = profile_run(utterance)
         n_generator_calls += len(runs) + 1
-    launches = {"mrf_conv": mrf_mod.mrf.launches,
-                "mrf_tc": mrf_mod.mrf.tc_launches,
-                "mrf_stack": mrf_mod.mrf.stack_launches}
+    launches = _mrf_counts(mrf_mod)
     if audio.shape != (1, MAX_FRAMES * hop) or not torch.isfinite(
             audio).all():
         raise AssertionError(f"bad flagship audio {tuple(audio.shape)}")
     if launches != {"mrf_conv": 0, "mrf_tc": 72 * n_generator_calls,
-                    "mrf_stack": 0}:
+                    "mrf_tc_one_pass": 0, "mrf_stack": 0}:
         raise AssertionError(f"MRF launches {launches} != 72 tc x "
                              f"{n_generator_calls} generator calls")
     med = {k: statistics.median(v) for k, v in times.items()}
@@ -732,9 +753,7 @@ def phase_serve_files(synth, mrf_mod, dev, power):
         files = ["-c", CONFIG, "-r", paths["radtts"], "-v", paths["vocoder"],
                  "-k", paths["vocoder_config"], "-s", "ljs", "--seed", "0"]
 
-        mrf_mod.mrf.launches = 0
-        mrf_mod.mrf.tc_launches = 0
-        mrf_mod.mrf.stack_launches = 0
+        _reset_mrf(mrf_mod)
         tic = time.perf_counter()
         written = inference_main(files + [
             "-t", paths["text"], "-o", paths["out"], "--batch_size",
@@ -809,11 +828,9 @@ def phase_serve_files(synth, mrf_mod, dev, power):
             if not 1 <= dispatches < len(TEXTS):
                 raise AssertionError(f"{len(TEXTS)} concurrent singles took "
                                      f"{dispatches} dispatches")
-            launches = {"mrf_conv": mrf_mod.mrf.launches,
-                        "mrf_tc": mrf_mod.mrf.tc_launches,
-                        "mrf_stack": mrf_mod.mrf.stack_launches}
+            launches = _mrf_counts(mrf_mod)
             if launches != {"mrf_conv": 0, "mrf_tc": 72 * generator_calls,
-                            "mrf_stack": 0}:
+                            "mrf_tc_one_pass": 0, "mrf_stack": 0}:
                 raise AssertionError(f"MRF launches {launches} != 72 tc x "
                                      f"{generator_calls} generator calls")
         finally:
@@ -872,20 +889,16 @@ def phase_serve_v2(mrf_mod, dev, power):
         wav_cpu = vocoder(mel)
         vocoder.to(dev)
         mel_dev = mel.to(dev)
-        mrf_mod.mrf.launches = 0
-        mrf_mod.mrf.tc_launches = 0
-        mrf_mod.mrf.stack_launches = 0
+        _reset_mrf(mrf_mod)
         runs = [timed(lambda: vocoder(mel_dev)) for _ in range(4)]
         profile = profile_run(lambda: timed(lambda: vocoder(mel_dev)))
         n_calls = len(runs) + 1
-    launches = {"mrf_conv": mrf_mod.mrf.launches,
-                "mrf_tc": mrf_mod.mrf.tc_launches,
-                "mrf_stack": mrf_mod.mrf.stack_launches}
+    launches = _mrf_counts(mrf_mod)
     wav = runs[-1][0]
     if wav.shape != (1, MAX_FRAMES * 256) or not torch.isfinite(wav).all():
         raise AssertionError(f"bad V2 audio {tuple(wav.shape)}")
     if launches != {"mrf_conv": 0, "mrf_tc": 36 * n_calls,
-                    "mrf_stack": 2 * n_calls}:
+                    "mrf_tc_one_pass": 0, "mrf_stack": 2 * n_calls}:
         raise AssertionError(f"V2 MRF launches {launches} != 36 tc + 2 "
                              f"stack x {n_calls} generator calls")
     err = (wav.cpu() - wav_cpu).abs().max().item()
@@ -995,25 +1008,21 @@ def phase_training(mel_mod, mrf_mod, dev, data_config):
         out = os.path.join(root, "out")
         torch.cuda.reset_peak_memory_stats()
         mel_mod.mel.launches = 0
-        mrf_mod.mrf.launches = 0
-        mrf_mod.mrf.tc_launches = 0
-        mrf_mod.mrf.stack_launches = 0
+        _reset_mrf(mrf_mod)
         history = train_main([
             "-c", config_path, "-k", hifigan_path, "-o", out,
             "--steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_BATCH),
             "--segment_size", str(SEGMENT), "--log_interval", "1",
             "--seed", "0"])
-        launches = {"mel": mel_mod.mel.launches,
-                    "mrf_conv": mrf_mod.mrf.launches,
-                    "mrf_tc": mrf_mod.mrf.tc_launches,
-                    "mrf_stack": mrf_mod.mrf.stack_launches}
+        launches = {"mel": mel_mod.mel.launches, **_mrf_counts(mrf_mod)}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         for h in history:
             if not all(np.isfinite(v) for v in h.values()):
                 raise AssertionError(f"non-finite training step {h}")
         if len(history) != TRAIN_STEPS or launches != {
                 "mel": 2 * TRAIN_STEPS, "mrf_conv": 0,
-                "mrf_tc": 72 * TRAIN_STEPS, "mrf_stack": 0}:
+                "mrf_tc": 72 * TRAIN_STEPS, "mrf_tc_one_pass": 0,
+                "mrf_stack": 0}:
             raise AssertionError(f"{len(history)} steps, launches {launches}")
         tag = f"{TRAIN_STEPS:08d}"
         generator_from_reference(torch.load(os.path.join(
@@ -1263,12 +1272,25 @@ def write_train_dataset(root, seed=0):
     return files
 
 
+def _mrf_counts(mrf_mod):
+    """The launches of each MRF kernel: mrf_tc's 3xTF32 and one-pass
+    builds, mrf_stack and mrf_conv (csrc/mrf.cu)."""
+    return {"mrf_tc": mrf_mod.mrf.tc_launches,
+            "mrf_tc_one_pass": mrf_mod.mrf.tc1_launches,
+            "mrf_stack": mrf_mod.mrf.stack_launches,
+            "mrf_conv": mrf_mod.mrf.launches}
+
+
+def _reset_mrf(mrf_mod):
+    for name in ("launches", "tc_launches", "tc1_launches",
+                 "stack_launches"):
+        setattr(mrf_mod.mrf, name, 0)
+
+
 def _counts(mas_mod, mel_mod, mrf_mod):
     from radtts_tpu_torch.ops.ar_scan import ar_scan
     return {"mas": mas_mod.mas.launches, "mel": mel_mod.mel.launches,
-            "mrf_tc": mrf_mod.mrf.tc_launches,
-            "mrf_stack": mrf_mod.mrf.stack_launches,
-            "mrf_conv": mrf_mod.mrf.launches, "ar_scan": ar_scan.launches,
+            **_mrf_counts(mrf_mod), "ar_scan": ar_scan.launches,
             "mas_block": mas_mod.mas.block_launches,
             "ar_scan_barrier": ar_scan.barrier_launches}
 
@@ -1278,9 +1300,7 @@ def _reset_counts(mas_mod, mel_mod, mrf_mod):
     mas_mod.mas.launches = 0
     mas_mod.mas.block_launches = 0
     mel_mod.mel.launches = 0
-    mrf_mod.mrf.tc_launches = 0
-    mrf_mod.mrf.stack_launches = 0
-    mrf_mod.mrf.launches = 0
+    _reset_mrf(mrf_mod)
     ar_scan.launches = 0
     ar_scan.barrier_launches = 0
 
@@ -1320,6 +1340,13 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
             configs[name] = os.path.join(root, f"{name}.json")
             with open(configs[name], "w") as f:
                 json.dump(config, f)
+        # the data preflight warms the caches the training runs then read
+        cache = os.path.join(root, "cache")
+        pre_s, warmed = run_preflight(configs["decoder"], cache)
+        n_wavs = RADTTS_TRAIN_WAVS + RADTTS_VAL_WAVS
+        if sum(k.endswith(".npz") for k in warmed) != n_wavs:
+            raise AssertionError(f"preflight warmed {sorted(warmed)}, "
+                                 f"expected {n_wavs} f0 caches")
         out = {k: os.path.join(root, k) for k in ("dec", "res", "dap")}
         common = ["train_config.seed=0", "train_config.batch_size=16"]
         curriculum = ["train_config.binarization_start_iter=1",
@@ -1347,6 +1374,20 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
         train_s = time.perf_counter() - tic
         launches = _counts(mas_mod, mel_mod, mrf_mod)
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        after = cache_files(cache)
+        rewritten = [k for k, t in warmed.items() if after.get(k) != t]
+        new_f0 = [k for k in after if k not in warmed and k.endswith(".npz")]
+        log({"phase": "preflight", "seconds": pre_s, "jobs": 2,
+             "f0_caches": sum(k.endswith(".npz") for k in warmed),
+             "prior_caches": sum(k.endswith("_prior.npy") for k in warmed),
+             "rewritten_by_training": rewritten,
+             "new_f0_caches_by_training": new_f0,
+             "new_prior_caches_by_training": sum(
+                 k.endswith("_prior.npy") for k in after
+                 if k not in warmed)})
+        if rewritten or new_f0:
+            raise AssertionError(f"training did not read the warmed caches: "
+                                 f"rewrote {rewritten}, new f0 {new_f0}")
         # serve one text from the trained checkpoint: a serving path, with
         # counts of its own (72 mrf_tc launches per generator call: the
         # denoiser's bias call at load, then the text)
@@ -1401,9 +1442,11 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
             or [h["iteration"] for h in runs["resume"]] != [4]
             or len(runs["dap"]) != 2
             or launches != {"mas": want_mas, "mel": 0, "mrf_tc": 0,
+                            "mrf_tc_one_pass": 0,
                             "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0,
                             "mas_block": 0, "ar_scan_barrier": 0}
             or serve_launches != {"mas": 0, "mel": 0, "mrf_tc": 2 * 72,
+                                  "mrf_tc_one_pass": 0,
                                   "mrf_stack": 0, "mrf_conv": 0,
                                   "ar_scan": 0,
                                   "mas_block": 0, "ar_scan_barrier": 0}
@@ -1476,7 +1519,9 @@ def phase_radtts_step(mas_mod, dev, power):
     the KL loss on, fp32, at bench_train.py's (16, 112, 512): wall ms of a
     step (host clock around the step and its synchronize; median of steps
     2-5), mel frames per second, the peak memory, then one step under
-    torch.profiler (device busy and idle share, top kernels)."""
+    torch.profiler (device busy and idle share, top kernels), then one
+    step's counted FLOP (ops/flops.py) over the median step time."""
+    from radtts_tpu_torch.ops import flops
     from radtts_tpu_torch.train.trainer import batch_to_device, train_step
 
     with open(CONFIG) as f:
@@ -1504,6 +1549,7 @@ def phase_radtts_step(mas_mod, dev, power):
     launches_before = mas_mod.mas.launches
     profile = profile_run(one_step, top=15)
     step_ms = statistics.median(ms[1:5])
+    step_flop = flops.count_matmul_flops(one_step)
     log({"phase": "radtts_train_step", "card": power, "batch": [B, N, T],
          "step_ms": ms, "median_step_ms_2_5": step_ms,
          "mel_frames_per_s": B * T / (step_ms / 1e3),
@@ -1511,6 +1557,12 @@ def phase_radtts_step(mas_mod, dev, power):
          "profile": profile,
          "mas_launches_in_profiled_step": mas_mod.mas.launches
          - launches_before})
+    log({"phase": "radtts_train_step_flops", "card": power,
+         "batch": [B, N, T], "gflop": step_flop / 1e9,
+         "median_step_ms_2_5": step_ms,
+         "tflops": step_flop / step_ms / 1e9})
+    if not step_flop > 0:
+        raise AssertionError("the RADTTS step counted no FLOP")
     if not all(np.isfinite(totals)):
         raise AssertionError(f"non-finite losses {totals}")
     return step_ms
@@ -2118,7 +2170,7 @@ def phase_serve_gap(kind, vocoder, denoiser, tp, mods, dev, power):
     if (launches["ar_scan"] != want_ar or launches["mrf_tc"] != 72
             or launches["mas"] or launches["mel"] or launches["mrf_stack"]
             or launches["mrf_conv"] or launches["mas_block"]
-            or launches["ar_scan_barrier"]):
+            or launches["ar_scan_barrier"] or launches["mrf_tc_one_pass"]):
         raise AssertionError(f"serve_{kind} launches {launches}")
     if not (errs["f0_max_abs"] > 0 and
             errs["f0"] <= 1e-3 * errs["f0_max_abs"]
@@ -2191,13 +2243,16 @@ def phase_train_gap(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
                         for k, hs in runs.items()},
          "launches": launches, "serve": serve})
     if (any(len(hs) != 2 for hs in runs.values())
-            or launches != {"mas": 6, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
+            or launches != {"mas": 6, "mel": 0, "mrf_tc": 0,
+                            "mrf_tc_one_pass": 0, "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0,
                             "mas_block": 0, "ar_scan_barrier": 0}
             or serve["agap"]["launches"]["ar_scan"] != 2
             or serve["bgap"]["launches"]["ar_scan"] != 0
             or any(v["launches"]["ar_scan_barrier"]
-                   or v["launches"]["mas_block"] for v in serve.values())
+                   or v["launches"]["mas_block"]
+                   or v["launches"]["mrf_tc_one_pass"]
+                   for v in serve.values())
             or any(v["launches"]["mrf_tc"] != 2 * 72
                    for v in serve.values())):
         raise AssertionError(f"train_gap: steps "
@@ -2584,7 +2639,8 @@ def phase_vc(mods, dev, power, root, dap_ckpt, dap_config):
         launches = _counts(*mods)
         wavs = [_check_wav(p, p) for p in written]
         want = {"mas": VC_SAMPLES, "mel": 0,
-                "mrf_tc": 72 * (VC_SAMPLES + 1), "mrf_stack": 0,
+                "mrf_tc": 72 * (VC_SAMPLES + 1),
+                "mrf_tc_one_pass": 0, "mrf_stack": 0,
                 "mrf_conv": 0, "ar_scan": 0,
                 "mas_block": 0, "ar_scan_barrier": 0}
         if len(written) != VC_SAMPLES or launches != want:
@@ -2836,6 +2892,7 @@ def phase_amp_serve(config, model, vocoder, denoiser, tp, mods, dev, power):
          "generator_calls": n_calls, "amp_decode_profile": profile,
          "amp_lstm_kernels": n_lstm})
     if launches != {"mas": 0, "mel": 0, "mrf_tc": 72 * n_calls,
+                    "mrf_tc_one_pass": 0,
                     "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0,
                     "mas_block": 0, "ar_scan_barrier": 0}:
         raise AssertionError(f"amp serve launches {launches}, "
@@ -2912,7 +2969,8 @@ def phase_amp_train(mods, dev, power, root, files, dec_ckpt):
     if (any(len(r["step_ms"]) != 2 for r in rows.values())
             or any(rows[k]["optimizer_state_dtypes"] != v
                    for k, v in want_dtypes.items())
-            or launches != {"mas": 6, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
+            or launches != {"mas": 6, "mel": 0, "mrf_tc": 0,
+                            "mrf_tc_one_pass": 0, "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0,
                             "mas_block": 0, "ar_scan_barrier": 0}):
         raise AssertionError(f"amp train: {rows}, launches {launches}")
@@ -3098,7 +3156,8 @@ def phase_serve_dap_variant(kind, vocoder, denoiser, tp, mods, dev, power,
         row["convlstm_attributes_ms"] = statistics.median(convlstm_ms)
         row["convlstm_attributes_ms_all"] = convlstm_ms
     log(row)
-    if launches != {"mas": 0, "mel": 0, "mrf_tc": 72, "mrf_stack": 0,
+    if launches != {"mas": 0, "mel": 0, "mrf_tc": 72,
+                    "mrf_tc_one_pass": 0, "mrf_stack": 0,
                     "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
                     "ar_scan_barrier": 0}:
         raise AssertionError(f"serve_{kind} launches {launches}")
@@ -3192,7 +3251,8 @@ def phase_serve_agap_bf16(vocoder, denoiser, tp, mods, dev, power):
          "variants": rows, "launches": launches})
     card = rows["bfloat16"]["mel_dist_from_fp32_card"]
     cpu = rows["bfloat16"]["mel_dist_from_fp32_cpu"]
-    if launches != {"mas": 0, "mel": 0, "mrf_tc": 72, "mrf_stack": 0,
+    if launches != {"mas": 0, "mel": 0, "mrf_tc": 72,
+                    "mrf_tc_one_pass": 0, "mrf_stack": 0,
                     "mrf_conv": 0, "ar_scan": 2, "mas_block": 0,
                     "ar_scan_barrier": 0}:
         raise AssertionError(f"serve_agap_bf16 launches {launches}")
@@ -3258,11 +3318,13 @@ def phase_train_fft(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
                         if "validation" in h],
          "launches": launches, "serve": serve})
     if (len(history) != 2
-            or launches != {"mas": 3, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
+            or launches != {"mas": 3, "mel": 0, "mrf_tc": 0,
+                            "mrf_tc_one_pass": 0, "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
                             "ar_scan_barrier": 0}
             or serve["launches"]["mrf_tc"] != 2 * 72
-            or serve["launches"]["mas"]):
+            or serve["launches"]["mas"]
+            or serve["launches"]["mrf_tc_one_pass"]):
         raise AssertionError(f"train_fft: {len(history)} steps, launches "
                              f"{launches}, serving {serve}")
     phase_radtts_vs_cpu(dev, config_path=path, unfreeze="durf0energyvpred",
@@ -3302,7 +3364,8 @@ def phase_train_plain_w(mods, dev, power, root, files):
          "plain_w_tensors": len(w_keys), "launches": launches})
     if (len(history) != 2 or len(w_keys) != 8
             or not all(torch.isfinite(state[k]).all() for k in w_keys)
-            or launches != {"mas": 3, "mel": 0, "mrf_tc": 0, "mrf_stack": 0,
+            or launches != {"mas": 3, "mel": 0, "mrf_tc": 0,
+                            "mrf_tc_one_pass": 0, "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
                             "ar_scan_barrier": 0}):
         raise AssertionError(f"train_plain_w: {len(history)} steps, "
@@ -3405,7 +3468,8 @@ def phase_train_audio_samples(mods, dev, power, root, files, dec_ckpt, voc,
                              "max_abs": float(np.abs(a).max())}
                             for t, a, _, sr in recorded],
          "trace_events": len(trace), "trace_cuda_kernels": cuda_kernels})
-    zero = {"mas": 0, "mel": 0, "mrf_tc": 0, "mrf_stack": 0, "mrf_conv": 0,
+    zero = {"mas": 0, "mel": 0, "mrf_tc": 0,
+            "mrf_tc_one_pass": 0, "mrf_stack": 0, "mrf_conv": 0,
             "ar_scan": 0, "mas_block": 0, "ar_scan_barrier": 0}
     if (cli_launches != dict(zero, mas=2, mrf_tc=6 * 72 if has_tbx else 0)
             or launches["with_samples"] != dict(zero, mas=1, mrf_tc=6 * 72)
@@ -3422,6 +3486,260 @@ def phase_train_audio_samples(mods, dev, power, root, files, dec_ckpt, voc,
                              f"train_config, or {cuda_kernels} CUDA kernel "
                              "events in the trace")
     return launches["with_samples"]
+
+
+# ---------------------------------------------------------------------------
+# --matmul_precision, the one-pass MRF, bf16 AGAP heads, FLOP counts,
+# the data preflight
+# ---------------------------------------------------------------------------
+
+PRECISIONS = ("highest", "high", "default")
+
+
+def phase_mrf_tc_one_pass(mrf_mod, dev, power, inputs):
+    """csrc/mrf_tc.cu's one-TF32-pass build (the "tc" route at
+    --matmul_precision default) against mrf_plain(passes=1) on the card at
+    the four v1 serving stages, within 1e-4 * max|plain| (each conv's
+    operands rounded to TF32, fp32 sums in another order; a rounding
+    boundary crossed between the two chains moves an operand by one TF32
+    ulp), with its time beside the 3xTF32 build's on the same inputs, the
+    plain version's, the cuDNN chain's at TF32 (library) and the bound at
+    the TF32 rate; and both builds' distance from the fp32 plain MRF.
+    Launches here are comparisons: the path's count is the precision
+    sweep's."""
+    from radtts_tpu_torch.ops import precision
+
+    rows, max_err = [], 0.0
+    for B, T, C in STAGES:
+        x, w = inputs[(B, T, C)]
+        got = mrf_mod.mrf_cuda(x, w, passes=1)
+        three = mrf_mod.mrf_cuda(x, w, passes=3)
+        want = mrf_mod.mrf_plain(x, w, passes=1)
+        fp32 = mrf_mod.mrf_plain(x, w)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        xc, tw = library_inputs(x, w)
+        _, _, flop, _, _ = mrf_bound(B, T, C)
+        n_weights = sum(6 * (k * C * C + C) for k in (3, 7, 11))
+        t_ops = flop / TF32_FLOPS
+        t_bytes = 4.0 * (2 * B * T * C + n_weights) / HBM_BYTES
+        with precision.scope("high"):
+            library_ms = cuda_ms(lambda: library_mrf(xc, tw))
+        row = {"shape": [B, T, C], "max_abs_err": err,
+               "max_abs_plain": scale,
+               "dist_from_fp32": (got - fp32).abs().max().item(),
+               "three_pass_dist_from_fp32": (three - fp32).abs().max()
+               .item(),
+               "ms": cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, passes=1)),
+               "three_pass_ms": cuda_ms(
+                   lambda: mrf_mod.mrf_cuda(x, w, passes=3)),
+               "plain_ms": cuda_ms(
+                   lambda: mrf_mod.mrf_plain(x, w, passes=1)),
+               "library_ms": library_ms,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": flop / 1e9}
+        row["one_over_three"] = row["ms"] / row["three_pass_ms"]
+        log({"phase": "mrf_tc_one_pass_vs_plain", "card": power, **row})
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"mrf_tc one pass disagrees at "
+                                 f"{(B, T, C)}: {err} > 1e-4 * {scale}")
+        rows.append(row)
+    return rows, max_err
+
+
+def phase_precision_sweep(synth, mrf_mod, dev, power):
+    """The flagship Synthesizer at each --matmul_precision (the
+    Synthesizer's matmul_precision, as the CLIs set it): one request
+    through synthesize, then the 608-frame utterance (fixed durations, a
+    seeded decoder residual) with the stage times (medians of 3) and the
+    RTF inside ops/precision.py:scope, and its mel's and waveform's
+    distance from highest's. Counted from 0 at each precision: 72
+    launches a generator call of the 3xTF32 mrf_tc at highest and high,
+    of the one-pass build at default, of no other MRF kernel. Then the
+    counted FLOP of the utterance by stage at highest (ops/flops.py) and
+    each over its measured time."""
+    from radtts_tpu_torch.models.hifigan import denoiser_apply
+    from radtts_tpu_torch.models.radtts import infer_durations, radtts_infer
+    from radtts_tpu_torch.ops import flops, precision
+
+    text, dur = (t.to(dev) for t in flagship_input(synth))
+    meta = synth.model.meta
+    g = meta["n_group_size"]
+    gen = torch.Generator().manual_seed(3)
+    res = (torch.randn(1, MAX_FRAMES // g, meta["n_mel_channels"] * g,
+                       generator=gen) * 0.8).to(dev)
+    spk = torch.zeros(1, dtype=torch.int64, device=dev)
+    audio_s = MAX_FRAMES * synth.hop_length / synth.sampling_rate
+
+    stages = {
+        "durations": lambda: infer_durations(synth.model, spk, text),
+        "decode": lambda: radtts_infer(synth.model, spk, text, 0.8,
+                                       MAX_FRAMES, dur=dur,
+                                       residual=res)["mel"],
+        "vocoder_denoiser": lambda mel: denoiser_apply(
+            synth.denoiser, synth.vocoder(mel), strength=0.01)}
+
+    def utterance():
+        _, t_dur = timed(stages["durations"])
+        mel, t_dec = timed(stages["decode"])
+        wav, t_voc = timed(lambda: stages["vocoder_denoiser"](mel))
+        return mel, wav, {"durations": t_dur, "decode": t_dec,
+                          "vocoder_denoiser": t_voc}
+
+    out, paths, med_of = {}, {}, {}
+    for p in PRECISIONS:
+        synth.matmul_precision = p
+        _reset_mrf(mrf_mod)
+        (wavs, _), req_ms = timed(lambda: synth.synthesize(TEXTS[1], "ljs"))
+        with torch.inference_mode(), precision.scope(p):
+            runs = [utterance() for _ in range(3)]
+        torch.cuda.synchronize()
+        launches = _mrf_counts(mrf_mod)
+        calls = 1 + len(runs)
+        key = "mrf_tc_one_pass" if p == "default" else "mrf_tc"
+        want = dict({k: 0 for k in launches}, **{key: 72 * calls})
+        mel, wav, _ = runs[-1]
+        med = {k: statistics.median(r[2][k] for r in runs)
+               for k in runs[0][2]}
+        med_of[p] = med
+        out[p] = (mel, wav)
+        row = {"precision": p, "request_ms": req_ms, "stage_ms": med,
+               "stage_ms_all": [r[2] for r in runs],
+               "rtf": sum(med.values()) / 1e3 / audio_s,
+               "launches": launches}
+        if p != "highest":
+            row["mel_dist_from_highest"] = (mel - out["highest"][0]).abs(
+                ).max().item()
+            row["mel_mae_from_highest"] = (mel - out["highest"][0]).abs(
+                ).mean().item()
+            row["mel_max_abs"] = out["highest"][0].abs().max().item()
+            row["wav_dist_from_highest"] = (wav - out["highest"][1]).abs(
+                ).max().item()
+            row["wav_max_abs"] = out["highest"][1].abs().max().item()
+        log({"phase": "precision_sweep_608", "card": power, **row})
+        if launches != want:
+            raise AssertionError(f"precision {p}: launches {launches}, "
+                                 f"expected {want}")
+        if not (np.isfinite(wavs[0]).all() and torch.isfinite(wav).all()):
+            raise AssertionError(f"precision {p}: non-finite audio")
+        if p != "highest":
+            paths[f"serve_{p}"] = launches
+    synth.matmul_precision = "highest"
+    # the model FLOP of the utterance by stage, counted at highest
+    with torch.inference_mode():
+        counted = {
+            "durations": flops.count_matmul_flops(stages["durations"]),
+            "decode": flops.count_matmul_flops(stages["decode"]),
+            "vocoder_denoiser": flops.count_matmul_flops(
+                lambda: stages["vocoder_denoiser"](out["highest"][0]))}
+    total = sum(counted.values())
+    total_ms = sum(med_of["highest"].values())
+    log({"phase": "flagship_608_flops", "card": power, "gflop": {
+        k: v / 1e9 for k, v in counted.items()}, "total_gflop": total / 1e9,
+        "stage_ms": med_of["highest"],
+        "tflops_by_stage": {k: counted[k] / med_of["highest"][k] / 1e9
+                            for k in counted},
+        "tflops": total / total_ms / 1e9})
+    if not all(v > 0 for v in counted.values()):
+        raise AssertionError(f"flagship FLOP count {counted}")
+    _reset_mrf(mrf_mod)
+    return paths
+
+
+BF16_OVER = 4           # outputs of a bf16-head scan past 1e-4 * max
+BF16_MEAN_RATIO = 0.1   # mean distance from the rounded over the unrounded
+
+
+def bf16_scan_check(got, want, unrounded, scale):
+    """(readings, ok) of a bf16-head scan's output `got` against the
+    rounded plain scan `want`, with `unrounded` the plain scan of the same
+    weights with the rounding cleared. A scan that rounds lies far nearer
+    `want` than `unrounded` in the mean, and one that does not far nearer
+    `unrounded`. Flips (an input within rounding of a bf16 boundary
+    rounds the other way in the other scan's fp32 sums, and the
+    recurrence carries it on) stay few, where a scan without the rounding
+    puts tens of outputs past 1e-4 * max (the readings: PERF.md)."""
+    err = (got - want).abs()
+    r = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+         "mean_abs_err_from_unrounded": (got - unrounded).abs().mean()
+         .item(),
+         "over_1e-4_max": int((err > 1e-4 * scale).sum())}
+    return r, (r["max_abs_err"] <= 1e-3 * scale
+               and r["over_1e-4_max"] <= BF16_OVER
+               and r["mean_abs_err"]
+               <= BF16_MEAN_RATIO * r["mean_abs_err_from_unrounded"])
+
+
+def phase_ar_scan_bf16(ar_mod, dev, power):
+    """An AR step of config_ljs_agap.json's f0 model at its published
+    width with bf16-stored head kernels (ops/fold_norms.py:
+    store_conv_weights): the resident kernel and the barrier kernel, each
+    rounding the head layers' inputs to bf16, against the repaired
+    ar_scan_plain on the card at (1, 608) and ragged (3, 608), seeds
+    13-15, held by
+    bf16_scan_check: each output within 1e-3 * max|plain|, at most
+    BF16_OVER of them past 1e-4 * max, and the mean distance from the
+    rounded plain scan at most BF16_MEAN_RATIO of that from the unrounded
+    one. The control: both kernels run once more with the rounding flag
+    cleared (the scan before the repair), and the same check must reject
+    each. With the time."""
+    from radtts_tpu_torch.ops.fold_norms import store_conv_weights
+
+    rows = []
+    for (shape, lens, head), seed in itertools.product(AR_SHAPES[:2],
+                                                       (13, 14, 15)):
+        step = store_conv_weights(ar_step_at_width(head, dev))
+        params, res, cproj = ar_inputs(step, shape, lens, dev, seed=seed)
+        flags = ar_mod.widened(params)["head_bf16"]
+        cleared = dict(ar_mod.widened(params),
+                       head_bf16=[False] * len(flags))
+        with torch.no_grad():
+            want = ar_mod.ar_scan_plain(params, res, cproj)
+            unrounded = ar_mod.ar_scan_plain(cleared, res, cproj)
+            scale = want.abs().max().item()
+            row = {"shape": [*shape, res.shape[2]], "lens": lens,
+                   "seed": seed, "head_bf16": flags, "max_abs_plain": scale,
+                   "outputs": want.numel(),
+                   "plain_dist_from_unrounded": (want - unrounded).abs()
+                   .max().item()}
+            passed = {}
+            for name, fn in (("resident", ar_mod.ar_scan),
+                             ("barrier", ar_mod.ar_scan_cuda)):
+                for tag, p in (("", params), ("_flag_cleared", cleared)):
+                    row[name + tag], passed[name + tag] = bf16_scan_check(
+                        fn(p, res, cproj), want, unrounded, scale)
+            row["ms"] = cuda_ms(lambda: ar_mod.ar_scan(params, res, cproj))
+        row["max_abs_err"] = max(row["resident"]["max_abs_err"],
+                                 row["barrier"]["max_abs_err"])
+        log({"phase": "ar_scan_bf16_head_vs_plain", "card": power, **row})
+        if not (any(flags) and passed["resident"] and passed["barrier"]):
+            raise AssertionError(f"ar_scan with bf16 heads: {row}")
+        if passed["resident_flag_cleared"] or passed["barrier_flag_cleared"]:
+            raise AssertionError(f"ar_scan with bf16 heads: the check "
+                                 f"passed a scan that does not round {row}")
+        rows.append(row)
+    return rows
+
+
+def run_preflight(config_path, cache):
+    """python -m radtts_tpu_torch.data -c config_path -j 2 (the dataset
+    preflight) in a process of its own; returns (seconds, {cache file:
+    mtime}) of the caches it warmed."""
+    tic = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "radtts_tpu_torch.data", "-c", config_path,
+         "-j", "2"], cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"preflight failed:\n{proc.stderr[-3000:]}")
+    return time.perf_counter() - tic, cache_files(cache)
+
+
+def cache_files(cache):
+    return {name: os.stat(os.path.join(cache, name)).st_mtime_ns
+            for name in sorted(os.listdir(cache))}
 
 
 def main():
@@ -3453,9 +3771,11 @@ def main():
          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         builds = {name: pool.submit(fn) for name, fn in (
-            ("mrf_tc", mrf_mod.build_tc), ("mrf_stack", mrf_mod.build_stack),
+            ("mrf_tc", mrf_mod.build_tc),
+            ("mrf_tc_one_pass", lambda: mrf_mod.build_tc(1)),
+            ("mrf_stack", mrf_mod.build_stack),
             ("mrf_conv", mrf_mod.build), ("mel", mel_mod.build),
             ("mas", mas_mod.build), ("ar_scan", ar_mod.build))}
         for name, fut in builds.items():
@@ -3464,7 +3784,7 @@ def main():
                  "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
                            if "registers" in ln or "spill" in ln
                            or "arning" in ln or "Compiling entry" in ln]})
-    tc_lib = mrf_mod._tc_lib
+    tc_lib = mrf_mod._tc_libs[3]
     log({"phase": "smem", "mrf_tc_bytes_per_block": {
         f"C{C}:{tn}x{nwg}": tc_lib.radtts_mrf_tc_smem_bytes(C, tn, nwg)
         for C in (256, 64, 32) for tn, nwg in tc_tiles(C)},
@@ -3480,6 +3800,8 @@ def main():
 
     stages, max_err, inputs = phase_kernels(mrf_mod, dev)
     phase_tiles(mrf_mod, inputs)
+    one_pass, one_pass_err = phase_mrf_tc_one_pass(mrf_mod, dev, power,
+                                                   inputs)
     del inputs
     with open(CONFIG) as f:
         data_config = json.load(f)["data_config"]
@@ -3507,9 +3829,11 @@ def main():
         phase_reference(synth, dev)
 
     serve_launches = phase_main_path(synth, mrf_mod, dev, power)
+    precision_launches = phase_precision_sweep(synth, mrf_mod, dev, power)
     files_launches = phase_serve_files(synth, mrf_mod, dev, power)
     mods = (mas_mod, mel_mod, mrf_mod)
     ar_rows, ar_sweep = phase_ar_scan_kernel(ar_mod, dev, power)
+    ar_bf16 = phase_ar_scan_bf16(ar_mod, dev, power)
     ar_pairs = phase_ar_scan_pair(ar_mod, dev, power)
     ar_wide = phase_ar_scan_barrier_route(ar_mod, dev, power)
     probe = phase_handoff_probe(
@@ -3575,7 +3899,14 @@ def main():
              "serve_plain_w": plain_w_launches,
              "train_plain_w": gap_train["train_plain_w"],
              "serve_agap_bf16": agap_bf16_launches,
-             "train_audio_samples": gap_train["train_audio_samples"]}
+             "train_audio_samples": gap_train["train_audio_samples"],
+             **precision_launches}
+    # every path counts the one-pass build, and only serve_default runs it
+    stray = {p: c.get("mrf_tc_one_pass") for p, c in paths.items()
+             if p != "serve_default" and c.get("mrf_tc_one_pass") != 0}
+    if stray:
+        raise AssertionError(f"one-pass mrf_tc launches outside "
+                             f"serve_default (or not counted): {stray}")
 
     def by_path(kernel):
         return {p: c.get(kernel, 0) for p, c in paths.items()}
@@ -3623,7 +3954,30 @@ def main():
                         "radtts_tpu/ops/pallas_mrf.py:231 (C=32)"]),
              note="sums over the four v1 MRF stages of one 608-frame "
                   "utterance; bound_ms at the 3xTF32 rate (495/3 TFLOP/s), "
-                  "fp32_fma_bound_ms at 67 TFLOP/s"),
+                  "fp32_fma_bound_ms at 67 TFLOP/s"), {
+        "name": "mrf_tc_one_pass",
+        "route": "cuda",
+        "source": "radtts_tpu_torch/csrc/mrf_tc.cu (built with "
+                  "-DMRF_TC_PASSES=1)",
+        "replaces": "radtts_tpu/ops/pallas_mrf.py:177",
+        "also_replaces": ["radtts_tpu/ops/pallas_mrf.py:121 (at C=128, 64)",
+                          "radtts_tpu/ops/pallas_mrf.py:231 (C=32)"],
+        "launches": sum(by_path("mrf_tc_one_pass").values()),
+        "launches_by_path": by_path("mrf_tc_one_pass"),
+        "max_abs_err": one_pass_err,
+        "ms": sum(r["ms"] for r in one_pass),
+        "three_pass_ms": sum(r["three_pass_ms"] for r in one_pass),
+        "plain_ms": sum(r["plain_ms"] for r in one_pass),
+        "bound_ms": sum(r["bound_ms"] for r in one_pass),
+        "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                         for r in one_pass) else "bytes"),
+        "library_ms": sum(r["library_ms"] for r in one_pass),
+        "stages": one_pass,
+        "note": "one TF32 pass (--matmul_precision default), against "
+                "mrf_plain(passes=1); sums over the four v1 MRF stages of "
+                "one 608-frame utterance; bound_ms at the TF32 rate (495 "
+                "TFLOP/s); library_ms the cuDNN conv chain at TF32; "
+                "three_pass_ms the 3xTF32 build on the same inputs"},
         dict(mrf_entry("mrf_stack", "radtts_tpu_torch/csrc/mrf_stack.cu",
                        "radtts_tpu/ops/pallas_mrf.py:121 (at C=16, 8)", []),
              note="sums over HiFi-GAN V2's C=16 and C=8 stages of one "
@@ -3712,7 +4066,8 @@ def main():
                     "Pallas)",
         "launches": sum(by_path("ar_scan").values()),
         "launches_by_path": by_path("ar_scan"),
-        "max_abs_err": max(r["max_abs_err"] for r in ar_rows + ar_pairs),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in ar_rows + ar_pairs + ar_bf16),
         "ms": ar_rows[0]["ms"],
         "before_ms": ar_rows[0]["before_ms"],
         "plain_ms": ar_rows[0]["plain_ms"],
@@ -3740,6 +4095,7 @@ def main():
                                       "bound_ms", "bound_by",
                                       "max_abs_err")} for r in ar_rows],
         "pairs": ar_pairs,
+        "bf16_heads": ar_bf16,
         "blocks_sweep": ar_sweep,
         "handoff_probe": probe,
         "frame_trace": ar_trace,

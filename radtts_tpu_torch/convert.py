@@ -551,3 +551,118 @@ def radtts_from_torch(sd, model_config):
     if voiced_embeddings and "v_pred_module" in p:
         p["v_embeddings"] = {"table": _np(sd["v_embeddings.weight"])}
     return p
+
+
+# ---------------------------------------------------------------------------
+# optimizer moments of the JAX package's checkpoints
+# ---------------------------------------------------------------------------
+
+_EXACT = 1 << 24     # float32 holds every integer up to 2^24
+
+
+def tree_leaves(tree, prefix=""):
+    """(path, leaf) of a nested dict/list tree, the path's components
+    joined by '/' as in the .npz (radtts_tpu/train/checkpoint.py)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _tree_map(tree, fn, prefix=""):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(v, fn, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
+def element_map(build, tree):
+    """Where each parameter of build(tree) (a loader of this module:
+    radtts_train_from_jax, vocoder_train_from_jax) takes its elements from
+    in the JAX tree: {name: [(leaf path, positions in the flat parameter,
+    flat indices into that leaf)], one entry per leaf it draws on (several
+    where the loader stacks leaves)}, or None for a parameter that is not
+    an elementwise relabelling of JAX leaves (a norm folded, a product made
+    at load, a parameter the tree does not fill). Found by building from
+    two trees of numbers: each leaf's element numbers, then each leaf's own
+    number; the loader's layout changes (transposes, flips, stacks) carry
+    them as they carry the weights."""
+    floats = [(p, np.asarray(a)) for p, a in tree_leaves(tree)
+              if np.asarray(a).dtype.kind == "f"]
+    number = {p: i + 1 for i, (p, _) in enumerate(floats)}
+    for p, a in floats:
+        if a.size > _EXACT:
+            raise ValueError(f"element_map: {p} has {a.size} elements, more "
+                             "than float32 numbers exactly")
+    sizes = np.array([0] + [a.size for _, a in floats])
+
+    def fill(fn):
+        return build(_tree_map(tree, lambda p, a: fn(p, np.asarray(a))
+                               if p in number else a))
+
+    by_element = dict(fill(lambda p, a: np.arange(
+        1, a.size + 1, dtype=np.float64).reshape(a.shape)).named_parameters())
+    by_leaf = dict(fill(lambda p, a: np.full(
+        a.shape, number[p], np.float64)).named_parameters())
+    out = {}
+    for name, t in by_leaf.items():
+        leaf = t.detach().reshape(-1).double().numpy()
+        elem = by_element[name].detach().reshape(-1).double().numpy()
+        out[name] = None
+        if not (np.isfinite(leaf).all() and np.isfinite(elem).all()
+                and (leaf == np.round(leaf)).all()
+                and (elem == np.round(elem)).all()):
+            continue
+        leaf, elem = leaf.astype(np.int64), elem.astype(np.int64) - 1
+        if (leaf.size == 0 or leaf.min() < 1 or leaf.max() > len(floats)
+                or elem.min() < 0 or (elem >= sizes[leaf]).any()
+                or np.unique(leaf * _EXACT + elem).size != leaf.size):
+            continue
+        out[name] = [(floats[k - 1][0], np.nonzero(leaf == k)[0],
+                      elem[leaf == k]) for k in np.unique(leaf)]
+    return out
+
+
+def optimizer_state_from_jax(optimizer, named_params, emap, count, mu, nu,
+                             step=int):
+    """optimizer.state_dict() whose state is JAX's moments: for each
+    parameter of the optimizer (named in named_params), exp_avg from the
+    `mu` tree and exp_avg_sq from `nu` (keyed like the parameter tree),
+    laid out by `emap` (element_map), and step(count) updates made. Raises,
+    naming the parameter, where a moment cannot be carried; never zeroes
+    one."""
+    names = {id(p): n for n, p in named_params}
+    mu, nu = dict(tree_leaves(mu)), dict(tree_leaves(nu))
+    sd = optimizer.state_dict()
+    state, i = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            hit = emap.get(name)
+            if hit is None:
+                raise ValueError(
+                    f"cannot carry the JAX optimizer's moments into {name}: "
+                    "its form in the port is not an elementwise relabelling "
+                    "of JAX parameters")
+            for path, _, _ in hit:
+                if path not in mu or path not in nu:
+                    raise KeyError(f"the checkpoint's optimizer state has "
+                                   f"no moments for {path} ({name})")
+
+            def take(tree):
+                a = np.empty(p.numel(), np.float32)
+                for path, pos, idx in hit:
+                    a[pos] = np.asarray(tree[path], np.float32).reshape(-1)[
+                        idx]
+                return torch.from_numpy(a.reshape(tuple(p.shape)))
+            state[i] = {"step": step(count), "exp_avg": take(mu),
+                        "exp_avg_sq": take(nu)}
+            i += 1
+    sd["state"] = state
+    return sd

@@ -88,6 +88,13 @@ constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory cap
 enum { kQuadratic = 0, kLinear = 1, kAffine = 2 };
 enum { kTranslate = 0, kExp = 1, kTanh = 2, kSigmoid = 3 };
 enum { kActNone = 0, kActRelu = 1, kActTanh = 2 };
+// a head layer's act code may carry kRoundBf16: its kernel is stored in
+// bf16 (ops/fold_norms.py:store_conv_weights; the wrapper widens it to
+// fp32, exactly), and its input activations are rounded to bf16 (to
+// nearest even) before the products, which are summed in fp32, as the JAX
+// package's conv1d_apply computes a bf16 kernel on an fp32 input
+constexpr int kActMask = 3;
+constexpr int kRoundBf16 = 4;
 
 // icfg, the wrapper's int array: these fields, then the per-layer offsets
 enum {
@@ -111,6 +118,12 @@ struct Args {
 
 __device__ __forceinline__ float sigm(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// fp32 -> bf16 (round to nearest even) -> fp32, for finite v
+__device__ __forceinline__ float bf16_rne(float v) {
+  const unsigned int u = __float_as_uint(v);
+  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -421,9 +434,14 @@ ar_scan_kernel(Args a) {
       const int K = a.head_in[k], N = a.head_out[k];
       load_pair(xs, src, K, K, src, 0, 0, B);
       __syncthreads();
+      if (a.head_act[k] & kRoundBf16) {
+        for (int i = threadIdx.x; i < B * K; i += blockDim.x)
+          xs[i] = bf16_rne(xs[i]);
+        __syncthreads();
+      }
       float* y = a.scratch + a.act_off[k];
-      dense_phase(a.w + a.w_head[k], a.w + a.b_head[k], K, N, a.head_act[k],
-                  xs, y, B, gw, tw, lane);
+      dense_phase(a.w + a.w_head[k], a.w + a.b_head[k], K, N,
+                  a.head_act[k] & kActMask, xs, y, B, gw, tw, lane);
       grid_barrier(a.bar, gen);
       src = y;
     }
@@ -707,8 +725,8 @@ __device__ __forceinline__ void handoff(unsigned int* ctr, bool producer,
 // ldb (Kb values)], every operand in shared memory and every width and
 // stride a multiple of 4 (ar_scan_plan routes other shapes to the
 // barrier kernel); lanes split k in float4s, then a butterfly completes
-// each sum in every lane.
-template <int NR, int G>
+// each sum in every lane. RND: each x value rounded to bf16 first.
+template <int NR, int G, bool RND = false>
 __device__ __forceinline__ void dot_rows(const float* W, int ldw,
                                          const float* xa, int Ka, int lda,
                                          const float* xb, int Kb, int ldb,
@@ -731,8 +749,10 @@ __device__ __forceinline__ void dot_rows(const float* W, int ldw,
 #pragma unroll
     for (int i = 0; i < G; ++i) {
       if (G == 1 || i < nb) {
-        const float4 x4 =
-            *reinterpret_cast<const float4*>(xp + (b0 + i) * ld);
+        float4 x4 = *reinterpret_cast<const float4*>(xp + (b0 + i) * ld);
+        if (RND)
+          x4 = make_float4(bf16_rne(x4.x), bf16_rne(x4.y), bf16_rne(x4.z),
+                           bf16_rne(x4.w));
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
           acc[r][i] = fmaf(w4[r].x, x4.x, acc[r][i]);
@@ -908,15 +928,21 @@ ar_scan_resident_kernel(const __grid_constant__ ResidentArgs args) {
     for (int k = 0; k < a.n_head; ++k) {
       const int* sk = seg + (kSegLayer0 + L + k) * kSegInts;
       const int r0 = sk[0], cnt = sk[1], ldw = a.ld[kSegLayer0 + L + k];
-      const int K = a.head_in[k], N = a.head_out[k], act = a.head_act[k];
+      const int K = a.head_in[k], N = a.head_out[k];
+      const int act = a.head_act[k] & kActMask;
+      const bool rnd = a.head_act[k] & kRoundBf16;
       const float* x = k == 0 ? hs + L * B * H : xs;
       float* y = a.actbuf + a.act_off[k] + (size_t)par * B * N;
       for (int r = warp; r < cnt; r += nw) {
         for (int b0 = 0; b0 < B; b0 += NG) {
           const int nb = min(NG, B - b0);
           float acc[1][NG];
-          dot_rows<1, NG>(smem + sk[2] + r * ldw, ldw, x, K, K, x, 0, K, b0,
-                         nb, lane, acc);
+          if (rnd)
+            dot_rows<1, NG, true>(smem + sk[2] + r * ldw, ldw, x, K, K, x, 0,
+                                  K, b0, nb, lane, acc);
+          else
+            dot_rows<1, NG>(smem + sk[2] + r * ldw, ldw, x, K, K, x, 0, K,
+                           b0, nb, lane, acc);
 #pragma unroll
           for (int i = 0; i < NG; ++i) {
             if (i < nb && lane == i) {

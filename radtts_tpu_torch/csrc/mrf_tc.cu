@@ -31,6 +31,13 @@
 // (10-bit mantissas) lands hundreds of times further from fp32 in the
 // arithmetic's emulation (tests/test_torch_mrf_tc.py).
 //
+// One-pass variant: built with -DMRF_TC_PASSES=1 (ops/mrf.py:build_tc(1),
+// the route of --matmul_precision default, ops/precision.py), each product
+// is hi*hi alone: one TF32 pass, the counterpart of the Pallas MRF's single
+// default-precision dot (radtts_tpu/ops/pallas_mrf.py:55-63). The loads,
+// the weight pack and the split stay as they are; only the lo products
+// go. Its plain version is ops/mrf.py:mrf_plain(..., passes=1).
+//
 // Design (one block = a TM x TN output tile of one batch item, TM = 64 *
 // NWG time rows, TN output channels; M = time, N = C_out, K = taps x C_in):
 //  - NWG consumer warpgroups run wgmma.m64nTNk8.f32.tf32.tf32 with A in
@@ -83,6 +90,12 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
+
+#ifndef MRF_TC_PASSES
+#define MRF_TC_PASSES 3
+#endif
+static_assert(MRF_TC_PASSES == 1 || MRF_TC_PASSES == 3,
+              "MRF_TC_PASSES: 3 (3xTF32) or 1 (one TF32 pass)");
 
 namespace {
 
@@ -540,8 +553,10 @@ mrf_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       for (int s = 0; s < kCK / 8; ++s) {
         const uint64_t d_hi = make_desc(b_hi + s * TN * 32, TN * 16, 128);
         const uint64_t d_lo = make_desc(b_lo + s * TN * 32, TN * 16, 128);
+#if MRF_TC_PASSES == 3
         wgmma<TN>(frag, a_lo[s], d_hi);
         wgmma<TN>(frag, a_hi[s], d_lo);
+#endif
         wgmma<TN>(frag, a_hi[s], d_hi);
       }
       wgmma_commit();
@@ -873,10 +888,12 @@ mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
 
     const uint32_t hi_s = smem_u32(planes + 2 * buf * L::kPlaneFloats);
     const uint32_t lo_s = hi_s + L::kPlaneFloats * 4;
-    // acc_w: columns [0, C) sum hi*hi, [C, 2C) hi*lo; acc_l: lo*hi
-    float acc_w[C], acc_l[C / 2];
+    // acc_w: columns [0, C) sum hi*hi, [C, 2C) hi*lo; acc_l: lo*hi (one
+    // pass: acc_l sums hi*hi, acc_w is unused)
+    constexpr int kW = MRF_TC_PASSES == 3 ? C : 1;
+    float acc_w[kW], acc_l[C / 2];
 #pragma unroll
-    for (int i = 0; i < C; ++i) acc_w[i] = 0.f;
+    for (int i = 0; i < kW; ++i) acc_w[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < C / 2; ++i) acc_l[i] = 0.f;
     fence_operand(acc_w);
@@ -896,8 +913,13 @@ mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
         const uint64_t da_hi = make_desc(hi_s + a_off, L::kR * 16, 128);
         const uint64_t da_lo = make_desc(lo_s + a_off, L::kR * 16, 128);
         const uint64_t db = make_desc(b_s + q * C * 64, C * 32, 128);
+#if MRF_TC_PASSES == 3
         wgmma_ss<2 * C>(acc_w, da_hi, db);
         wgmma_ss<C>(acc_l, da_lo, db);      // the first C rows: hi
+#else
+        (void)da_lo;
+        wgmma_ss<C>(acc_l, da_hi, db);      // hi*hi alone, in acc_l
+#endif
       }
       wgmma_commit();
       // with two buffers, the next tile's split runs while the tensor
@@ -918,8 +940,13 @@ mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     // acc_w[i + C / 2] is the same row and channel as acc_w[i] and acc_l[i]
     float frag[C / 2];
 #pragma unroll
-    for (int i = 0; i < C / 2; ++i)
+    for (int i = 0; i < C / 2; ++i) {
+#if MRF_TC_PASSES == 3
       frag[i] = acc_w[i] + (acc_w[i + C / 2] + acc_l[i]);
+#else
+      frag[i] = acc_l[i];
+#endif
+    }
     mbar_wait(out_ready, oph);    // the last tile's store has read it
     stage_tile<C>(frag, in, bias, staged, res != nullptr, acc != nullptr,
                   acc_scale, r0, tig);

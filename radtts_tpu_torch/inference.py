@@ -15,11 +15,14 @@ lines at sentence boundaries and joins the chunks' audio with
 --use_amp runs the durations and decode stages' bf16 regions
 (radtts_tpu_torch/ops/amp.py) and --weight_dtype bfloat16 stores the RADTTS
 conv kernels in bf16, as the JAX CLI's flags do; the vocoder stays fp32.
-The port runs on one device. Flags the JAX CLI takes for what the port
-does not have are refused with an error, never ignored: --data_parallel
-above 1 (more than one device) and --matmul_precision other than
-'highest'. --aot_dir (the XLA executable store) is accepted and has no
-effect.
+--matmul_precision high or default lets cuBLAS and cuDNN use TF32 outside
+the fp32 islands (the text encoder, the inverse 1x1 convs, the STFTs), and
+default also runs the tensor-core MRF in one TF32 pass
+(radtts_tpu_torch/ops/precision.py); highest, the default, is fp32.
+The port runs on one device. A flag the JAX CLI takes for what the port
+does not have is refused with an error, never ignored: --data_parallel
+above 1 (more than one device). --aot_dir (the XLA executable store) is
+accepted and has no effect.
 """
 
 import argparse
@@ -49,7 +52,10 @@ def add_port_flags(parser):
                         help="run the bf16 regions (ops/amp.py)")
     parser.add_argument("--matmul_precision", default=None,
                         choices=["default", "high", "highest"],
-                        help="only 'highest' (fp32) is accepted")
+                        help="'highest' (the default) is fp32; 'high' and "
+                             "'default' allow TF32 in cuBLAS/cuDNN outside "
+                             "the fp32 islands, 'default' also one-pass "
+                             "TF32 in the MRF kernel")
     parser.add_argument("--device", default=None,
                         help="torch device; default CUDA, which must be "
                              "present ('cpu' runs the plain path)")
@@ -61,9 +67,6 @@ def refuse_unsupported(parser, args):
     if args.data_parallel > 1:
         parser.error("--data_parallel > 1 is not supported: the port runs "
                      "on one device")
-    if args.matmul_precision not in (None, "highest"):
-        parser.error(f"--matmul_precision {args.matmul_precision} is not "
-                     "supported: the port computes in fp32 ('highest')")
     if args.aot_dir:
         print(f"--aot_dir {args.aot_dir}: no effect (XLA only)", flush=True)
 
@@ -212,7 +215,7 @@ def main(argv=None):
         f0_mean=args.f0_mean, f0_std=args.f0_std,
         energy_mean=args.energy_mean, energy_std=args.energy_std,
         use_amp=args.use_amp, weight_dtype=args.weight_dtype,
-        device=args.device)
+        matmul_precision=args.matmul_precision, device=args.device)
     print(f"Loaded checkpoint '{args.radtts_path}'")
     return infer(synth, lines_to_list(args.text_path), args.speaker,
                  args.speaker_text, args.speaker_attributes, args.sigma,

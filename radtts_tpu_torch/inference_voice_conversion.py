@@ -26,9 +26,10 @@ port's training checkpoint. Noise comes from a torch.Generator seeded by
 --seed. --use_amp runs the bf16 regions of the forward and the decode
 (ops/amp.py), as the JAX CLI does; --weight_dtype bfloat16 stores the
 RADTTS conv kernels in bf16 (the port's serving flag; the JAX CLI has no
-such flag). --matmul_precision takes only 'highest', as the inference
-CLI's. The injected features are zero-padded to the frame budget where
-the collated batch is shorter (the frames past the utterance are masked).
+such flag). --matmul_precision high or default allows TF32 outside the
+fp32 islands, as the inference CLI's (ops/precision.py). The injected
+features are zero-padded to the frame budget where the collated batch is
+shorter (the frames past the utterance are masked).
 """
 
 import argparse
@@ -66,13 +67,15 @@ def infer(radtts_path, radtts_config_path, vocoder_path,
           no_audio, predict_features, sigma_f0=1.0, sigma_energy=0.8,
           save_features=False, plot_features=False, f0_mean=0.0, f0_std=0.0,
           energy_mean=0.0, energy_std=0.0, filter_invalid=False,
-          weight_dtype="auto", device=None):
+          weight_dtype="auto", matmul_precision=None, device=None):
     """Run the conversion (the JAX CLI's infer, same arguments, plus
-    weight_dtype and device). Returns the wav paths written."""
+    weight_dtype, matmul_precision and device; the utterances run inside
+    ops/precision.py:scope, after loading). Returns the wav paths
+    written."""
     from radtts_tpu_torch.data.dataset import Data, DataCollate, DataLoader
     from radtts_tpu_torch.models.hifigan import denoiser_apply
     from radtts_tpu_torch.models.radtts import radtts_forward, radtts_infer
-    from radtts_tpu_torch.ops import amp
+    from radtts_tpu_torch.ops import amp, precision
     from radtts_tpu_torch.ops.fold_norms import store_conv_weights
     from radtts_tpu_torch.synthesizer import Synthesizer, resolve_device
     from radtts_tpu_torch.train.checkpoint import load_radtts_for_inference
@@ -118,7 +121,7 @@ def infer(radtts_path, radtts_config_path, vocoder_path,
     def tensor(a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    for k, batch in enumerate(loader):
+    def convert(k, batch):
         filename = os.path.splitext(
             os.path.basename(batch["audiopaths"][0]))[0]
         f0_gt = batch["f0"].copy()
@@ -225,8 +228,11 @@ def infer(radtts_path, radtts_config_path, vocoder_path,
                     output_dir, filename, j, suffix_path),
                     energy_avg.cpu().numpy())
 
-        if k + 1 == n_samples:
-            break
+    with precision.scope(matmul_precision):
+        for k, batch in enumerate(loader):
+            convert(k, batch)
+            if k + 1 == n_samples:
+                break
     loader.close()
     return written
 
@@ -262,7 +268,10 @@ def build_parser():
     parser.add_argument('-t', '--takes', default=1, type=int)
     parser.add_argument("--matmul_precision", default=None,
                         choices=["default", "high", "highest"],
-                        help="only 'highest' (fp32) is accepted")
+                        help="'highest' (the default) is fp32; 'high' and "
+                             "'default' allow TF32 outside the fp32 "
+                             "islands, 'default' also one-pass TF32 in the "
+                             "MRF kernel")
     parser.add_argument("--weight_dtype", default="auto",
                         choices=["auto", "float32", "bfloat16"],
                         help="bfloat16 stores the RADTTS conv kernels in "
@@ -278,9 +287,6 @@ def main(argv=None):
     written."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.matmul_precision not in (None, "highest"):
-        parser.error(f"--matmul_precision {args.matmul_precision} is not "
-                     "supported: the port computes in fp32 ('highest')")
     os.makedirs(args.output_dir, exist_ok=True)
     return infer(args.radtts_path, args.radtts_config_path,
                  args.vocoder_path, args.vocoder_config_path,
@@ -291,7 +297,7 @@ def main(argv=None):
                  args.save_features, args.plot_features, args.f0_mean,
                  args.f0_std, args.energy_mean, args.energy_std,
                  args.filter_invalid, weight_dtype=args.weight_dtype,
-                 device=args.device)
+                 matmul_precision=args.matmul_precision, device=args.device)
 
 
 if __name__ == "__main__":

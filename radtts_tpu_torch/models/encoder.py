@@ -1,11 +1,13 @@
 """Text encoder: 3x [partial-padded conv -> masked InstanceNorm -> ReLU ->
 dropout] -> masked BiLSTM. The whole module runs in fp32 (the reference
-keeps it outside autocast). Dropout (p = 0.5) runs only when the forward
+keeps it outside autocast), an fp32 island at every matmul precision
+(ops/precision.py). Dropout (p = 0.5) runs only when the forward
 is given a generator; `factored=True` builds the LSTM's training form."""
 
 import torch
 from torch import nn
 
+from radtts_tpu_torch.ops import precision
 from radtts_tpu_torch.ops.conv import ConvNorm
 from radtts_tpu_torch.ops.dropout import dropout
 from radtts_tpu_torch.ops.lstm import MaskedLSTM
@@ -28,6 +30,7 @@ class Encoder(nn.Module):
             InstanceNorm(C) for _ in range(encoder_n_convolutions))
         self.lstm = MaskedLSTM(C, C // 2, norm=lstm_norm, factored=factored)
 
+    @precision.island
     def forward(self, x, in_lens=None, generator=None):
         """x: (B, N, C) text embeddings; in_lens None is the unmasked
         exact-length path; generator draws the training dropout."""

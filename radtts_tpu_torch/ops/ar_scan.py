@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from radtts_tpu_torch.debug import check_finite
+from radtts_tpu_torch.ops import flops
 from radtts_tpu_torch.ops.cuda_build import build_library
 from radtts_tpu_torch.ops.invertible import scaling_and_log_s
 from radtts_tpu_torch.ops.splines import spline_transform
@@ -32,6 +33,9 @@ from radtts_tpu_torch.ops.splines import spline_transform
 KINDS = {"quadratic": 0, "linear": 1, "affine": 2}
 SCALINGS = {"translate": 0, "exp": 1, "tanh": 2, "sigmoid": 3}
 ACTS = {None: 0, "relu": 1, "tanh": 2}
+# a head layer's act code | ROUND_BF16: its input rounded to bf16 (a
+# bf16-stored kernel, see `widened`); csrc/ar_scan.cu kRoundBf16
+ROUND_BF16 = 4
 MAX_LAYERS = 4        # csrc/ar_scan.cu kMaxLayers
 MAX_HEAD = 8          # kMaxHead
 MAX_BINS = 64         # kMaxBins
@@ -85,6 +89,7 @@ def _head_inverse(params, res, q):
 def ar_scan_plain(params, residual, context_proj):
     """residual (B, T, C), context_proj (B, T, 4H) -> (B, T, C): the loop
     over frames in torch ops."""
+    params = widened(params)
     B, T, C = residual.shape
     w_ih_a, w_hh_a, b_a = params["attr"]
     b_a = _bias(b_a)
@@ -101,7 +106,9 @@ def ar_scan_plain(params, residual, context_proj):
             gx = x @ w_ih.T + (context_proj[:, t] if li == 0 else _bias(b))
             layers[li] = _cell(gx + layers[li][0] @ w_hh.T, layers[li][1])
             x = layers[li][0]
-        for w, b, act in params["head"]:
+        for (w, b, act), rnd in zip(params["head"], params["head_bf16"]):
+            if rnd:
+                x = x.to(torch.bfloat16).float()
             x = _act(x @ w.T + b, act)
         prev = _head_inverse(params, residual[:, t], x)
         outs.append(prev)
@@ -243,10 +250,17 @@ def config(params, offsets, B, T, C, H):
     icfg += [offsets[f"b_head{k}"] for k in range(len(head))] + pad
     icfg += [w.shape[1] for w, _, _ in head] + pad
     icfg += [w.shape[0] for w, _, _ in head] + pad
-    icfg += [ACTS[a] for _, _, a in head] + pad
+    icfg += _act_codes(params) + pad
     icfg += act_off + pad
     fcfg = list(params.get("bounds") or (0.0, 0.0, 0.0, 1.0))
     return icfg, fcfg, off, kmax, nq
+
+
+def _act_codes(params):
+    """Each head layer's activation code, with ROUND_BF16 where its kernel
+    is bf16-stored (`widened`'s head_bf16)."""
+    return [ACTS[a] | (ROUND_BF16 if rnd else 0) for (_, _, a), rnd in
+            zip(params["head"], widened(params)["head_bf16"])]
 
 
 def ar_scan_cuda(params, residual, context_proj, blocks=None):
@@ -254,6 +268,7 @@ def ar_scan_cuda(params, residual, context_proj, blocks=None):
     L2) on the card: the route of a problem that does not fit the resident
     kernel; `blocks` overrides the block count (by default one per SM, as
     many as can be resident)."""
+    params = widened(params)
     B, T, C = residual.shape
     H = params["attr"][1].shape[1]
     dev = residual.device
@@ -560,7 +575,7 @@ def resident_config(params, plan, T, block0):
     icfg += [0] + plan["ld"] + [0] * (MAX_SEGS - 1 - len(plan["ld"]))
     icfg += [w.shape[1] for w, _, _ in head] + pad
     icfg += [w.shape[0] for w, _, _ in head] + pad
-    icfg += [ACTS[a] for _, _, a in head] + pad
+    icfg += _act_codes(params) + pad
     icfg += act_off + pad
     icfg += plan["producers"] + [0] * (MAX_PHASES - len(plan["producers"]))
     assert len(icfg) == RES_INTS
@@ -623,6 +638,25 @@ def _launch_resident(launch, problems, trace=None):
     return outs
 
 
+def _flop_records(problems, *args, **kwargs):
+    """ar_scan_multi's products for ops/flops.py, as ar_scan_plain makes
+    them: a frame's attribute LSTM, stacked layers (without layer 0's
+    context half, a matmul before the scan) and head, T frames."""
+    out = []
+    for params, res, _ in problems:
+        B, T, _ = res.shape
+        w_ih_a, w_hh_a, _ = params["attr"]
+        mats = [w_ih_a, w_hh_a]
+        for w_ih, w_hh, _ in params["lstm"]:
+            mats += [w_ih, w_hh]
+        mats += [w for w, _, _ in params["head"]]
+        out += [flops.record("dot", 1, B, w.shape[0], w.shape[1], trips=T,
+                             nbytes=4 * (w.numel() + B * sum(w.shape)))
+                for w in mats]
+    return out
+
+
+@flops.counted(_flop_records)
 def ar_scan_multi(problems, blocks=None, trace=None):
     """Each problem (params, residual, context_proj) -> its inverse over
     every frame, as ar_scan. A CPU tensor runs ar_scan_plain on each; CUDA
@@ -675,12 +709,19 @@ def ar_scan_multi(problems, blocks=None, trace=None):
 def widened(params):
     """params with every bf16-stored weight (ops/fold_norms.py:
     store_conv_weights casts the spline head's and the affine head's
-    convs) widened to fp32, as the JAX package's products take bf16
-    kernels with fp32 sums; the fp32 ones as they are."""
+    convs) widened to fp32 (exact), the fp32 ones as they are, and
+    "head_bf16": for each head layer, whether its kernel was bf16. The
+    scans round such a layer's input activations to bf16 (to nearest
+    even) and sum the products in fp32, as the JAX package's conv1d_apply
+    does with a bf16 kernel and an fp32 input (radtts_tpu/ops/conv.py:
+    _raw_conv). Applying it twice changes nothing."""
     def w(t):
         return t if t is None or t.dtype == torch.float32 else t.float()
 
     out = dict(params)
+    if "head_bf16" not in params:
+        out["head_bf16"] = [a.dtype == torch.bfloat16
+                            for a, _, _ in params["head"]]
     out["attr"] = (w(params["attr"][0]), w(params["attr"][1]),
                    params["attr"][2])
     out["lstm"] = [(w(a), w(b), c) for a, b, c in params["lstm"]]

@@ -21,14 +21,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def build_library(name):
-    """nvcc csrc/<name>.cu (once per source version) and load it. Returns
-    (ctypes library, nvcc output, seconds); the output is empty when the
-    library was already built."""
+def build_library(name, defines=()):
+    """nvcc csrc/<name>.cu (once per source version and set of `defines`,
+    each "NAME=VALUE" passed as -D) and load it. Returns (ctypes library,
+    nvcc output, seconds); the output is empty when the library was already
+    built."""
     tic = time.perf_counter()
     src = os.path.join(CSRC, f"{name}.cu")
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+        tag = hashlib.sha256(f.read() + " ".join(flags).encode()
                              ).hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
     log = ""
@@ -36,7 +38,7 @@ def build_library(name):
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.run([nvcc, *flags, "-o", tmp, src],
                               capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:

@@ -4,7 +4,8 @@ LU-decomposed (matrix_decomposition "LUS"): W = P @ L @ U, L
 unit-lower-triangular, U upper with diagonal upper_diag. Inference uses
 W^-1, computed once in fp32 at load (`precompute_inverse`, the counterpart
 of the JAX package's precompute_inverses) and applied as an fp32 matmul;
-the reference keeps these products outside autocast.
+the reference keeps these products outside autocast, and both are fp32
+islands at every matmul precision (ops/precision.py).
 
 The training form (`trainable=True`) holds lower, upper and upper_diag as
 parameters and p as a buffer, and its forward returns (x W^T, log|det W|)
@@ -18,6 +19,8 @@ import numpy as np
 import scipy.linalg
 import torch
 from torch import nn
+
+from radtts_tpu_torch.ops import precision
 
 
 def scaling_and_log_s(scale_unconstrained, scaling_fn):
@@ -84,12 +87,14 @@ class InvConv1x1LUS(nn.Module):
     def precompute_inverse(self):
         self.w_inv.copy_(torch.linalg.inv(self.weight().float()))
 
+    @precision.island
     def forward(self, x):
         """x: (B, T, C) -> (x @ W^T, log|det W|), in fp32 or wider."""
         dt = torch.promote_types(x.dtype, torch.float32)
         y = torch.matmul(x.to(dt), self.weight().to(dt).T)
         return y, torch.log(self.upper_diag.abs()).sum()
 
+    @precision.island
     def inverse(self, x):
         """x: (B, T, C) -> x @ W^-T."""
         return torch.matmul(x, self.w_inv.T)
@@ -128,11 +133,13 @@ class InvConv1x1(nn.Module):
     def precompute_inverse(self):
         self.w_inv.copy_(torch.linalg.inv(self.w1x1.float()))
 
+    @precision.island
     def forward(self, x):
         dt = torch.promote_types(x.dtype, torch.float32)
         w = self.w1x1.to(dt)
         return torch.matmul(x.to(dt), w.T), torch.linalg.slogdet(w)[1]
 
+    @precision.island
     def inverse(self, x):
         w_inv = (torch.linalg.inv(self.w1x1) if self.trainable
                  else self.w_inv)

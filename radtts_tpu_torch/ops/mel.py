@@ -5,7 +5,8 @@ Port of the TPU kernel radtts_tpu/ops/pallas_mel.py:mel_spectrogram_pallas.
 On the card `mel` launches the hand-written kernel in csrc/mel.cu once per
 call: a real FFT of each frame in shared memory (see its header for the
 design and what bounds it); `mel_plain` is the same function in plain
-PyTorch (a matmul DFT), which the CPU path and the tests use.
+PyTorch (a matmul DFT), which the CPU path and the tests use, an fp32
+island at every matmul precision (ops/precision.py).
 Gradients with respect to the audio go through mel_plain: the kernel has no
 backward, as the TPU kernel had none.
 """
@@ -16,6 +17,7 @@ import functools
 import numpy as np
 import torch
 
+from radtts_tpu_torch.ops import flops, precision
 from radtts_tpu_torch.ops.cuda_build import build_library
 from radtts_tpu_torch.ops.stft import (CLIP_VAL, dynamic_range_compression,
                                        hann_window, mel_basis, stft_reim)
@@ -23,6 +25,7 @@ from radtts_tpu_torch.ops.stft import (CLIP_VAL, dynamic_range_compression,
 _lib = None
 
 
+@precision.island
 def mel_plain(audio, *, filter_length=1024, hop_length=256, win_length=1024,
               n_mel_channels=80, sampling_rate=22050, mel_fmin=0.0,
               mel_fmax=8000.0):
@@ -158,6 +161,21 @@ class MelFunction(torch.autograd.Function):
         return grad, None
 
 
+def _flop_records(audio, *, filter_length=1024, hop_length=256,
+                  n_mel_channels=80, **_):
+    """mel's products for ops/flops.py: its plain version's matmul DFT
+    (cos and sin bases) and mel projection."""
+    rows = audio.shape[0] * (1 + audio.shape[-1] // hop_length)
+    F = filter_length // 2 + 1
+    dft = flops.record("dot", 1, rows, F, filter_length,
+                       nbytes=4 * (rows * filter_length + filter_length * F
+                                   + rows * F))
+    return [dft, dft, flops.record(
+        "dot", 1, rows, n_mel_channels, F,
+        nbytes=4 * (rows * F + F * n_mel_channels + rows * n_mel_channels))]
+
+
+@flops.counted(_flop_records)
 def mel(audio, *, filter_length=1024, hop_length=256, win_length=1024,
         n_mel_channels=80, sampling_rate=22050, mel_fmin=0.0,
         mel_fmax=8000.0):

@@ -11,7 +11,9 @@ card `mrf` runs one of three hand-written kernels, by `mrf_route` (see
 their headers for the design and what bounds them):
   "tc"    csrc/mrf_tc.cu, a 3xTF32 implicit GEMM on the tensor cores, 18
           launches per stage, at C=256, 128, 64 and 32 (every HiFi-GAN v1
-          stage), counted by mrf.tc_launches;
+          stage), counted by mrf.tc_launches; at --matmul_precision default
+          (ops/precision.py) its one-TF32-pass build, counted by
+          mrf.tc1_launches;
   "stack" csrc/mrf_stack.cu, the whole stack in one launch with every
           intermediate in shared memory, fp32 FMA, at C <= 16 with at most
           4 resblocks (HiFi-GAN V2's C=16 and C=8 stages), counted by
@@ -20,7 +22,9 @@ their headers for the design and what bounds them):
           widths nothing else takes (e.g. C=48, 96), counted by
           mrf.launches.
 `mrf_plain` is the same function in plain PyTorch, which the CPU path,
-the tests and every pass that needs gradients use.
+the tests and every pass that needs gradients use (at every precision:
+the CPU computes fp32); `mrf_plain(..., passes=1)` is the one-pass
+kernel's plain version.
 
 weights: one dict per resblock, {w1: (3, k, C, C), b1: (3, C), w2: (3, k, C,
 C), b2: (3, C)}, w*[i] being the dilation-i conv taps-major (k, C_in, C_out)
@@ -35,6 +39,7 @@ import weakref
 import torch
 import torch.nn.functional as F
 
+from radtts_tpu_torch.ops import flops, precision
 from radtts_tpu_torch.ops.cuda_build import build_library
 
 KERNEL_SIZES = (3, 7, 11)   # the standard MRF (JAX ops/pallas_mrf.py)
@@ -48,30 +53,38 @@ STACK_WIDTHS = (4, 8, 12, 16)
 STACK_MAX_RESBLOCKS = 4
 
 _lib = None
-_tc_lib = None
+_tc_libs = {}         # csrc/mrf_tc.cu by TF32 passes: 3, or 1 (one-pass)
+_TC_COUNTS = {3: "tc_launches", 1: "tc1_launches"}   # mrf's count of each
 _stack_lib = None
 _packs = collections.OrderedDict()
 
 
-def _conv_plain(x, w_taps, b, d):
-    """x (B, C, T); w_taps (k, C_in, C_out) -> same-padded conv."""
+def _conv_plain(x, w_taps, b, d, passes=3):
+    """x (B, C, T); w_taps (k, C_in, C_out) -> same-padded conv; with
+    passes=1 both operands rounded to TF32 first (tf32_round)."""
     k = w_taps.shape[0]
+    if passes == 1:
+        x, w_taps = tf32_round(x), tf32_round(w_taps)
     return F.conv1d(x, w_taps.permute(2, 1, 0), b, padding=(k - 1) // 2 * d,
                     dilation=d)
 
 
-def mrf_plain(x, weights):
+def mrf_plain(x, weights, passes=3):
     """Plain PyTorch MRF mean, as the JAX package's _resblock1_apply runs
-    it: one F.conv1d per conv. x: (B, T, C) -> (B, T, C)."""
+    it: one F.conv1d per conv. x: (B, T, C) -> (B, T, C). passes=1: each
+    conv's activations (after the leaky ReLU) and taps rounded to TF32,
+    the products summed in fp32, as csrc/mrf_tc.cu's one-pass build."""
+    if passes not in (1, 3):
+        raise ValueError(f"mrf_plain: passes={passes}, expected 1 or 3")
     xc = x.transpose(1, 2)
     out = torch.zeros_like(xc)
     for wd in weights:
         xr = xc
         for i, d in enumerate(DILATIONS):
             xt = _conv_plain(F.leaky_relu(xr, LRELU_SLOPE), wd["w1"][i],
-                             wd["b1"][i], d)
+                             wd["b1"][i], d, passes)
             xt = _conv_plain(F.leaky_relu(xt, LRELU_SLOPE), wd["w2"][i],
-                             wd["b2"][i], 1)
+                             wd["b2"][i], 1, passes)
             xr = xr + xt
         out = out + xr
     return (out / len(weights)).transpose(1, 2)
@@ -90,11 +103,14 @@ def build():
     return lib, log, seconds
 
 
-def build_tc():
-    """Compile csrc/mrf_tc.cu and load it. Returns (library, nvcc output,
-    build seconds)."""
-    global _tc_lib
-    lib, log, seconds = build_library("mrf_tc")
+def build_tc(passes=3):
+    """Compile csrc/mrf_tc.cu (passes=3) or its one-pass build (passes=1,
+    -DMRF_TC_PASSES=1) and load it. Returns (library, nvcc output, build
+    seconds)."""
+    if passes not in _TC_COUNTS:
+        raise ValueError(f"mrf_tc: passes={passes}, expected 1 or 3")
+    lib, log, seconds = build_library(
+        "mrf_tc", () if passes == 3 else ("MRF_TC_PASSES=1",))
     fn = lib.radtts_mrf_tc_conv
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
                    + [ctypes.c_int] * 5 + [ctypes.c_float]
@@ -104,7 +120,7 @@ def build_tc():
                          ("radtts_mrf_tc_weight_stages", 2)):
         getattr(lib, name).argtypes = [ctypes.c_int] * n_args
         getattr(lib, name).restype = ctypes.c_int
-    _tc_lib = lib
+    _tc_libs[passes] = lib
     return lib, log, seconds
 
 
@@ -317,15 +333,17 @@ def _conv_launch(x, w, b, d, res, out, acc, acc_scale):
     mrf.launches += 1
 
 
-def _tc_conv_launch(x, wp, k, b, d, res, out, acc, acc_scale, tile):
+def _tc_conv_launch(x, wp, k, b, d, res, out, acc, acc_scale, tile,
+                    passes):
     B, T, C = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _tc_lib.radtts_mrf_tc_conv(
+    err = _tc_libs[passes].radtts_mrf_tc_conv(
         _ptr(x), _ptr(wp), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
         acc_scale, B, T, C, k, d, LRELU_SLOPE, *tile, stream)
     if err != 0:
         _raise(err, x, k, d)
-    mrf.tc_launches += 1
+    count = _TC_COUNTS[passes]
+    setattr(mrf, count, getattr(mrf, count) + 1)
 
 
 def _stack_launch(x, packed, ks, out, tile):
@@ -340,11 +358,23 @@ def _stack_launch(x, packed, ks, out, tile):
     mrf.stack_launches += 1
 
 
+def _flop_records(x, weights):
+    """mrf's products for ops/flops.py: its plain version's convs, two a
+    dilation and resblock."""
+    B, T, C = x.shape
+    return [flops.conv_record((B, C, T), (C, C, wd[key].shape[1]), False, 1,
+                              4 * (2 * B * T * C + wd[key][i].numel()))
+            for wd in weights for i in range(len(DILATIONS))
+            for key in ("w1", "w2")]
+
+
+@flops.counted(_flop_records)
 def mrf(x, weights):
     """MRF mean of one stage. x: (B, T, C) float32 -> (B, T, C).
 
     A CPU tensor runs mrf_plain. A CUDA tensor runs the hand-written
-    kernel that mrf_route names, or raises. The kernels have no
+    kernel that mrf_route names (route "tc" in one TF32 pass at matmul
+    precision "default", ops/precision.py), or raises. The kernels have no
     backward: with grad enabled and x or a weight requiring grad it raises,
     since its output would carry no gradient; differentiate mrf_plain."""
     if x.device.type == "cpu":
@@ -357,14 +387,15 @@ def mrf(x, weights):
             "mrf: the CUDA kernel has no backward, and its output would "
             "carry no gradient; run it under torch.no_grad() or use "
             "mrf_plain (Generator mrf_impl='plain')")
-    return mrf_cuda(x, weights)
+    return mrf_cuda(x, weights, passes=precision.mrf_passes())
 
 
-def mrf_cuda(x, weights, tile=None, route=None):
+def mrf_cuda(x, weights, tile=None, route=None, passes=3):
     """The card's kernels of mrf; `route` ("tc", "stack" or "conv")
     overrides mrf_route, to time one kernel against another on the same
     inputs, and `tile` overrides tc_tile(C) ((TN, NWG), route "tc") or
-    stack_tile(T) (rows, route "stack")."""
+    stack_tile(T) (rows, route "stack"). `passes` (3 or 1) picks the "tc"
+    route's build; the other routes are fp32 FMA at either."""
     B, T, C = x.shape
     _check("x", x, (B, T, C), x.device)
     if C % 4:
@@ -397,8 +428,10 @@ def mrf_cuda(x, weights, tile=None, route=None):
                       tile or stack_tile(T, B, _sm_count(x.device)))
         return out
     if route == "tc":
-        if _tc_lib is None:
-            build_tc()
+        if passes not in _TC_COUNTS:
+            raise ValueError(f"mrf: passes={passes}, expected 1 or 3")
+        if passes not in _tc_libs:
+            build_tc(passes)
         tile = tile or tc_tile(C)
         packed = stage_pack(weights, tile[0])
         first, n = {}, 0
@@ -411,7 +444,7 @@ def mrf_cuda(x, weights, tile=None, route=None):
             k = weights[m][key].shape[1]
             j = first[m, key] + i * k
             _tc_conv_launch(src, packed[j:j + k], k, b, d, res, dst, acc,
-                            scale, tile)
+                            scale, tile, passes)
     else:
         if _lib is None:
             build()
@@ -435,5 +468,6 @@ def mrf_cuda(x, weights, tile=None, route=None):
 
 
 mrf.launches = 0        # csrc/mrf.cu launches
-mrf.tc_launches = 0     # csrc/mrf_tc.cu launches
+mrf.tc_launches = 0     # csrc/mrf_tc.cu launches (3xTF32)
+mrf.tc1_launches = 0    # its one-pass build's launches
 mrf.stack_launches = 0  # csrc/mrf_stack.cu launches

@@ -6,7 +6,9 @@ torch.stft / torch.istft, so the output length and edge handling match it.
 stft_magnitude_phase (the denoiser's bias spectrum) is an rfft.
 mel_basis and dynamic_range_compression are the pieces of the reference's
 TacotronSTFT mel (slaney filterbank, log-clamp dynamic range compression),
-which ops/mel.py assembles on the same matmul DFT.
+which ops/mel.py assembles on the same matmul DFT. The matmul STFTs are
+fp32 islands at every matmul precision (ops/precision.py), as the JAX
+package runs them at HIGHEST.
 """
 
 import functools
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from radtts_tpu_torch.data.mel_filters import mel_filterbank
+from radtts_tpu_torch.ops import precision
 
 _TINY = float(np.finfo(np.float32).tiny)
 CLIP_VAL = 1e-5   # the log-mel's floor
@@ -80,6 +83,7 @@ def stft_magnitude_phase(audio, n_fft=1024, hop_length=256, win_length=1024):
     return spec.abs(), spec.angle()
 
 
+@precision.island
 def stft_reim(audio, n_fft=1024, hop_length=256, win_length=1024):
     """audio: (B, n) -> (re, im), each (B, T, n_fft//2+1), via the matmul
     DFT bases."""
@@ -99,6 +103,7 @@ def dynamic_range_compression(x):
     return torch.log(x.clamp(min=CLIP_VAL))
 
 
+@precision.island
 def istft_reim(re, im, n_fft=1024, hop_length=256, win_length=1024):
     """Inverse STFT from (re, im) (B, T, F): matmul iDFT, windowed
     overlap-add, window-sumsquare correction, n_fft//2 trimmed each side."""

@@ -27,8 +27,9 @@ rest as one batch (normalisation is then per chunk). With --batch_wait_ms
 synthesize call (MicroBatcher). Single texts pad to the batch path's
 16-token buckets (padded == exact).
 
-Flags the port cannot honour are refused as by the inference CLI
-(radtts_tpu_torch/inference.py); --aot_dir has no effect.
+--matmul_precision and the flags the port cannot honour are handled as by
+the inference CLI (radtts_tpu_torch/inference.py); --aot_dir has no
+effect.
 """
 
 import argparse
@@ -356,7 +357,8 @@ def build_server(argv=None):
         f0_mean=args.f0_mean, f0_std=args.f0_std,
         energy_mean=args.energy_mean, energy_std=args.energy_std,
         bucket_single=True, use_amp=args.use_amp,
-        weight_dtype=args.weight_dtype, device=args.device)
+        weight_dtype=args.weight_dtype,
+        matmul_precision=args.matmul_precision, device=args.device)
     print(f"[serve] loaded '{args.radtts_path}' on {synth.device}",
           flush=True)
 

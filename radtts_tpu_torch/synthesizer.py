@@ -3,15 +3,19 @@ inverse flow -> vocoder -> denoiser, on one device.
 
 Entry points run on the card by default: `device=None` means CUDA and
 raises when CUDA is absent; pass device="cpu" to run the plain path.
-Precision is pinned to full fp32 (no TF32 in cuDNN convolutions or cuBLAS
+Precision is full fp32 by default (no TF32 in cuDNN convolutions or cuBLAS
 matmuls): the 1024-wide WN couplings compound reduced-precision error over
 the 8 inverse flows.
 
-Two reduced-precision options, as the JAX engine has them: use_amp runs
+Three reduced-precision options, as the JAX engine has them: use_amp runs
 the durations and decode stages' bf16 regions (ops/amp.py; the vocoder
-and denoiser stay fp32), and weight_dtype="bfloat16" stores the RADTTS
+and denoiser stay fp32), weight_dtype="bfloat16" stores the RADTTS
 conv kernels in bf16 (ops/fold_norms.py:store_conv_weights, on a copy of
-the model; "auto" is fp32).
+the model; "auto" is fp32), and matmul_precision "high" or "default"
+runs every synthesis inside ops/precision.py:scope (TF32 in cuBLAS and
+cuDNN outside the fp32 islands; "default" also the one-pass tensor-core
+MRF). The precision is the Synthesizer's, applied per call: loading,
+which pins fp32 through resolve_device, does not undo it.
 """
 
 import copy
@@ -23,7 +27,7 @@ import torch
 from radtts_tpu_torch.data.dataset import data_factory
 from radtts_tpu_torch.models.hifigan import denoiser_apply
 from radtts_tpu_torch.models.radtts import infer_durations, radtts_infer
-from radtts_tpu_torch.ops import amp
+from radtts_tpu_torch.ops import amp, precision
 from radtts_tpu_torch.ops.fold_norms import store_conv_weights
 from radtts_tpu_torch.text.chunking import split_text_to_chunks
 from radtts_tpu_torch.train.checkpoint import load_radtts_for_inference
@@ -36,7 +40,8 @@ def frame_budget(n_frames, group_size, multiple=16):
 
 
 def resolve_device(device=None):
-    """None -> CUDA, raising when it is absent. Pins fp32 precision."""
+    """None -> CUDA, raising when it is absent. Pins fp32 precision (a
+    reduced one is a scope: ops/precision.py)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to "
@@ -56,7 +61,8 @@ class Synthesizer:
                  vocoder_config_path, *, seed=1234, token_dur_scaling=1.0,
                  token_duration_max=100, f0_mean=0.0, f0_std=0.0,
                  energy_mean=0.0, energy_std=0.0, bucket_single=False,
-                 use_amp=False, weight_dtype="auto", device=None):
+                 use_amp=False, weight_dtype="auto", matmul_precision=None,
+                 device=None):
         """Load the HiFi-GAN checkpoint and its JSON config, the RADTTS
         checkpoint (a reference state dict or the JAX package's .npz) and
         the speaker table and text frontend of config's training
@@ -82,7 +88,8 @@ class Synthesizer:
             token_duration_max=token_duration_max, f0_mean=f0_mean,
             f0_std=f0_std, energy_mean=energy_mean, energy_std=energy_std,
             bucket_single=bucket_single, use_amp=use_amp,
-            weight_dtype=weight_dtype, device=device)
+            weight_dtype=weight_dtype, matmul_precision=matmul_precision,
+            device=device)
         self.trainset = trainset
         self.load_phases = {"vocoder": t_voc - tic,
                             "checkpoint": t_ck - t_voc,
@@ -97,7 +104,8 @@ class Synthesizer:
                    hop_length=256, seed=1234, token_dur_scaling=1.0,
                    token_duration_max=100, f0_mean=0.0, f0_std=0.0,
                    energy_mean=0.0, energy_std=0.0, bucket_single=False,
-                   use_amp=False, weight_dtype="auto", device=None):
+                   use_amp=False, weight_dtype="auto", matmul_precision=None,
+                   device=None):
         """Build from in-memory modules (no checkpoint files).
         `encode_fn(text) -> int array`; `speaker_id_fn(name) -> int`.
         The modules are moved to `device`; with bf16 weights the model is
@@ -112,6 +120,7 @@ class Synthesizer:
                     f0_std=f0_std, energy_mean=energy_mean,
                     energy_std=energy_std, bucket_single=bucket_single,
                     use_amp=use_amp, weight_dtype=weight_dtype,
+                    matmul_precision=matmul_precision,
                     device=resolve_device(device))
         return self
 
@@ -119,8 +128,9 @@ class Synthesizer:
                speaker_id_fn, sampling_rate, hop_length, seed,
                token_dur_scaling, token_duration_max, f0_mean, f0_std,
                energy_mean, energy_std, bucket_single, use_amp,
-               weight_dtype, device):
+               weight_dtype, matmul_precision, device):
         self.device = device
+        self.matmul_precision = precision.check(matmul_precision)
         self.use_amp = bool(use_amp)
         self.weight_dtype = self.resolve_weight_dtype(weight_dtype)
         self.model_config = model_config
@@ -169,8 +179,14 @@ class Synthesizer:
         sid = default if name is None else self.speaker_id(name)
         return torch.full((B,), sid, dtype=torch.int64, device=self.device)
 
+    def synthesize(self, texts, speaker, **kwargs):
+        """Synthesize a batch of texts for one speaker at the
+        Synthesizer's matmul precision (see _synthesize)."""
+        with precision.scope(self.matmul_precision):
+            return self._synthesize(texts, speaker, **kwargs)
+
     @torch.inference_mode()
-    def synthesize(self, texts, speaker, *, speaker_text=None,
+    def _synthesize(self, texts, speaker, *, speaker_text=None,
                    speaker_attributes=None, sigma=0.8, sigma_tkndur=0.666,
                    sigma_f0=1.0, sigma_energy=1.0, denoising_strength=0.0,
                    trim=True):

@@ -5,10 +5,15 @@ The .npz format (written by the JAX package's save_checkpoint) holds one
 array per leaf of the parameter tree under `params/<path>`, the path's
 components joined by '/', a component made of digits being a list index,
 and the optimizer state under `opt/<path>`; a JSON sidecar beside it holds
-the iteration and learning rate. A reference checkpoint is a torch.save of
-{'state_dict': ..., 'iteration': ..., 'learning_rate': ...} (or the bare
-state dict), read by convert.radtts_from_torch. Both give the nested numpy
-tree that convert.radtts_from_jax takes.
+the iteration and learning rate. The optimizer state is optax's: each
+RAdam, Adam or AdamW state under its position in the chain (`1/` after the
+global-norm clip) as `.count`, `.mu/<path>` and `.nu/<path>`, the moment
+trees keyed like `params/` (`opt_moments` reads them; a resume carries
+them into the port's optimizer through convert.optimizer_state_from_jax).
+A reference checkpoint is a torch.save of {'state_dict': ...,
+'iteration': ..., 'learning_rate': ...} (or the bare state dict), read by
+convert.radtts_from_torch. Both give the nested numpy tree that
+convert.radtts_from_jax takes.
 
 The port's own training checkpoint (train/trainer.py) is a torch.save of
 {"model": the training-form state dict, "optimizer", "iteration",
@@ -19,11 +24,13 @@ fold_radtts), resumes, and warm-starts.
 
 import json
 import os
+import re
 
 import numpy as np
 import torch
 
-from radtts_tpu_torch.convert import (radtts_from_jax, radtts_from_torch,
+from radtts_tpu_torch.convert import (element_map, optimizer_state_from_jax,
+                                      radtts_from_jax, radtts_from_torch,
                                       radtts_train_from_jax)
 from radtts_tpu_torch.models.radtts import RADTTS, fold_radtts
 
@@ -69,6 +76,36 @@ def load_checkpoint(path):
         with open(meta_path) as f:
             meta.update(json.load(f))
     return tree_from_flat(flat), meta
+
+
+_OPT_KEY = re.compile(r"^opt/(.*?)\.(count|mu|nu)(?:/(.*))?$")
+
+
+def opt_moments(path):
+    """The optax moment states of an .npz: {chain position prefix (e.g.
+    "1/", "g/0/"): {"count": int, "mu": tree, "nu": tree}}, the trees
+    keyed like the parameters, fp32 (the writer stores bf16 moments as
+    fp32, exactly); a state with a count alone (a schedule's) has only
+    "count". Empty for a file without `opt/` entries."""
+    npz_path = path if path.endswith(".npz") else path + ".npz"
+    groups = {}
+    with np.load(npz_path) as data:
+        for k in data.files:
+            m = _OPT_KEY.match(k)
+            if m is None:
+                continue
+            prefix, kind, leaf = m.groups()
+            g = groups.setdefault(prefix, {})
+            if kind == "count":
+                g["count"] = int(data[k])
+            else:
+                g.setdefault(kind, {})[leaf] = data[k].astype(
+                    np.float32, copy=False)
+    for g in groups.values():
+        for kind in ("mu", "nu"):
+            if kind in g:
+                g[kind] = tree_from_flat(g[kind])
+    return groups
 
 
 def is_torch_checkpoint(path):
@@ -127,9 +164,12 @@ def save_train_checkpoint(path, model, optimizer, iteration, learning_rate):
 
 def load_train_checkpoint(path, model, optimizer, model_config):
     """Resume (reference: train.py:179-187): the model's factored state and
-    the optimizer's from a port checkpoint; a reference checkpoint or an
-    .npz fills the model only (the JAX package's resume of a torch file
-    keeps a fresh optimizer too). Returns the meta."""
+    the optimizer's from a port checkpoint or the JAX package's .npz (its
+    RAdam or Adam count and moments, each carried through the parameter's
+    own layout change; a parameter whose moments cannot be carried raises
+    by name); a reference checkpoint fills the model only (the JAX
+    package's resume of a torch file keeps a fresh optimizer too). Returns
+    the meta."""
     device = next(model.parameters()).device
     if is_torch_checkpoint(path):
         ckpt = torch.load(path, map_location=device, weights_only=True)
@@ -141,7 +181,29 @@ def load_train_checkpoint(path, model, optimizer, model_config):
     params, meta = load_any_radtts_checkpoint(path, model_config)
     model.load_state_dict(radtts_train_from_jax(params, model_config)
                           .state_dict())
+    if optimizer is not None and not is_torch_checkpoint(path):
+        load_jax_optimizer(path, params, model, optimizer, model_config)
     return meta
+
+
+def load_jax_optimizer(path, params, model, optimizer, model_config):
+    """The .npz's RAdam/Adam state (one moment state in its optax chain)
+    into `optimizer` over model's parameters; nothing where the file has
+    none or no update was made (count 0)."""
+    states = [g for g in opt_moments(path).values() if "mu" in g]
+    if not states:
+        return
+    if len(states) > 1:
+        raise ValueError(f"{path}: {len(states)} moment states in the "
+                         "optimizer, expected one (RAdam or Adam)")
+    (st,) = states
+    if st["count"] == 0:
+        return
+    emap = element_map(
+        lambda tree: radtts_train_from_jax(tree, model_config), params)
+    optimizer.load_state_dict(optimizer_state_from_jax(
+        optimizer, model.named_parameters(), emap, st["count"], st["mu"],
+        st["nu"]))
 
 
 def warmstart_filter(include_layers, ignore_layers_warmstart):

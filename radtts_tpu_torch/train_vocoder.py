@@ -6,7 +6,10 @@ HiFi-GAN config JSON the inference CLIs consume. Every checkpoint step it
 writes g_<iteration>.pt, the generator in the reference's
 {'generator': state_dict} format, and do_<iteration>.pt, the full state
 (generator, both discriminators, both optimizers, the iteration) for
---resume. It runs on CUDA unless --device cpu; precision is pinned to fp32.
+--resume. --resume also takes the JAX package's do_<iteration>.npz (its
+train_vocoder.py's): the weights, both AdamW states (step counts and
+moments) and so the lr schedule's position. It runs on CUDA unless
+--device cpu; precision is pinned to fp32.
 
     python -m radtts_tpu_torch.train_vocoder -c configs/config_ljs_dap.json \\
         -k hifigan_config.json -o outdir [--warmstart hifigan.pt] \\
@@ -21,9 +24,13 @@ import time
 import torch
 
 from radtts_tpu_torch.config import update_params
+from radtts_tpu_torch.convert import (element_map, optimizer_state_from_jax,
+                                      vocoder_train_from_jax)
 from radtts_tpu_torch.models.hifigan import (generator_from_reference,
                                              generator_to_reference)
 from radtts_tpu_torch.synthesizer import resolve_device
+from radtts_tpu_torch.train.checkpoint import (is_torch_checkpoint,
+                                               load_checkpoint, opt_moments)
 from radtts_tpu_torch.train.vocoder_trainer import (SegmentSampler,
                                                     make_optimizers,
                                                     make_vocoder_train_step,
@@ -41,6 +48,41 @@ def filelist_audio_paths(data_config, which="training_files"):
                 name = line.rstrip("\n").split("|")[0]
                 paths.append(os.path.join(basedir, audiodir, name))
     return paths
+
+
+def load_resume(path, models, optim_g, optim_d, h):
+    """--resume: the models' and both optimizers' state from this CLI's
+    do_<it>.pt or the JAX package's do_<it>.npz, whose optax AdamW states
+    (chain position 0: count, mu, nu; 2: the schedule's count) become
+    AdamW's step, exp_avg and exp_avg_sq, each moment through its
+    parameter's layout change (convert.element_map); DecayedAdamW reads
+    the schedule's position from the step. Returns the iteration."""
+    if is_torch_checkpoint(path):
+        device = next(models.parameters()).device
+        state = torch.load(path, map_location=device)
+        models.load_state_dict(state["models"])
+        optim_g.load_state_dict(state["optim_g"])
+        optim_d.load_state_dict(state["optim_d"])
+        return int(state["iteration"])
+    tree, meta = load_checkpoint(path)
+    models.load_state_dict(vocoder_train_from_jax(tree, h).state_dict())
+    states = opt_moments(path)
+    emap = element_map(lambda t: vocoder_train_from_jax(t, h), tree)
+    for name, opt, wrap in (("g", optim_g, lambda m: {"gen": m}),
+                            ("d", optim_d, lambda m: m)):
+        adam, sched = states.get(f"{name}/0/"), states.get(f"{name}/2/")
+        if adam is None or "mu" not in adam:
+            raise ValueError(f"{path}: no AdamW state under opt/{name}/0/")
+        if sched is not None and sched["count"] != adam["count"]:
+            raise ValueError(f"{path}: opt/{name}: the schedule's count "
+                             f"{sched['count']} is not AdamW's "
+                             f"{adam['count']}")
+        if adam["count"]:
+            opt.load_state_dict(optimizer_state_from_jax(
+                opt, models.named_parameters(), emap, adam["count"],
+                wrap(adam["mu"]), wrap(adam["nu"]),
+                step=lambda c: torch.tensor(float(c))))
+    return int(meta["iteration"])
 
 
 def train(args, config):
@@ -66,11 +108,7 @@ def train(args, config):
                                        decay_every=args.decay_every)
     start_it = 0
     if args.resume:
-        state = torch.load(args.resume, map_location=device)
-        models.load_state_dict(state["models"])
-        optim_g.load_state_dict(state["optim_g"])
-        optim_d.load_state_dict(state["optim_d"])
-        start_it = int(state["iteration"])
+        start_it = load_resume(args.resume, models, optim_g, optim_d, h)
         print(f"resumed full GAN state from '{args.resume}' "
               f"(iteration {start_it})")
 
@@ -122,7 +160,8 @@ def build_parser():
                          "from")
     ap.add_argument("--resume", type=str, default="",
                     help="do_*.pt full-state checkpoint (gen+discs+optims) "
-                         "saved by this CLI")
+                         "saved by this CLI, or the JAX package's "
+                         "do_*.npz")
     ap.add_argument("--steps", type=int, default=10000)
     ap.add_argument("--batch_size", type=int, default=16)
     ap.add_argument("--segment_size", type=int, default=8192)

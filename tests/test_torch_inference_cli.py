@@ -224,7 +224,7 @@ def test_honours_precision_flags(fixtures, tmp_path, monkeypatch, cli, flag):
 
 @pytest.mark.parametrize("flags,message", [
     (["--data_parallel", "2"], "one device"),
-    (["--matmul_precision", "default"], "highest"),
+    (["--matmul_precision", "bfloat16"], "highest"),
 ])
 @pytest.mark.parametrize("cli", ["inference", "serve"])
 def test_refuses_unsupported_flags(tmp_path, capsys, cli, flags, message):
@@ -260,3 +260,77 @@ def test_cli_needs_cuda_without_device(fixtures, tmp_path, monkeypatch):
     paths, _, _ = fixtures
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         inference.main(cli_args(paths, tmp_path / "out"))
+
+
+class FlagSpy(torch.overrides.TorchFunctionMode):
+    """Records the TF32 flags (cuDNN, cuBLAS) at every torch call, by
+    where it ran: inside the text encoder's forward, an inverse 1x1 conv's
+    forward or inverse (the fp32 islands), or elsewhere."""
+
+    ISLANDS = {("encoder.py", "forward"): "encoder",
+               ("invertible.py", "forward"): "inv1x1",
+               ("invertible.py", "inverse"): "inv1x1"}
+
+    def __init__(self):
+        super().__init__()
+        self.seen = {"encoder": set(), "inv1x1": set(), "other": set()}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        where, frame = "other", sys._getframe(1)
+        while frame is not None and where == "other":
+            code = frame.f_code
+            where = self.ISLANDS.get(
+                (os.path.basename(code.co_filename), code.co_name), "other")
+            frame = frame.f_back
+        self.seen[where].add((torch.backends.cudnn.allow_tf32,
+                              torch.backends.cuda.matmul.allow_tf32))
+        return func(*args, **(kwargs or {}))
+
+
+def test_inference_cli_takes_matmul_precision(fixtures, tmp_path):
+    """--matmul_precision default runs; on the CPU, which computes fp32 at
+    every setting, its wav equals highest's. The parser takes high too
+    (its scope: tests/test_torch_precision.py)."""
+    paths, _, _ = fixtures
+    text = tmp_path / "one.txt"
+    text.write_text("Short one!\n")
+    wavs = {}
+    for name in ("default", "highest"):
+        (path,) = inference.main(cli_args(
+            dict(paths, text=str(text)), tmp_path / name, "--sigma", "0",
+            "--device", "cpu", "--matmul_precision", name))
+        wavs[name] = wavfile.read(path)[1]
+    np.testing.assert_array_equal(wavs["default"], wavs["highest"])
+    args = inference.build_parser().parse_args(cli_args(
+        paths, tmp_path, "--matmul_precision", "high"))
+    assert args.matmul_precision == "high"
+
+
+def test_serve_keeps_fp32_islands_at_default_precision(fixtures):
+    """The serve CLI at --matmul_precision default: the Synthesizer keeps
+    the precision through loading; inside a request TF32 is on, except in
+    the text encoder and the inverse 1x1 convs (a spy on the flags at
+    every torch call); after it the flags are as the load left them. On
+    the CPU the audio equals highest's."""
+    from radtts_tpu_torch.serve import build_server
+
+    paths, _, _ = fixtures
+    server, synth, _ = build_server([
+        "-c", paths["config"], "-r", paths["radtts"],
+        "-v", paths["vocoder"], "-k", paths["vocoder_config"],
+        "-s", "ljs", "--port", "0", "--device", "cpu",
+        "--matmul_precision", "default"])
+    server.server_close()
+    assert synth.matmul_precision == "default"
+    assert not torch.backends.cudnn.allow_tf32
+    spy = FlagSpy()
+    with spy:
+        got = synth.synthesize("Short one!", "ljs", sigma=0.0)[0][0]
+    assert spy.seen["encoder"] == {(False, False)}, spy.seen
+    assert spy.seen["inv1x1"] == {(False, False)}, spy.seen
+    assert spy.seen["other"] == {(True, True)}, spy.seen
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    synth.matmul_precision = "highest"
+    want = synth.synthesize("Short one!", "ljs", sigma=0.0)[0][0]
+    np.testing.assert_array_equal(got, want)

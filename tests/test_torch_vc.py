@@ -416,7 +416,9 @@ def test_cli_precision_flags(vc_fixtures, tmp_path, monkeypatch):
     """--use_amp runs the bf16 regions and --weight_dtype bfloat16 stores
     the RADTTS conv kernels in bf16 (the encoder's stay fp32); the mel
     moves from fp32's by less than 5e-2 of its scale (the AMP tests
-    bound it against JAX's own distance)."""
+    bound it against JAX's own distance). --matmul_precision default runs
+    too; on the CPU, which computes fp32 at every setting, its mel equals
+    fp32's."""
     from radtts_tpu_torch.models import coupling
     from radtts_tpu_torch.ops import fold_norms
 
@@ -428,7 +430,8 @@ def test_cli_precision_flags(vc_fixtures, tmp_path, monkeypatch):
                         lambda m: stored.append(real_store(m)) or m)
     mels = {}
     for name, flags in (("fp32", []), ("bf16", [
-            "--use_amp", "--weight_dtype", "bfloat16"])):
+            "--use_amp", "--weight_dtype", "bfloat16"]),
+            ("default", ["--matmul_precision", "default"])):
         out = tmp_path / name
         vc.main(vc_args(vc_fixtures, out, "-n", "1", "--no_audio",
                         "--save_mels", "--device", "cpu", *flags))
@@ -440,12 +443,14 @@ def test_cli_precision_flags(vc_fixtures, tmp_path, monkeypatch):
                for p in stored[0].encoder.parameters())
     d = np.abs(mels["bf16"] - mels["fp32"]).max()
     assert 0 < d < 5e-2 * np.abs(mels["fp32"]).max(), d
+    np.testing.assert_array_equal(mels["default"], mels["fp32"])
 
 
 def test_cli_refuses_matmul_precision(tmp_path, capsys):
     with pytest.raises(SystemExit) as err:
         vc.main(vc_args({k: str(tmp_path / k) for k in (
             "radtts", "config", "vocoder", "vocoder_config")},
-            tmp_path / "o", "--matmul_precision", "default"))
+            tmp_path / "o", "--matmul_precision", "bfloat16"))
     assert err.value.code == 2
     assert "highest" in capsys.readouterr().err
+
