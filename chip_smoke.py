@@ -109,6 +109,12 @@ Phases, each printing a JSON or text line:
      request counted (ar_scan 2, mrf_tc 72), the bf16 mel's distance
      from the card's fp32 at most 3x the CPU's own (or 1e-3), the RTF
      and the resident conv-kernel bytes;
+  5f. data-parallel serving (serve_dp2_608): the flagship Synthesizer at
+     data_parallel=2 with both replicas on this card, against
+     data_parallel=1 from the same seed: four texts whose batch budget is
+     608 frames give the same durations and audio within 1e-3 * max,
+     three texts three wavs; mrf_tc 72 in each replica's vocoder call;
+     the wall time of both settings;
   6. HiFi-GAN V2 serving: the generator of the public config_v2.json (v1
      with upsample_initial_channel 128; random weights, seed 5) on a
      seeded 608-frame mel, stages (1, 4864, 64), (1, 38912, 32), (1, 77824,
@@ -175,12 +181,24 @@ Phases, each printing a JSON or text line:
      a seeded HiFi-GAN v1 and profile_dir set (the trace must hold CUDA
      kernels), then its checkpoint's validation with and without the
      audio samples (JAX's five tags at 22050 Hz, finite, not silent;
-     mrf_tc 6 x 72, mas 1), timed;
+     mrf_tc 6 x 72, mas 1), timed; then (train_dp2_cli)
+     python -m radtts_tpu_torch.train at WORLD_SIZE=2 on the decoder
+     config, batch 8 a rank, 2 steps: rank 0 alone logs and writes
+     model_0, which loads and steps in one process;
  10. RADTTS step time: the config_ljs_dap.json model, every module
      trainable, binarize and KL on, fp32, at bench_train.py's (16, 112,
      512): step ms (median of steps 2-5), mel frames/s, peak memory and a
      profiled step (device busy and idle share, top kernels), and
      one step's counted FLOP over the step time;
+ 10b. RADTTS steps on more than one rank (radtts_step_dp2, _tp2,
+     _dp1_nccl): config_ljs_decoder.json at global (16, 112, 512),
+     binarized, as 2 ranks of 8 ragged rows (gloo, the ranks' frame
+     counts differ) and 2 ranks at n_model=2 (gloo) in one world, and 1
+     rank on NCCL, each a process of this script (--step-rank) with the
+     env contract, the kernels built before: each rank's first step
+     within rtol 1e-3 (loss) and 2e-3 (grad norm) of the single-process
+     step, mas_warp_kernel launched on every rank; step ms and the
+     collectives' ms a step;
  11. RADTTS card against CPU: one step at batch 2 from the same state on
      the card, the CPU and the CPU in float64 (the CPU steps take the
      card's alignment, which must equal mas_plain's on the CPU's soft
@@ -200,12 +218,15 @@ Phases, each printing a JSON or text line:
      serve_v2, train, train_radtts, serve_bgap, serve_agap, train_gap,
      serve_gap_files, vc, serve_amp, train_amp, resblock2, serve_fft,
      train_fft, serve_fft_files, serve_plain_w, train_plain_w,
-     serve_agap_bf16, train_audio_samples, serve_high, serve_default);
+     serve_agap_bf16, train_audio_samples, serve_dp2, radtts_step_dp2,
+     radtts_step_tp2, radtts_step_dp1_nccl, serve_high, serve_default);
      the ar_scan entry carries the
      chain floor, the ar_scan_barrier entry its H = 1024 timing.
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
-it, it exits 1 and prints no result.
+it, it exits 1 and prints no result. `--step-rank SPEC` runs one rank of
+phase 10b (the script spawns it; run without arguments, it needs one
+card).
 """
 
 import base64
@@ -3724,6 +3745,382 @@ def phase_ar_scan_bf16(ar_mod, dev, power):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# more than one device: data-parallel serving, data- and
+# tensor-parallel RADTTS steps, the training CLI at WORLD_SIZE=2
+# ---------------------------------------------------------------------------
+
+DP2_TEXTS = TEXTS + ["It is well known that deep generative models have a "
+                     "rich latent space."]
+STEP_LAYOUTS = (("radtts_step_dp2", 2, 1), ("radtts_step_tp2", 2, 2),
+                ("radtts_step_dp1_nccl", 1, 1))   # (phase, world, n_model)
+
+
+def _vocoder_launches(vocoder, mrf_mod):
+    """Hooks that record mrf_tc's launches in each call of `vocoder` (a
+    replica's), into the returned list."""
+    calls = []
+
+    def pre(mod, args):
+        calls.append(mrf_mod.mrf.tc_launches)
+
+    def post(mod, args, out):
+        calls[-1] = mrf_mod.mrf.tc_launches - calls[-1]
+    return calls, [vocoder.register_forward_pre_hook(pre),
+                   vocoder.register_forward_hook(post)]
+
+
+def phase_serve_dp2(config, model, vocoder, denoiser, tp, mrf_mod, dev,
+                    power):
+    """Synthesizer(data_parallel=2) with both replicas on this card (they
+    share its modules), against data_parallel=1 from the same seed: four
+    texts, their durations scaled (token_dur_scaling) until the batch's
+    budget is the flagship's 608 frames, must give data_parallel=1's
+    durations and audio within 1e-3 * max; three texts give three wavs.
+    The mrf_tc launches of each replica's vocoder call are counted from
+    0 (72 each) and the wall time of both settings printed: two replicas
+    on one card measure correctness, not a speed-up."""
+    from radtts_tpu_torch.synthesizer import Synthesizer, frame_budget
+
+    dc, mc = config["data_config"], config["model_config"]
+
+    def make(n, scaling):
+        return Synthesizer.from_parts(
+            mc, model, vocoder, denoiser, encode_fn=tp.encode_text,
+            speaker_id_fn=lambda name: 0, sampling_rate=dc["sampling_rate"],
+            hop_length=dc["hop_length"], seed=5, token_dur_scaling=scaling,
+            data_parallel=n, devices=[dev] * n)
+
+    scaling = 1.0
+    for _ in range(8):
+        _, aux = make(1, scaling).synthesize(DP2_TEXTS, "ljs")
+        longest = int(max(aux["n_frames"]))
+        if frame_budget(longest, mc["n_group_size"]) == MAX_FRAMES:
+            break
+        scaling *= (MAX_FRAMES - 8) / longest
+    else:
+        raise AssertionError(f"no token_dur_scaling gives a {MAX_FRAMES}-"
+                             f"frame budget (last {longest} frames)")
+    one, two = make(1, scaling), make(2, scaling)
+    (w1, a1), ms1 = timed(lambda: one.synthesize(DP2_TEXTS, "ljs"))
+    calls, hooks = _vocoder_launches(two.replicas[1][2], mrf_mod)
+    _reset_mrf(mrf_mod)
+    try:
+        (w2, a2), ms2 = timed(lambda: two.synthesize(DP2_TEXTS, "ljs"))
+        launches = _mrf_counts(mrf_mod)
+        per_replica = list(calls)
+        (w3, a3), ms3 = timed(lambda: two.synthesize(DP2_TEXTS[:3], "ljs"))
+    finally:
+        for h in hooks:
+            h.remove()
+    walls = {"data_parallel_1": [ms1], "data_parallel_2": [ms2]}
+    for _ in range(2):
+        walls["data_parallel_1"].append(timed(
+            lambda: one.synthesize(DP2_TEXTS, "ljs"))[1])
+        walls["data_parallel_2"].append(timed(
+            lambda: two.synthesize(DP2_TEXTS, "ljs"))[1])
+    errs = [float(np.abs(x - y).max() / np.abs(y).max())
+            for x, y in zip(w2, w1)]
+    log({"phase": "serve_dp2_608", "card": power,
+         "replicas": [str(r[0]) for r in two.replicas],
+         "token_dur_scaling": scaling,
+         "n_frames": [int(n) for n in a1["n_frames"]],
+         "budget": frame_budget(max(a1["n_frames"]), mc["n_group_size"]),
+         "durations_equal": bool(np.array_equal(a1["dur"], a2["dur"])),
+         "wav_max_abs_err_over_max": errs,
+         "mrf_tc_launches_by_replica": per_replica,
+         "launches": launches, "wall_ms": walls,
+         "note": "both replicas on one card: correctness and cost, not a "
+                 "speed-up"})
+    if not np.array_equal(a1["dur"], a2["dur"]) or max(errs) > 1e-3:
+        raise AssertionError(f"data_parallel=2 vs 1: durations equal "
+                             f"{np.array_equal(a1['dur'], a2['dur'])}, "
+                             f"audio {errs}")
+    if len(w3) != 3 or a3["dur"].shape[0] != 3:
+        raise AssertionError(f"3 texts gave {len(w3)} wavs")
+    if per_replica != [72, 72] or launches["mrf_tc"] != 144:
+        raise AssertionError(f"mrf_tc by replica {per_replica}, {launches}")
+    return launches
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(world, argv, timeout, env=None):
+    """`world` processes of argv with the env contract (RANK, LOCAL_RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT), from the repository's root;
+    their outputs by rank. Raises, with the failed rank's output, unless
+    every rank exits 0; kills every rank it started."""
+    base = dict(os.environ if env is None else env, MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world))
+    procs = [subprocess.Popen(
+        argv, cwd=REPO, env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {world} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    return logs
+
+
+def step_rank(spec_path):
+    """One rank of phase 10b (chip_smoke.py --step-rank SPEC, spawned by
+    phase_radtts_step_parallel): the process group from the env contract
+    (init_distributed), the config_ljs_decoder.json model from seed 1 on
+    cuda:LOCAL_RANK; then for each of SPEC's layouts, from those weights
+    and a fresh RAdam, the model sharded by that layout's mesh and its
+    data rank's half of the batch: the first step (binarized, KL on)
+    counted and its numbers kept, three more timed, then one with each
+    all-reduce timed between synchronizations (the collectives' share).
+    Writes SPEC's out/<layout>.RANK."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from radtts_tpu_torch.ops import mas as mas_mod
+    from radtts_tpu_torch.ops import mel as mel_mod
+    from radtts_tpu_torch.ops import mrf as mrf_mod
+    from radtts_tpu_torch.parallel import shard_model
+    from radtts_tpu_torch.parallel.mesh import (init_distributed,
+                                                launch_env, local_device,
+                                                make_mesh)
+    from radtts_tpu_torch.synthesizer import resolve_device
+    from radtts_tpu_torch.train.optim import build_optimizer
+    from radtts_tpu_torch.train.trainer import (apply_trainable_mask,
+                                                batch_to_device,
+                                                build_trainable_mask,
+                                                train_step)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    resolve_device()
+    dev = local_device(launch_env()[2])
+    torch.cuda.set_device(dev)
+    world_mesh = init_distributed(dev, 1)
+    with open(DECODER_CONFIG) as f:
+        config = json.load(f)
+    mc, tc = config["model_config"], config["train_config"]
+    model, _, _ = _radtts_trainer(mc, dev, seed=1)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with np.load(spec["batch"]) as data:
+        full = {k: data[k] for k in data.files}
+    for phase, n_model in spec["layouts"]:
+        mesh = world_mesh if n_model == 1 else make_mesh(n_model)
+        model.load_state_dict(start)   # the layouts run whole, then sharded
+        trainable = apply_trainable_mask(model, build_trainable_mask(model))
+        opt = build_optimizer(trainable, "RAdam", 1e-4, 1e-6)
+        axes = shard_model(model, opt, mesh)
+        sharded = [p for n, p in model.named_parameters() if n in axes]
+        n = full["text"].shape[0] // mesh.n_data
+        batch = batch_to_device({k: v[mesh.data_rank * n:
+                                       (mesh.data_rank + 1) * n]
+                                 for k, v in full.items()}, dev)
+
+        def step():
+            return train_step(model, opt, trainable, batch, mc,
+                              tc["loss_weights"], 1.0, True, True,
+                              tc["grad_clip_val"], mesh=mesh,
+                              sharded=sharded)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts(mas_mod, mel_mod, mrf_mod)
+        (total, losses, gnorm), first_ms = timed(step)
+        launches = _counts(mas_mod, mel_mod, mrf_mod)
+        first = {"total": float(total), "grad_norm": float(gnorm),
+                 **{k: float(v) for k, (v, _) in losses.items()}}
+        ms = [timed(step)[1] for _ in range(3)]
+        collective_ms = []
+        all_reduce = dist.all_reduce
+
+        def timed_all_reduce(*args, **kwargs):
+            torch.cuda.synchronize(dev)
+            tic = time.perf_counter()
+            out = all_reduce(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            collective_ms.append((time.perf_counter() - tic) * 1e3)
+            return out
+        dist.all_reduce = timed_all_reduce
+        try:
+            _, with_timing_ms = timed(step)
+        finally:
+            dist.all_reduce = all_reduce
+        result = {"rank": mesh.rank, "backend": mesh.backend,
+                  "mesh": [mesh.n_data, mesh.n_model], "rows": int(n),
+                  "frames": int(batch["output_lengths"].sum()),
+                  "sharded_parameters": len(axes), "first": first,
+                  "first_ms": first_ms, "step_ms": ms,
+                  "launches_first_step": launches,
+                  "collectives": len(collective_ms),
+                  "collective_ms": sum(collective_ms),
+                  "step_ms_collectives_timed": with_timing_ms,
+                  "peak_allocated_gib": torch.cuda.max_memory_allocated(dev)
+                  / 2 ** 30}
+        with open(os.path.join(spec["out"], f"{phase}.{mesh.rank}"),
+                  "w") as f:
+            json.dump(result, f)
+        del opt, trainable, batch
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_radtts_step_parallel(dev, power):
+    """The RADTTS step at global (16, 112, 512) on config_ljs_decoder.json
+    (1024-wide WN), binarized with the KL loss, on three layouts of ranks
+    sharing this card (chip_smoke.py --step-rank): in one world of 2
+    processes, 8 rows each (data parallel over gloo; rows 0-7 hold 512
+    frames, rows 8-15 fewer, so the ranks' frame counts differ), then all
+    16 rows at n_model=2 (512 WN channels a rank, gloo); and 1 process on
+    NCCL (the only NCCL world one card runs). Each rank's first step must
+    be within rtol 1e-3 (loss) and 2e-3 (grad norm) of the single-process
+    step on the same 16 rows from the same weights, here, and launch
+    mas_warp_kernel. Step ms (median of steps 2-4) and the collectives'
+    ms in a step (each all-reduce between synchronizations): ranks that
+    share one card measure correctness and the collectives' cost, not a
+    speed-up."""
+    from radtts_tpu_torch.ops import mas as mas_mod
+    from radtts_tpu_torch.train.trainer import batch_to_device, train_step
+
+    with open(DECODER_CONFIG) as f:
+        config = json.load(f)
+    mc, tc = config["model_config"], config["train_config"]
+    B, N, T = RADTTS_STEP
+    r = np.random.default_rng(11)
+    in_lens = np.concatenate([[N] * (B // 2), r.integers(80, N + 1, B // 2)])
+    out_lens = np.concatenate([[T] * (B // 2),
+                               r.integers(360, T + 1, B // 2)])
+    batch = radtts_step_batch(B, N, T, mc["n_mel_channels"], 2,
+                              in_lens=in_lens, out_lens=out_lens)
+    model, trainable, opt = _radtts_trainer(mc, dev, seed=1)
+    mas_mod.mas.launches = 0
+    (total, _, gnorm), single_ms = timed(lambda: train_step(
+        model, opt, trainable, batch_to_device(batch, dev), mc,
+        tc["loss_weights"], 1.0, True, True, tc["grad_clip_val"]))
+    single = {"total": float(total), "grad_norm": float(gnorm),
+              "ms": single_ms, "mas_launches": mas_mod.mas.launches}
+    del model, trainable, opt
+    torch.cuda.empty_cache()
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        np.savez(os.path.join(root, "batch.npz"), **batch)
+        for world in sorted({w for _, w, _ in STEP_LAYOUTS}, reverse=True):
+            layouts = [(phase, n_model) for phase, w, n_model in STEP_LAYOUTS
+                       if w == world]
+            spec = os.path.join(root, f"world{world}.json")
+            with open(spec, "w") as f:
+                json.dump({"layouts": layouts, "out": root,
+                           "batch": os.path.join(root, "batch.npz")}, f)
+            tic = time.perf_counter()
+            spawn_ranks(world, [sys.executable, os.path.abspath(__file__),
+                                "--step-rank", spec], timeout=420)
+            wall_s = time.perf_counter() - tic
+            for phase, n_model in layouts:
+                ranks = []
+                for rank in range(world):
+                    with open(os.path.join(root, f"{phase}.{rank}")) as f:
+                        ranks.append(json.load(f))
+                paths[phase] = _check_step_layout(
+                    phase, world, n_model, ranks, single, wall_s, power)
+    return paths
+
+
+def _check_step_layout(phase, world, n_model, ranks, single, wall_s, power):
+    """Log a layout's ranks; raise unless each ran on the backend the rule
+    names, launched MAS and agrees with the single-process step. Returns
+    the layout's launches, summed over its ranks."""
+    want = "gloo" if world > 1 else "nccl"
+    bad = [rk["rank"] for rk in ranks if rk["backend"] != want
+           or rk["launches_first_step"]["mas"] < 1
+           or abs(rk["first"]["total"] / single["total"] - 1) > 1e-3
+           or abs(rk["first"]["grad_norm"] / single["grad_norm"] - 1)
+           > 2e-3]
+    coll = statistics.median(rk["collective_ms"] for rk in ranks)
+    timed_ms = statistics.median(rk["step_ms_collectives_timed"]
+                                 for rk in ranks)
+    log({"phase": phase, "card": power, "world": world, "n_model": n_model,
+         "backend": want, "single": single, "ranks": ranks,
+         "median_step_ms_2_4": statistics.median(
+             ms for rk in ranks for ms in rk["step_ms"]),
+         "collective_ms_per_step": coll,
+         "collective_share": coll / timed_ms, "world_seconds": wall_s,
+         "note": "ranks share one card: correctness and the collectives' "
+                 "cost, not a speed-up; world_seconds covers every layout "
+                 "of the world"})
+    if bad:
+        raise AssertionError(f"{phase}: ranks {bad} disagree with the "
+                             f"single-process step {single}: {ranks}")
+    return {k: sum(rk["launches_first_step"][k] for rk in ranks)
+            for k in ranks[0]["launches_first_step"]}
+
+
+def phase_train_dp2_cli(root, power):
+    """python -m radtts_tpu_torch.train at WORLD_SIZE=2 (the env contract,
+    both ranks on this card: gloo) on the seeded dataset the training
+    phase wrote, config_ljs_decoder.json at batch 8 a rank (the 16
+    training wavs split between the data ranks), 2 epochs of one step
+    (binarized from step 1), a validation and a checkpoint at step 0.
+    Rank 0 alone logs the steps and the validation and writes model_0,
+    which loads into one process, whose next step on the card is
+    finite."""
+    from radtts_tpu_torch.train.checkpoint import load_train_checkpoint
+    from radtts_tpu_torch.train.trainer import batch_to_device, train_step
+
+    out = os.path.join(root, "dp2")
+    config = os.path.join(root, "decoder.json")
+    tic = time.perf_counter()
+    logs = spawn_ranks(2, [
+        sys.executable, "-m", "radtts_tpu_torch.train", "-c", config, "-p",
+        f"train_config.output_directory={out}", "train_config.epochs=2",
+        "train_config.seed=0", "train_config.batch_size=8",
+        "train_config.binarization_start_iter=1",
+        "train_config.kl_loss_start_iter=1",
+        "train_config.iters_per_checkpoint=2"], timeout=600)
+    wall_s = time.perf_counter() - tic
+    files = sorted(os.listdir(out))
+    steps = [ln for ln in logs[0].splitlines() if ln.startswith("iter: ")]
+    saw = [[ln for ln in log_.splitlines()
+            if ln.startswith(("iter: ", "Validation loss"))] for log_ in logs]
+    backends = [ln for log_ in logs for ln in log_.splitlines()
+                if ln.startswith("> distributed:")]
+    with open(DECODER_CONFIG) as f:
+        mc = json.load(f)["model_config"]
+    model, trainable, opt = _radtts_trainer(mc, torch.device("cuda"),
+                                            seed=3)
+    meta = load_train_checkpoint(os.path.join(out, "model_0"), model, opt,
+                                 mc)
+    B, N, T = 4, 60, 240
+    total, _, gnorm = train_step(
+        model, opt, trainable, batch_to_device(radtts_step_batch(
+            B, N, T, mc["n_mel_channels"], 5), "cuda"), mc,
+        {}, 1.0, True, True, 1.0)
+    log({"phase": "train_dp2_cli", "card": power, "seconds": wall_s,
+         "files": files, "rank0_lines": saw[0], "rank1_lines": saw[1],
+         "backends": backends, "resumed_iteration": meta["iteration"],
+         "next_step_total": float(total), "next_step_grad_norm":
+         float(gnorm)})
+    if (len(steps) != 2 or saw[1] or len(saw[0]) != 3
+            or [f for f in files if f.startswith("model_")] != ["model_0"]
+            or any(f.endswith(".tmp") for f in files)
+            or len(backends) != 2 or not all("backend gloo" in b
+                                             for b in backends)
+            or meta["iteration"] != 0
+            or not np.isfinite([float(total), float(gnorm)]).all()):
+        raise AssertionError(f"train_dp2_cli: files {files}, rank 0 "
+                             f"{saw[0]}, rank 1 {saw[1]}, {backends}")
+
+
 def run_preflight(config_path, cache):
     """python -m radtts_tpu_torch.data -c config_path -j 2 (the dataset
     preflight) in a process of its own; returns (seconds, {cache file:
@@ -3750,6 +4147,8 @@ def main():
         print("chip_smoke: radtts_tpu_torch/ is not beside this script",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--step-rank"]:
+        return step_rank(sys.argv[2])
     sys.path.insert(0, REPO)
     from radtts_tpu_torch.ops import ar_scan as ar_mod
     from radtts_tpu_torch.ops import mas as mas_mod
@@ -3852,6 +4251,8 @@ def main():
                                                tp, mods, dev, power)
     agap_bf16_launches = phase_serve_agap_bf16(vocoder, denoiser, tp, mods,
                                                dev, power)
+    dp2_launches = phase_serve_dp2(config, model, vocoder, denoiser, tp,
+                                   mrf_mod, dev, power)
     del synth, model, vocoder, denoiser
     v2_launches, v2_ms = phase_serve_v2(mrf_mod, dev, power)
     rb2_launches = phase_resblock2(mods, dev, power)
@@ -3873,10 +4274,12 @@ def main():
                                                    files)
         out["train_audio_samples"] = phase_train_audio_samples(
             mods, dev, power, root, files, dec_ckpt, voc, voc_cfg)
+        phase_train_dp2_cli(root, power)
         return out
     radtts_launches, gap_train = phase_train_radtts(
         mas_mod, mel_mod, mrf_mod, dev, power, then=after_radtts)
     phase_radtts_step(mas_mod, dev, power)
+    step_paths = phase_radtts_step_parallel(dev, power)
     phase_radtts_vs_cpu(dev)
     for kind, path in GAP_CONFIGS.items():
         phase_radtts_vs_cpu(dev, config_path=path,
@@ -3900,6 +4303,7 @@ def main():
              "train_plain_w": gap_train["train_plain_w"],
              "serve_agap_bf16": agap_bf16_launches,
              "train_audio_samples": gap_train["train_audio_samples"],
+             "serve_dp2": dp2_launches, **step_paths,
              **precision_launches}
     # every path counts the one-pass build, and only serve_default runs it
     stray = {p: c.get("mrf_tc_one_pass") for p, c in paths.items()

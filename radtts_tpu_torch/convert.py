@@ -554,6 +554,61 @@ def radtts_from_torch(sd, model_config):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel shards of the training form
+# ---------------------------------------------------------------------------
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def tp_slice(t, axis, rank, n_model):
+    """Rank `rank`'s slice of t along axis, of n_model equal slices."""
+    width = t.shape[axis] // n_model
+    return t.narrow(axis, rank * width, width)
+
+
+@torch.no_grad()
+def shard_train_model(model, optimizer, n_model, rank):
+    """In place: every parameter of the training-form model that
+    parallel.mesh.tp_axis shards keeps rank's slice, and so do its
+    optimizer moments where the optimizer holds any (a resumed run's).
+    The parameters stay the objects the optimizer holds. Returns
+    {parameter name: sharded axis}."""
+    from radtts_tpu_torch.parallel.mesh import tp_axis
+
+    axes = {}
+    for name, p in model.named_parameters():
+        axis = tp_axis(name, tuple(p.shape), n_model)
+        if axis is None:
+            continue
+        axes[name] = axis
+        p.data = tp_slice(p.data, axis, rank, n_model).clone()
+        state = optimizer.state.get(p, {}) if optimizer is not None else {}
+        for k in _MOMENTS:
+            if k in state:
+                state[k] = tp_slice(state[k], axis, rank, n_model).clone()
+    return axes
+
+
+def unshard_train_state(model, optimizer, axes, gather):
+    """(model state dict, optimizer state dict) in the single-process
+    layout: each sharded parameter (axes: {name: axis}) and its moments
+    replaced by gather(tensor, axis), the whole tensor. The live state is
+    left as it is."""
+    sd = dict(model.state_dict())
+    for name, axis in axes.items():
+        sd[name] = gather(sd[name], axis)
+    osd = optimizer.state_dict()
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [p for group in optimizer.param_groups for p in group["params"]]
+    state = {}
+    for i, st in osd["state"].items():
+        axis = axes.get(names[id(order[i])])
+        state[i] = {k: gather(v, axis) if axis is not None and k in _MOMENTS
+                    else v for k, v in st.items()}
+    return sd, dict(osd, state=state)
+
+
+# ---------------------------------------------------------------------------
 # optimizer moments of the JAX package's checkpoints
 # ---------------------------------------------------------------------------
 
@@ -592,7 +647,11 @@ def element_map(build, tree):
     at load, a parameter the tree does not fill). Found by building from
     two trees of numbers: each leaf's element numbers, then each leaf's own
     number; the loader's layout changes (transposes, flips, stacks) carry
-    them as they carry the weights."""
+    them as they carry the weights. The numbers are float32 (exact up to
+    2^24, checked), the indices int32, and the positions of a parameter
+    drawn from one leaf slice(None): a map holds ~4 bytes an element, so
+    that the full discriminators' 71 M parameters cost ~0.3 GB, not
+    several."""
     floats = [(p, np.asarray(a)) for p, a in tree_leaves(tree)
               if np.asarray(a).dtype.kind == "f"]
     number = {p: i + 1 for i, (p, _) in enumerate(floats)}
@@ -600,32 +659,42 @@ def element_map(build, tree):
         if a.size > _EXACT:
             raise ValueError(f"element_map: {p} has {a.size} elements, more "
                              "than float32 numbers exactly")
+    if len(floats) > _EXACT:
+        raise ValueError(f"element_map: {len(floats)} leaves, more than "
+                         "float32 numbers exactly")
     sizes = np.array([0] + [a.size for _, a in floats])
 
-    def fill(fn):
-        return build(_tree_map(tree, lambda p, a: fn(p, np.asarray(a))
-                               if p in number else a))
+    def numbered(fn):
+        """{name: flat float32 numbers} of build() on the numbered tree
+        (the model itself is freed)."""
+        model = build(_tree_map(tree, lambda p, a: fn(p, np.asarray(a))
+                                if p in number else a))
+        return {name: t.detach().reshape(-1).numpy()
+                for name, t in model.named_parameters()}
 
-    by_element = dict(fill(lambda p, a: np.arange(
-        1, a.size + 1, dtype=np.float64).reshape(a.shape)).named_parameters())
-    by_leaf = dict(fill(lambda p, a: np.full(
-        a.shape, number[p], np.float64)).named_parameters())
+    by_leaf = numbered(lambda p, a: np.full(a.shape, number[p], np.float32))
+    by_element = numbered(lambda p, a: np.arange(
+        1, a.size + 1, dtype=np.float32).reshape(a.shape))
     out = {}
-    for name, t in by_leaf.items():
-        leaf = t.detach().reshape(-1).double().numpy()
-        elem = by_element[name].detach().reshape(-1).double().numpy()
+    for name, leaf in by_leaf.items():
+        elem = by_element.pop(name)
         out[name] = None
         if not (np.isfinite(leaf).all() and np.isfinite(elem).all()
                 and (leaf == np.round(leaf)).all()
                 and (elem == np.round(elem)).all()):
             continue
-        leaf, elem = leaf.astype(np.int64), elem.astype(np.int64) - 1
+        leaf, elem = leaf.astype(np.int32), elem.astype(np.int32) - 1
         if (leaf.size == 0 or leaf.min() < 1 or leaf.max() > len(floats)
                 or elem.min() < 0 or (elem >= sizes[leaf]).any()
-                or np.unique(leaf * _EXACT + elem).size != leaf.size):
+                or np.unique(leaf.astype(np.int64) * _EXACT
+                             + elem).size != leaf.size):
             continue
-        out[name] = [(floats[k - 1][0], np.nonzero(leaf == k)[0],
-                      elem[leaf == k]) for k in np.unique(leaf)]
+        ids = np.unique(leaf)
+        if ids.size == 1:
+            out[name] = [(floats[ids[0] - 1][0], slice(None), elem)]
+        else:
+            out[name] = [(floats[k - 1][0], np.nonzero(leaf == k)[0],
+                          elem[leaf == k]) for k in ids]
     return out
 
 

@@ -106,6 +106,7 @@ constexpr int kMaxHalo = 50;           // (kMaxTaps - 1) * largest dilation (5)
 constexpr int kStagesA = 2;
 constexpr int kStagesB = 3;
 constexpr long long kWaitTrapCycles = 1LL << 32;
+constexpr int kMaxDevices = 64;        // per-device caches of the launchers
 
 template <int TN, int NWG>
 struct Layout {
@@ -603,14 +604,12 @@ int launch(const float* x, const float* wp, const float* bias,
            const float* res, float* out, float* acc, float acc_scale, int B,
            int T, int C, int k, int d, float slope, cudaStream_t stream) {
   using L = Layout<TN, NWG>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mrf_tc_kernel<TN, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L::kBytes);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  // the attribute belongs to the current device: set at every launch (a
+  // host-side call), so a launch on a second card never runs without it
+  const cudaError_t e = cudaFuncSetAttribute(
+      mrf_tc_kernel<TN, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L::kBytes);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((T + L::TM - 1) / L::TM, C / TN, B);
   mrf_tc_kernel<TN, NWG><<<grid, L::kThreads, L::kBytes, stream>>>(
       x, wp, bias, res, out, acc, acc_scale, T, C, k, d, slope);
@@ -968,24 +967,28 @@ int launch_narrow(const float* x, const float* wp, const float* bias,
                   int B, int T, int k, int d, float slope,
                   cudaStream_t stream) {
   using L = NarrowLayout<C, NWG>;
-  static int max_blocks = 0;     // SMs x resident blocks per SM
-  if (max_blocks == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mrf_tc_narrow_kernel<C, NWG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
-    if (e != cudaSuccess) return (int)e;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  // the attribute at every launch (it belongs to the current device); the
+  // grid cap, SMs x resident blocks per SM, cached per device
+  static int max_blocks[kMaxDevices] = {};
+  cudaError_t e = cudaFuncSetAttribute(
+      mrf_tc_narrow_kernel<C, NWG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (max_blocks[dev] == 0) {
+    int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, mrf_tc_narrow_kernel<C, NWG>, L::kThreads, L::kBytes);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    max_blocks = sms * per_sm;
+    max_blocks[dev] = sms * per_sm;
   }
   const long long tiles = (long long)B * ((T + L::TM - 1) / L::TM);
-  const int grid = (int)(tiles < max_blocks ? tiles : max_blocks);
+  const int grid = (int)(tiles < max_blocks[dev] ? tiles : max_blocks[dev]);
   mrf_tc_narrow_kernel<C, NWG><<<grid, L::kThreads, L::kBytes, stream>>>(
       x, wp, bias, res, out, acc, acc_scale, B, T, k, d, slope);
   return (int)cudaGetLastError();

@@ -20,6 +20,7 @@ LMDB read-through caches are supported when the lmdb module is installed
 
 import os
 import pickle
+import threading
 
 import numpy as np
 from scipy.io import wavfile
@@ -257,8 +258,7 @@ class Data:
                 return np.load(prior_path)
             prior = beta_binomial_prior_distribution(
                 n_tokens, n_frames, self.betabinom_scaling_factor)
-            os.makedirs(self.betabinom_cache_path, exist_ok=True)
-            np.save(prior_path, prior)
+            _write_cache(prior_path, np.save, prior)
             return prior
         return beta_binomial_prior_distribution(
             n_tokens, n_frames, self.betabinom_scaling_factor)
@@ -305,10 +305,8 @@ class Data:
                 voiced_mask = dikt["voiced_mask"]
             else:
                 f0, voiced_mask, p_voiced = self.get_f0_pvoiced(audio)
-                if self.betabinom_cache_path:
-                    os.makedirs(self.betabinom_cache_path, exist_ok=True)
-                np.savez(f0_path, f0=f0, voiced_mask=voiced_mask,
-                         p_voiced=p_voiced)
+                _write_cache(f0_path, np.savez, f0=f0,
+                             voiced_mask=voiced_mask, p_voiced=p_voiced)
             f0 = self.f0_normalize(np.asarray(f0, dtype=np.float32))
             if self.distance_tx_unvoiced:
                 from scipy.ndimage import distance_transform_edt
@@ -437,6 +435,17 @@ def data_factory(data_config, files_key, speaker_ids=None):
                 **{k: v for k, v in data_config.items()
                    if k not in ignore_keys},
                 speaker_ids=speaker_ids)
+
+
+def _write_cache(path, save, *args, **kwargs):
+    """save(file, ...) to a temporary file beside path, then renamed onto
+    it: ranks that read one row (the ranks of a model group, every rank's
+    validation) each write its cache, and none reads a half-written one."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "wb") as f:
+        save(f, *args, **kwargs)
+    os.replace(tmp, path)
 
 
 class DataLoader:

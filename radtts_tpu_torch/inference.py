@@ -1,6 +1,7 @@
 """Text -> waveform inference CLI of the PyTorch port: the repository's
 inference.py with the same flags, config JSONs, filelists and output files,
-on one CUDA device (or the CPU with --device cpu).
+on one CUDA device (or the CPU with --device cpu), or on --data_parallel N
+replicas.
 
     python -m radtts_tpu_torch.inference -c CONFIG -r RADTTS_CKPT \\
         -v HIFIGAN_CKPT -k HIFIGAN_CONFIG -t TEXT_FILE -s SPEAKER \\
@@ -19,10 +20,11 @@ conv kernels in bf16, as the JAX CLI's flags do; the vocoder stays fp32.
 the fp32 islands (the text encoder, the inverse 1x1 convs, the STFTs), and
 default also runs the tensor-core MRF in one TF32 pass
 (radtts_tpu_torch/ops/precision.py); highest, the default, is fp32.
-The port runs on one device. A flag the JAX CLI takes for what the port
-does not have is refused with an error, never ignored: --data_parallel
-above 1 (more than one device). --aot_dir (the XLA executable store) is
-accepted and has no effect.
+--data_parallel N splits each batch over N replicas of the model, vocoder
+and denoiser, one on each of the first N CUDA devices (N on the CPU with
+--device cpu), as the JAX CLI shards it over N devices (synthesizer.py);
+fewer visible devices are an error. --aot_dir (the XLA executable store)
+is accepted and has no effect.
 """
 
 import argparse
@@ -40,7 +42,10 @@ def add_port_flags(parser):
     """The flags both CLIs share with the JAX ones that the port handles
     its own way (see refuse_unsupported), and --device."""
     parser.add_argument("--data_parallel", default=1, type=int,
-                        help="refused above 1: the port runs on one device")
+                        help="split each batch over this many replicas, "
+                             "one on each of the first N CUDA devices (N "
+                             "on the CPU with --device cpu); batches pad "
+                             "to a multiple of N")
     parser.add_argument("--weight_dtype", default="auto",
                         choices=["auto", "float32", "bfloat16"],
                         help="bfloat16 stores the RADTTS conv kernels in "
@@ -64,9 +69,8 @@ def add_port_flags(parser):
 def refuse_unsupported(parser, args):
     """parser.error (exit 2) on a flag the port cannot honour; one line
     for --aot_dir, which has no effect."""
-    if args.data_parallel > 1:
-        parser.error("--data_parallel > 1 is not supported: the port runs "
-                     "on one device")
+    if args.data_parallel < 1:
+        parser.error(f"--data_parallel {args.data_parallel}: at least 1")
     if args.aot_dir:
         print(f"--aot_dir {args.aot_dir}: no effect (XLA only)", flush=True)
 
@@ -215,7 +219,8 @@ def main(argv=None):
         f0_mean=args.f0_mean, f0_std=args.f0_std,
         energy_mean=args.energy_mean, energy_std=args.energy_std,
         use_amp=args.use_amp, weight_dtype=args.weight_dtype,
-        matmul_precision=args.matmul_precision, device=args.device)
+        matmul_precision=args.matmul_precision,
+        data_parallel=args.data_parallel, device=args.device)
     print(f"Loaded checkpoint '{args.radtts_path}'")
     return infer(synth, lines_to_list(args.text_path), args.speaker,
                  args.speaker_text, args.speaker_attributes, args.sigma,

@@ -15,9 +15,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from radtts_tpu_torch.ops.amp import cast_in, cast_out
-from radtts_tpu_torch.ops.conv import ConvNorm
+from radtts_tpu_torch.ops.conv import ConvNorm, conv1d
 from radtts_tpu_torch.ops.invertible import scaling_and_log_s
 from radtts_tpu_torch.ops.splines import spline_transform
+from radtts_tpu_torch.parallel import collectives
 
 
 class SimpleConvNet(nn.Module):
@@ -60,9 +61,17 @@ class SimpleConvNet(nn.Module):
 
 
 class WN(nn.Module):
-    """The non-gated WaveNet predictor; a bf16 region when `amp`."""
+    """The non-gated WaveNet predictor; a bf16 region when `amp`.
+
+    With `tp` (a parallel.mesh.ModelShard, set by parallel.shard_model)
+    it holds its rank's slice of the hidden channels: start, in_layers and
+    res_skip compute theirs from the whole input (weight norm per output
+    channel, so local), and end contracts them into a partial sum, reduced
+    over the model group before its bias is added (the JAX package's
+    tensor-parallel WN, radtts_tpu/parallel/mesh.py)."""
 
     amp = False
+    tp = None
 
     def __init__(self, n_in, n_context, n_layers, n_channels, kernel_size=5,
                  factored=False):
@@ -81,12 +90,28 @@ class WN(nn.Module):
     def forward(self, z, context, mask=None, affine_activation="softplus",
                 use_partial_padding=True):
         act = F.softplus if affine_activation == "softplus" else torch.relu
+        if self.tp is not None:
+            return self._forward_sharded(z, context, mask, act,
+                                         use_partial_padding)
         z = self.start(cast_in(torch.cat([z, context], dim=-1), self.amp))
         output = torch.zeros_like(z)
         for in_layer, res_skip in zip(self.in_layers, self.res_skip):
             z = act(in_layer(z, mask, use_partial_padding))
             output = output + act(res_skip(z))
         return cast_out(self.end(output), self.amp)
+
+    def _forward_sharded(self, z, context, mask, act, use_partial_padding):
+        tp = self.tp
+        x = collectives.copy_to_group(
+            cast_in(torch.cat([z, context], dim=-1), self.amp), tp)
+        h = collectives.gather(self.start(x), tp)
+        output = 0.0
+        for in_layer, res_skip in zip(self.in_layers, self.res_skip):
+            h = collectives.gather(act(in_layer(h, mask, use_partial_padding)),
+                                   tp)
+            output = output + act(res_skip(h))
+        y = collectives.reduce(conv1d(output, self.end.weight), tp)
+        return cast_out(y + self.end.bias.to(y.dtype), self.amp)
 
 
 class AffineCoupling(nn.Module):

@@ -455,6 +455,48 @@ def fold_radtts(model):
 # ---------------------------------------------------------------------------
 
 
+def duration_noise(model, B, N, sigma_dur, generator, device):
+    """infer_durations' noise: z_dur (B, N, 1) from generator times
+    sigma_dur for a flow duration model, None for the DAP."""
+    if model.dur_pred_layer.name == "dap":
+        return None
+    return torch.randn(B, N, 1, generator=generator, device=device) \
+        * sigma_dur
+
+
+def infer_noise(model, B, max_frames, *, sigma, sigma_f0, sigma_energy,
+                generator, device, z_f0=None, z_energy=None, residual=None,
+                f0=None, energy_avg=None):
+    """radtts_infer's noise, each one not given drawn from generator in
+    this order: z_f0 then z_energy (B, max_frames, 2 with first-order
+    features else 1) times sigma_f0 / sigma_energy where a flow attribute
+    model (BGAP, AGAP; a DAP draws none) predicts the feature (f0 /
+    energy_avg not given), then the decoder's residual (B, max_frames/g,
+    n_mel*g) times sigma. Returns (z_f0, z_energy, residual)."""
+    meta = model.meta
+
+    def draw(shape, sig):
+        return torch.randn(*shape, generator=generator, device=device) * sig
+
+    if not is_attribute_unconditional(meta):
+        n_ch = 2 if meta["use_first_order_features"] else 1
+        for name, given, z, sig in (
+                ("f0_pred_module", f0, z_f0, sigma_f0),
+                ("energy_pred_module", energy_avg, z_energy, sigma_energy)):
+            if (given is None and z is None
+                    and getattr(model, name).name != "dap"):
+                z = draw((B, max_frames, n_ch), sig)
+            if name == "f0_pred_module":
+                z_f0 = z
+            else:
+                z_energy = z
+    if residual is None:
+        g = meta["n_group_size"]
+        residual = draw((B, max_frames // g, meta["n_mel_channels"] * g),
+                        sigma)
+    return z_f0, z_energy, residual
+
+
 def infer_durations(model, speaker_id_text, text, token_dur_scaling=1.0,
                     token_duration_max=100, in_lens=None, *, sigma_dur=0.8,
                     z_dur=None, generator=None):
@@ -468,9 +510,9 @@ def infer_durations(model, speaker_id_text, text, token_dur_scaling=1.0,
     txt_enc, _ = encode_text(model, text, in_lens)
     B, N = text.shape
     dur_model = model.dur_pred_layer
-    if dur_model.name != "dap" and z_dur is None:
-        z_dur = torch.randn(B, N, 1, generator=generator,
-                            device=txt_enc.device) * sigma_dur
+    if z_dur is None:
+        z_dur = duration_noise(model, B, N, sigma_dur, generator,
+                               txt_enc.device)
     dur = attribute_model_infer(dur_model, txt_enc, spk_vec_text, in_lens,
                                 z=z_dur)[..., 0]
     g_dur = getattr(dur_model, "n_group_size", 1)
@@ -570,6 +612,11 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
     spk_vec_attrs = (spk_vec if speaker_id_attributes is None
                      else encode_speaker(model, speaker_id_attributes))
     txt_enc, _ = encode_text(model, text, in_lens)
+    z_f0, z_energy, residual = infer_noise(
+        model, B, max_frames, sigma=sigma, sigma_f0=sigma_f0,
+        sigma_energy=sigma_energy, generator=generator,
+        device=txt_enc.device, z_f0=z_f0, z_energy=z_energy,
+        residual=residual, f0=f0, energy_avg=energy_avg)
 
     out_lens = dur.sum(1)
     txt_enc_time_expanded = regulate_length(txt_enc, dur, max_frames)
@@ -591,15 +638,6 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
             f0_bias = _unvoiced_bias(model, txt_enc_time_expanded,
                                      voiced_mask)
 
-        n_ch = 2 if meta["use_first_order_features"] else 1
-
-        def noise(attr_model, z, sig):
-            # a DAP is deterministic and draws none
-            if z is None and attr_model.name != "dap":
-                z = torch.randn(B, max_frames, n_ch, generator=generator,
-                                device=txt_enc.device) * sig
-            return z
-
         f0_mod, e_mod = model.f0_pred_module, model.energy_pred_module
         if (f0 is None and energy_avg is None
                 and getattr(f0_mod, "name", None) == "agap"
@@ -609,17 +647,14 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
             # scans in one launch; the noise drawn in the same order
             # (energy takes spk_vec, not spk_vec_attrs, as in the JAX
             # package)
-            zs = [noise(f0_mod, z_f0, sigma_f0),
-                  noise(e_mod, z_energy, sigma_energy)]
             f0_raw, e_raw = agap_infer_multi(
-                [f0_mod, e_mod], zs, [ap_txt_enc, ap_txt_enc],
+                [f0_mod, e_mod], [z_f0, z_energy], [ap_txt_enc, ap_txt_enc],
                 [spk_vec_attrs, spk_vec], out_lens)
             f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
             energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
         if f0 is None:
             f0_raw = attribute_model_infer(
-                f0_mod, ap_txt_enc, spk_vec_attrs, out_lens,
-                z=noise(f0_mod, z_f0, sigma_f0))
+                f0_mod, ap_txt_enc, spk_vec_attrs, out_lens, z=z_f0)
             f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
         if f0_mean > 0.0:
             f0 = renormalize_f0(f0, voiced_mask, f0_mean, f0_std,
@@ -627,8 +662,7 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
         if energy_avg is None:
             # energy takes spk_vec, not spk_vec_attrs, as in the JAX package
             e_raw = attribute_model_infer(
-                e_mod, ap_txt_enc, spk_vec, out_lens,
-                z=noise(e_mod, z_energy, sigma_energy))
+                e_mod, ap_txt_enc, spk_vec, out_lens, z=z_energy)
             energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
 
         if meta["decoder_use_unvoiced_bias"]:
@@ -641,12 +675,7 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
         ctx = preprocess_context(model, txt_enc_time_expanded, spk_vec,
                                  out_lens)
 
-    n_mel = meta["n_mel_channels"]
     Tg = max_frames // g
-    if residual is None:
-        residual = torch.randn(B, Tg, n_mel * g, generator=generator,
-                               device=txt_enc.device) * sigma
-
     exit_stack = list(meta["exit_steps"])
     n_early = meta["n_early_size"]
     mel_g = residual[..., len(exit_stack) * n_early:]

@@ -280,7 +280,8 @@ def ar_scan_cuda(params, residual, context_proj, blocks=None):
     weights, offsets = pack(params)
     icfg, fcfg, n_scratch, kmax, nq = config(params, offsets, B, T, C, H)
     smem = _lib.radtts_ar_scan_smem_bytes(B, C, kmax, nq)
-    limit = _lib.radtts_ar_scan_max_blocks(smem)
+    with torch.cuda.device(dev):    # the attribute and occupancy: dev's
+        limit = _lib.radtts_ar_scan_max_blocks(smem)
     if limit < 1:
         raise ValueError(f"ar_scan: B={B} needs {smem} bytes of shared "
                          "memory a block, more than a block can take")
@@ -296,12 +297,12 @@ def ar_scan_cuda(params, residual, context_proj, blocks=None):
     barrier = torch.zeros(2, dtype=torch.int32, device=dev)
     icfg_c = (ctypes.c_int * len(icfg))(*icfg)
     fcfg_c = (ctypes.c_float * 4)(*fcfg)
-    err = _lib.radtts_ar_scan(
-        weights.data_ptr(), residual.data_ptr(), context_proj.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), barrier.data_ptr(),
-        ctypes.addressof(icfg_c),
-        ctypes.addressof(fcfg_c), blocks,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = _lib.radtts_ar_scan(
+            weights.data_ptr(), residual.data_ptr(), context_proj.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), barrier.data_ptr(),
+            ctypes.addressof(icfg_c), ctypes.addressof(fcfg_c), blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ar_scan: kernel launch failed with cudaError "
                            f"{err} (B={B}, T={T}, C={C}, H={H}, "
@@ -623,12 +624,13 @@ def _launch_resident(launch, problems, trace=None):
     icfg_c = (ctypes.c_int * len(icfg))(*icfg)
     fcfg_c = (ctypes.c_float * len(fcfg))(*fcfg)
     ptrs_c = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    err = _lib.radtts_ar_scan_resident(
-        ctypes.addressof(icfg_c), ctypes.addressof(fcfg_c),
-        ctypes.addressof(ptrs_c), len(problems), launch["blocks"],
-        launch["smem"], item_group(max(p["B"] for p in launch["plans"])),
-        None if trace is None else trace.data_ptr(), 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = _lib.radtts_ar_scan_resident(
+            ctypes.addressof(icfg_c), ctypes.addressof(fcfg_c),
+            ctypes.addressof(ptrs_c), len(problems), launch["blocks"],
+            launch["smem"], item_group(max(p["B"] for p in launch["plans"])),
+            None if trace is None else trace.data_ptr(), 0,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"ar_scan: resident kernel launch failed with cudaError {err} "
@@ -760,9 +762,11 @@ def handoff_probe(n_phases, T, mode, blocks, smem, device):
     if _lib is None:
         build()
     counters = torch.zeros(2 + n_phases, dtype=torch.int32, device=device)
-    err = _lib.radtts_handoff_probe(
-        counters.data_ptr(), n_phases, T, {"handoff": 0, "barrier": 1}[mode],
-        blocks, smem, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        err = _lib.radtts_handoff_probe(
+            counters.data_ptr(), n_phases, T,
+            {"handoff": 0, "barrier": 1}[mode], blocks, smem,
+            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"handoff_probe: launch failed with cudaError "
                            f"{err}")

@@ -124,9 +124,10 @@ def mas_cuda(attn, out_lens, in_lens, route=None):
         scratch = torch.empty(1 if smem > 0 else B * T * N,
                               dtype=torch.uint8, device=dev)
         fn = _lib.radtts_mas
-    err = fn(attn.data_ptr(), out_l.data_ptr(), in_l.data_ptr(),
-             out.data_ptr(), scratch.data_ptr(), B, T, N,
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(attn.data_ptr(), out_l.data_ptr(), in_l.data_ptr(),
+                 out.data_ptr(), scratch.data_ptr(), B, T, N,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mas: {route} kernel launch failed with "
                            f"cudaError {err} (B={B}, T={T}, N={N})")

@@ -129,11 +129,12 @@ def _launch(audio, kw):
         audio.device, n_fft, kw["win_length"], kw["sampling_rate"], n_mels,
         kw["mel_fmin"], kw["mel_fmax"])
     out = torch.empty(B, 1 + n // hop, n_mels, device=audio.device)
-    err = _lib.radtts_mel(
-        audio.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
-        fb.data_ptr(), ranges.data_ptr(), out.data_ptr(), B, n, n_fft, hop,
-        n_mels, fb.numel(), CLIP_VAL,
-        torch.cuda.current_stream(audio.device).cuda_stream)
+    with torch.cuda.device(audio.device):
+        err = _lib.radtts_mel(
+            audio.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
+            fb.data_ptr(), ranges.data_ptr(), out.data_ptr(), B, n, n_fft,
+            hop, n_mels, fb.numel(), CLIP_VAL,
+            torch.cuda.current_stream(audio.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mel: kernel launch failed with cudaError {err} "
                            f"(B={B}, n={n}, n_fft={n_fft})")

@@ -325,9 +325,10 @@ def _raise(err, x, k, d):
 def _conv_launch(x, w, b, d, res, out, acc, acc_scale):
     B, T, C = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib.radtts_mrf_conv(
-        _ptr(x), _ptr(w), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
-        acc_scale, B, T, C, w.shape[0], d, LRELU_SLOPE, stream)
+    with torch.cuda.device(x.device):
+        err = _lib.radtts_mrf_conv(
+            _ptr(x), _ptr(w), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
+            acc_scale, B, T, C, w.shape[0], d, LRELU_SLOPE, stream)
     if err != 0:
         _raise(err, x, w.shape[0], d)
     mrf.launches += 1
@@ -337,9 +338,10 @@ def _tc_conv_launch(x, wp, k, b, d, res, out, acc, acc_scale, tile,
                     passes):
     B, T, C = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _tc_libs[passes].radtts_mrf_tc_conv(
-        _ptr(x), _ptr(wp), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
-        acc_scale, B, T, C, k, d, LRELU_SLOPE, *tile, stream)
+    with torch.cuda.device(x.device):
+        err = _tc_libs[passes].radtts_mrf_tc_conv(
+            _ptr(x), _ptr(wp), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
+            acc_scale, B, T, C, k, d, LRELU_SLOPE, *tile, stream)
     if err != 0:
         _raise(err, x, k, d)
     count = _TC_COUNTS[passes]
@@ -350,9 +352,10 @@ def _stack_launch(x, packed, ks, out, tile):
     B, T, C = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     k_args = list(ks) + [0] * (STACK_MAX_RESBLOCKS - len(ks))
-    err = _stack_lib.radtts_mrf_stack(
-        _ptr(x), _ptr(packed), _ptr(out), B, T, C, tile, *k_args, len(ks),
-        LRELU_SLOPE, stream)
+    with torch.cuda.device(x.device):
+        err = _stack_lib.radtts_mrf_stack(
+            _ptr(x), _ptr(packed), _ptr(out), B, T, C, tile, *k_args,
+            len(ks), LRELU_SLOPE, stream)
     if err != 0:
         _raise(err, x, max(ks), DILATIONS)
     mrf.stack_launches += 1

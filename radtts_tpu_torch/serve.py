@@ -1,11 +1,12 @@
 """Warm-model TTS serving daemon of the PyTorch port: the repository's
 serve.py (same flags, routes and request JSON) on one CUDA device (or the
-CPU with --device cpu). The model loads once; each HTTP request is served
-off it.
+CPU with --device cpu), or with --data_parallel N on N replicas, one on
+each of the first N CUDA devices, that split each synthesize call's batch
+(inference.py). The model loads once; each HTTP request is served off it.
 
     python -m radtts_tpu_torch.serve -c CONFIG -r RADTTS_CKPT \\
         -v HIFIGAN_CKPT -k HIFIGAN_CONFIG -s SPEAKER [--port 8008] \\
-        [--batch_wait_ms 5] [--warm] [--device cpu]
+        [--batch_wait_ms 5] [--warm] [--data_parallel 2] [--device cpu]
 
 API (stdlib http.server):
   GET  /healthz         -> {"ok": true, "model": ..., "requests": N,
@@ -358,9 +359,10 @@ def build_server(argv=None):
         energy_mean=args.energy_mean, energy_std=args.energy_std,
         bucket_single=True, use_amp=args.use_amp,
         weight_dtype=args.weight_dtype,
-        matmul_precision=args.matmul_precision, device=args.device)
-    print(f"[serve] loaded '{args.radtts_path}' on {synth.device}",
-          flush=True)
+        matmul_precision=args.matmul_precision,
+        data_parallel=args.data_parallel, device=args.device)
+    print(f"[serve] loaded '{args.radtts_path}' on "
+          f"{', '.join(map(str, synth.devices))}", flush=True)
 
     defaults = {"sigma": args.sigma, "sigma_tkndur": args.sigma_tkndur,
                 "sigma_f0": args.sigma_f0, "sigma_energy": args.sigma_energy,

@@ -1,5 +1,6 @@
 """Warm-model text->waveform synthesis engine: durations -> attributes ->
-inverse flow -> vocoder -> denoiser, on one device.
+inverse flow -> vocoder -> denoiser, on one device or, with
+data_parallel=N, on N replicas.
 
 Entry points run on the card by default: `device=None` means CUDA and
 raises when CUDA is absent; pass device="cpu" to run the plain path.
@@ -16,6 +17,19 @@ runs every synthesis inside ops/precision.py:scope (TF32 in cuBLAS and
 cuDNN outside the fp32 islands; "default" also the one-pass tensor-core
 MRF). The precision is the Synthesizer's, applied per call: loading,
 which pins fp32 through resolve_device, does not undo it.
+
+data_parallel=N (the JAX engine's, radtts_tpu/synthesizer.py:144-167)
+holds one replica of the model, vocoder and denoiser on each of N devices
+(`devices`, default the first N CUDA devices, or N times the CPU with
+device="cpu"; replicas on one device share its modules) and raises
+ValueError when fewer devices are visible. A request pads its batch to a
+multiple of N by repeating the last text and returns only the requested
+wavs. Each replica takes its rows: the durations come from each replica's
+rows, the frame budget from the whole batch. All noise is drawn once for
+the padded batch from the Synthesizer's one generator, in the order
+data_parallel=1 draws it, and each replica takes its slice, so an
+exact-multiple batch gives data_parallel=1's audio. Each replica's work is
+queued on its device before any result is gathered.
 """
 
 import copy
@@ -26,7 +40,8 @@ import torch
 
 from radtts_tpu_torch.data.dataset import data_factory
 from radtts_tpu_torch.models.hifigan import denoiser_apply
-from radtts_tpu_torch.models.radtts import infer_durations, radtts_infer
+from radtts_tpu_torch.models.radtts import (duration_noise, infer_durations,
+                                            infer_noise, radtts_infer)
 from radtts_tpu_torch.ops import amp, precision
 from radtts_tpu_torch.ops.fold_norms import store_conv_weights
 from radtts_tpu_torch.text.chunking import split_text_to_chunks
@@ -52,6 +67,32 @@ def resolve_device(device=None):
     return torch.device(device)
 
 
+def replica_devices(data_parallel, devices=None, device=None):
+    """The devices of data_parallel replicas: `devices` as given (N of
+    them), else [device] at N = 1, N times the CPU for device "cpu", or
+    the first N CUDA devices, raising ValueError when fewer are visible
+    (the JAX engine's check)."""
+    n = int(data_parallel)
+    if n < 1:
+        raise ValueError(f"data_parallel={n}: at least 1")
+    if devices is not None:
+        devices = [resolve_device(d) for d in devices]
+        if len(devices) != n:
+            raise ValueError(f"data_parallel={n} but {len(devices)} "
+                             "devices were given")
+        return devices
+    device = resolve_device(device)
+    if n == 1:
+        return [device]
+    if device.type == "cpu":
+        return [device] * n
+    visible = torch.cuda.device_count()
+    if visible < n:
+        raise ValueError(f"data_parallel={n} but only {visible} devices "
+                         "are visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 class Synthesizer:
     """One loaded model + vocoder + denoiser; `synthesize()` per request
     batch. Built from checkpoint files, or by `from_parts` from modules in
@@ -62,14 +103,15 @@ class Synthesizer:
                  token_duration_max=100, f0_mean=0.0, f0_std=0.0,
                  energy_mean=0.0, energy_std=0.0, bucket_single=False,
                  use_amp=False, weight_dtype="auto", matmul_precision=None,
-                 device=None):
+                 data_parallel=1, devices=None, device=None):
         """Load the HiFi-GAN checkpoint and its JSON config, the RADTTS
         checkpoint (a reference state dict or the JAX package's .npz) and
         the speaker table and text frontend of config's training
         filelists, then set up as from_parts does."""
         model_config = config["model_config"]
         data_config = config["data_config"]
-        device = resolve_device(device)
+        devices = replica_devices(data_parallel, devices, device)
+        device = devices[0]
         tic = time.perf_counter()
         vocoder, denoiser = load_vocoder(vocoder_path, vocoder_config_path,
                                          device=device)
@@ -89,7 +131,7 @@ class Synthesizer:
             f0_std=f0_std, energy_mean=energy_mean, energy_std=energy_std,
             bucket_single=bucket_single, use_amp=use_amp,
             weight_dtype=weight_dtype, matmul_precision=matmul_precision,
-            device=device)
+            devices=devices)
         self.trainset = trainset
         self.load_phases = {"vocoder": t_voc - tic,
                             "checkpoint": t_ck - t_voc,
@@ -105,11 +147,12 @@ class Synthesizer:
                    token_duration_max=100, f0_mean=0.0, f0_std=0.0,
                    energy_mean=0.0, energy_std=0.0, bucket_single=False,
                    use_amp=False, weight_dtype="auto", matmul_precision=None,
-                   device=None):
+                   data_parallel=1, devices=None, device=None):
         """Build from in-memory modules (no checkpoint files).
         `encode_fn(text) -> int array`; `speaker_id_fn(name) -> int`.
-        The modules are moved to `device`; with bf16 weights the model is
-        copied first, so the caller's keeps its fp32 kernels."""
+        The modules are moved to `device` (the first replica's, with
+        data_parallel; the others get copies); with bf16 weights the model
+        is copied first, so the caller's keeps its fp32 kernels."""
         self = object.__new__(cls)
         self.trainset = None
         self._setup(model_config, model, vocoder, denoiser,
@@ -121,15 +164,17 @@ class Synthesizer:
                     energy_std=energy_std, bucket_single=bucket_single,
                     use_amp=use_amp, weight_dtype=weight_dtype,
                     matmul_precision=matmul_precision,
-                    device=resolve_device(device))
+                    devices=replica_devices(data_parallel, devices, device))
         return self
 
     def _setup(self, model_config, model, vocoder, denoiser, *, encode_fn,
                speaker_id_fn, sampling_rate, hop_length, seed,
                token_dur_scaling, token_duration_max, f0_mean, f0_std,
                energy_mean, energy_std, bucket_single, use_amp,
-               weight_dtype, matmul_precision, device):
-        self.device = device
+               weight_dtype, matmul_precision, devices):
+        self.devices = list(devices)
+        self.data_parallel = len(self.devices)
+        self.device = self.devices[0]
         self.matmul_precision = precision.check(matmul_precision)
         self.use_amp = bool(use_amp)
         self.weight_dtype = self.resolve_weight_dtype(weight_dtype)
@@ -149,11 +194,21 @@ class Synthesizer:
         tic = time.perf_counter()
         if self.weight_dtype == "bfloat16":
             model = store_conv_weights(copy.deepcopy(model))
-        self.model = model.to(self.device).eval()
-        self.vocoder = vocoder.to(self.device).eval()
-        self.denoiser = denoiser.to(self.device).eval()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.replicas = []   # (device, model, vocoder, denoiser)
+        for dev in self.devices:
+            same = [r for r in self.replicas if r[0] == dev]
+            if same:
+                self.replicas.append(same[0])
+                continue
+            parts = (model, vocoder, denoiser)
+            if self.replicas:
+                parts = copy.deepcopy(parts)
+            self.replicas.append((dev,) + tuple(m.to(dev).eval()
+                                                for m in parts))
+        _, self.model, self.vocoder, self.denoiser = self.replicas[0]
+        for dev in set(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         self.load_phases = {"to_device": time.perf_counter() - tic}
         self._encode_fn = encode_fn
         self._speaker_id_fn = speaker_id_fn
@@ -185,6 +240,13 @@ class Synthesizer:
         with precision.scope(self.matmul_precision):
             return self._synthesize(texts, speaker, **kwargs)
 
+    def _shards(self, B):
+        """(replica, row slice) of each replica for a batch of B rows (a
+        multiple of data_parallel)."""
+        n = B // self.data_parallel
+        return [(r, slice(i * n, (i + 1) * n))
+                for i, r in enumerate(self.replicas)]
+
     @torch.inference_mode()
     def _synthesize(self, texts, speaker, *, speaker_text=None,
                    speaker_attributes=None, sigma=0.8, sigma_tkndur=0.666,
@@ -199,10 +261,15 @@ class Synthesizer:
         sigma_f0 and sigma_energy scale the noise that flow attribute
         models (BGAP, AGAP) sample durations, f0 and energy from. A DAP
         is deterministic and takes no noise: with DAPs they change
-        nothing, as in the JAX engine."""
+        nothing, as in the JAX engine. With data_parallel (see the
+        module's docstring) the batch is split over the replicas."""
         if isinstance(texts, str):
             texts = [texts]
         encs = [self.encode(t) for t in texts]
+        B_real = len(encs)
+        if B_real % self.data_parallel:
+            encs = encs + [encs[-1]] * (self.data_parallel
+                                        - B_real % self.data_parallel)
         B = len(encs)
         lens = np.array([len(e) for e in encs], np.int64)
         if B == 1 and not self.bucket_single:
@@ -219,13 +286,24 @@ class Synthesizer:
         spk = self._ids(None, sid, B)
         spk_text = self._ids(speaker_text, sid, B)
         spk_attr = self._ids(speaker_attributes, sid, B)
+        shards = self._shards(B)
 
-        with amp.scope(self.model, self.use_amp):
-            dur = infer_durations(
-                self.model, spk_text, text_b,
-                token_dur_scaling=self.token_dur_scaling,
-                token_duration_max=self.token_duration_max, in_lens=in_lens,
-                sigma_dur=sigma_tkndur, generator=self.generator)
+        def part(t, rows, dev):
+            return None if t is None else t[rows].to(dev, non_blocking=True)
+
+        z_dur = duration_noise(self.model, B, N, sigma_tkndur, self.generator,
+                               self.device)
+        durs = []
+        for (dev, model, _, _), rows in shards:
+            with amp.scope(model, self.use_amp):
+                durs.append(infer_durations(
+                    model, part(spk_text, rows, dev),
+                    part(text_b, rows, dev),
+                    token_dur_scaling=self.token_dur_scaling,
+                    token_duration_max=self.token_duration_max,
+                    in_lens=part(in_lens, rows, dev),
+                    z_dur=part(z_dur, rows, dev)))
+        dur = torch.cat([d.to(self.device) for d in durs])
         totals = dur.sum(1).cpu().numpy()
         if (totals < 1).any():  # untrained/degenerate duration guard
             valid = np.arange(N)[None, :] < lens[:, None]
@@ -234,30 +312,40 @@ class Synthesizer:
                                         device=self.device)
             totals = dur.sum(1).cpu().numpy()
         max_frames = frame_budget(totals.max(), self.group_size)
-        with amp.scope(self.model, self.use_amp):
-            out = radtts_infer(
-                self.model, spk, text_b, sigma, max_frames, dur=dur,
-                sigma_f0=sigma_f0, sigma_energy=sigma_energy,
-                speaker_id_attributes=spk_attr, f0_mean=self.f0_mean,
-                f0_std=self.f0_std, in_lens=in_lens,
-                generator=self.generator)
-        # replicate the last valid frame into the padding so the vocoder's
-        # receptive field sees no garbage at the boundary
+        z_f0, z_energy, residual = infer_noise(
+            self.model, B, max_frames, sigma=sigma, sigma_f0=sigma_f0,
+            sigma_energy=sigma_energy, generator=self.generator,
+            device=self.device)
         total = torch.as_tensor(totals, device=self.device)
         t = torch.arange(max_frames, device=self.device)
         idx = torch.minimum(t[None, :], total[:, None] - 1)
-        mel = torch.gather(out["mel"], 1,
-                           idx[:, :, None].expand(-1, -1,
-                                                  out["mel"].shape[2]))
-        audio = denoiser_apply(self.denoiser, self.vocoder(mel),
-                               strength=denoising_strength)
-        audio = audio.cpu().numpy()
+        outs, audios = [], []
+        for (dev, model, vocoder, denoiser), rows in shards:
+            with amp.scope(model, self.use_amp):
+                out = radtts_infer(
+                    model, part(spk, rows, dev), part(text_b, rows, dev),
+                    sigma, max_frames, dur=part(dur, rows, dev),
+                    speaker_id_attributes=part(spk_attr, rows, dev),
+                    f0_mean=self.f0_mean, f0_std=self.f0_std,
+                    in_lens=part(in_lens, rows, dev),
+                    z_f0=part(z_f0, rows, dev),
+                    z_energy=part(z_energy, rows, dev),
+                    residual=part(residual, rows, dev))
+            # replicate the last valid frame into the padding so the
+            # vocoder's receptive field sees no garbage at the boundary
+            mel = torch.gather(out["mel"], 1, part(idx, rows, dev)[
+                :, :, None].expand(-1, -1, out["mel"].shape[2]))
+            audios.append(denoiser_apply(denoiser, vocoder(mel),
+                                         strength=denoising_strength))
+            outs.append(out)
+        audio = np.concatenate([a.cpu().numpy() for a in audios])
         wavs = [audio[j, : int(totals[j]) * self.hop_length] if trim
-                else audio[j] for j in range(B)]
-        aux = {"dur": dur.cpu().numpy(), "n_frames": totals}
+                else audio[j] for j in range(B_real)]
+        aux = {"dur": dur.cpu().numpy()[:B_real], "n_frames": totals[:B_real]}
         for k in ("f0", "energy_avg"):  # absent on attribute-less configs
-            if out[k] is not None:
-                aux[k] = out[k].cpu().numpy()
+            if outs[0][k] is not None:
+                aux[k] = np.concatenate([o[k].cpu().numpy()
+                                         for o in outs])[:B_real]
         return wavs, aux
 
     def synthesize_long(self, text, speaker, *, max_tokens, gap_ms=120.0,

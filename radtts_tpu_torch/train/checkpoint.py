@@ -19,7 +19,10 @@ The port's own training checkpoint (train/trainer.py) is a torch.save of
 {"model": the training-form state dict, "optimizer", "iteration",
 "learning_rate"} at OUT/model_<iteration>, with no
 extension; it serves after its norms are folded (models/radtts.py:
-fold_radtts), resumes, and warm-starts.
+fold_radtts), resumes, and warm-starts. A tensor-parallel run writes the
+single-process layout and loads files whole before it shards the model
+(parallel.shard_model), so resume and warm start read every format into a
+sharded run unchanged.
 """
 
 import json
@@ -151,12 +154,16 @@ def load_radtts_for_inference(path, model_config):
     return radtts_from_jax(params, model_config), meta
 
 
-def save_train_checkpoint(path, model, optimizer, iteration, learning_rate):
-    """The port's training checkpoint (see the module's docstring)."""
+def save_train_checkpoint(path, model_state, optimizer_state, iteration,
+                          learning_rate):
+    """The port's training checkpoint (see the module's docstring) from
+    the model's and the optimizer's state dicts, which a tensor-parallel
+    run gathers into the single-process layout first
+    (parallel.full_train_state), so every file loads in one process."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict(),
+    torch.save({"model": model_state,
+                "optimizer": optimizer_state,
                 "iteration": int(iteration),
                 "learning_rate": float(learning_rate)}, tmp)
     os.replace(tmp, path)

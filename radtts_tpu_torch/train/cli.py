@@ -18,9 +18,16 @@ there. With vocoder_checkpoint_path and vocoder_config_path naming files,
 each validation writes audio samples (log_decoder_samples,
 log_attribute_samples) to the logs.
 
-Options the port does not have yet are refused with an error, never
-ignored: dist_config.n_model above 1 and WORLD_SIZE above 1 (ROADMAP.md
-A8).
+More than one device (parallel/mesh.py): launch WORLD_SIZE processes with
+RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT (and LOCAL_RANK) in their
+environment, as torchrun or the reference's torch.distributed.launch
+--use_env set them; each rank runs on cuda:(LOCAL_RANK % device_count),
+or the CPU with --device cpu. The ranks form a (WORLD_SIZE / n_model,
+n_model) mesh: data parallelism over the first axis, each data rank
+loading train_config.batch_size rows, and with -p dist_config.n_model=N
+tensor parallelism over the decoder WNs' channels on the second. Errors,
+as the JAX trainer's asserts: an n_model that does not divide WORLD_SIZE,
+a batch_size that the data axis does not divide.
 """
 
 import argparse
@@ -39,19 +46,23 @@ def _flag(value):
 
 
 def refusal(config):
-    """The error for the first option the port does not have, or None."""
+    """The error for the first option the port does not have or the
+    first layout the JAX trainer asserts against, or None."""
     tc = config["train_config"]
     if str(tc.get("optim_state_dtype") or "float32") not in ("float32",
                                                               "bfloat16"):
         return (f"train_config.optim_state_dtype="
                 f"{tc['optim_state_dtype']} is not supported: float32 or "
                 "bfloat16")
-    if int(config.get("dist_config", {}).get("n_model", 1)) > 1:
-        return ("dist_config.n_model > 1 (tensor parallelism) is not "
-                "supported: the port trains on one device (ROADMAP.md A8)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        return ("WORLD_SIZE > 1 (data parallelism) is not supported: the "
-                "port trains on one device (ROADMAP.md A8)")
+    n_model = int(config.get("dist_config", {}).get("n_model", 1))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if n_model < 1 or world % n_model:
+        return (f"dist_config.n_model={n_model} does not divide "
+                f"WORLD_SIZE={world}")
+    n_data = world // n_model
+    if n_data > 1 and int(tc["batch_size"]) % n_data:
+        return (f"train_config.batch_size={tc['batch_size']} is not "
+                f"divisible by {n_data} data shards")
     return None
 
 
@@ -61,7 +72,8 @@ def build_parser():
                     help="JSON file for configuration")
     ap.add_argument("-p", "--params", nargs="+", default=[])
     ap.add_argument("--device", type=str, default=None,
-                    help="torch device; CUDA when not given")
+                    help="torch device; CUDA when not given (with "
+                         "WORLD_SIZE > 1, cuda:LOCAL_RANK)")
     return ap
 
 
@@ -83,4 +95,20 @@ def main(argv=None):
         parser.error(error)
     tc = dict(config["train_config"],
               use_amp=_flag(config["train_config"].get("use_amp", False)))
-    return train(config, device=args.device, **tc)
+    n_model = int(config.get("dist_config", {}).get("n_model", 1))
+    if int(os.environ.get("WORLD_SIZE", "1")) == 1:
+        return train(config, device=args.device, **tc)
+    import torch.distributed as dist
+
+    from radtts_tpu_torch.parallel.mesh import (init_distributed,
+                                                launch_env, local_device)
+    from radtts_tpu_torch.synthesizer import resolve_device
+
+    device = resolve_device(args.device)
+    if args.device is None:
+        device = local_device(launch_env()[2])
+    mesh = init_distributed(device, n_model)
+    try:
+        return train(config, device=device, mesh=mesh, **tc)
+    finally:
+        dist.destroy_process_group()

@@ -19,6 +19,7 @@ to bf16, as the JAX package does (radtts_tpu/train/optim.py:72-74,
 
 import numpy as np
 import torch
+import torch.distributed
 
 
 def _scalar(x):
@@ -145,15 +146,28 @@ class Adam(_Moments):
             self._store(params, ms, vs)
 
 
-def clip_grad_norm(params, max_norm):
+def clip_grad_norm(params, max_norm, sharded=(), group=None):
     """optax.clip_by_global_norm: scale every gradient by max_norm / norm
     when the global norm is at least max_norm (no epsilon). Returns the
-    norm before the clip; a parameter without a gradient counts as 0."""
+    norm before the clip; a parameter without a gradient counts as 0.
+    With a model group, the parameters in `sharded` hold tensor-parallel
+    shards: their squared norms are summed over the group (one small
+    all-reduce), each replicated gradient counted once, so the norm is
+    that of the full logical parameters."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(grads)))
+    if group is None:
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
+    else:
+        ids = {id(p) for p in sharded}
+        parts = [[p.grad for p in params if p.grad is not None
+                  and (id(p) in ids) == s] for s in (False, True)]
+        sq = [torch.stack(torch._foreach_norm(g)).square().sum() if g
+              else grads[0].new_zeros(()) for g in parts]
+        torch.distributed.all_reduce(sq[1], group=group)
+        norm = (sq[0] + sq[1]).sqrt()
     if max_norm and max_norm > 0:
         scale = torch.where(norm < max_norm, torch.ones_like(norm),
                             max_norm / norm)

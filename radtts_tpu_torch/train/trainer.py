@@ -25,11 +25,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from radtts_tpu_torch.losses import attention_binarization_loss, radtts_loss
+from radtts_tpu_torch.losses import (attention_binarization_loss,
+                                     loss_counts, radtts_loss)
 from radtts_tpu_torch.models.radtts import RADTTS, radtts_forward
 from radtts_tpu_torch.ops import amp
 from radtts_tpu_torch.ops.lstm import spectral_norm_update
+from radtts_tpu_torch.parallel import collectives
 from radtts_tpu_torch.train.checkpoint import (load_train_checkpoint,
                                                save_train_checkpoint,
                                                warmstart_state)
@@ -89,9 +92,13 @@ def batch_to_device(batch, device):
 
 
 def compute_loss(model, batch, model_config, loss_weights, sigma, binarize,
-                 use_kl, generator=None):
+                 use_kl, generator=None, mesh=None):
     """(total loss, {name: (value, weight)}, model outputs), as the JAX
-    make_train_step's loss_fn computes them."""
+    make_train_step's loss_fn computes them. With a mesh, the batch is
+    this data rank's rows and each value its share of the global batch's
+    loss: the normalizers' counts are summed over the data group first
+    (losses.loss_counts, one all-reduce), so the sum over the group's
+    ranks is the loss of the global batch."""
     out = radtts_forward(
         model, batch["mel"], batch["speaker_ids"], batch["text"],
         batch["input_lengths"], batch["output_lengths"],
@@ -100,21 +107,32 @@ def compute_loss(model, batch, model_config, loss_weights, sigma, binarize,
         energy_avg=batch.get("energy_avg"),
         voiced_mask=batch.get("voiced_mask"),
         p_voiced=batch.get("p_voiced"), generator=generator)
+    with_bin = use_kl and binarize
+    configs = dict(dur_model_config=model_config.get("dur_model_config"),
+                   f0_model_config=model_config.get("f0_model_config"),
+                   energy_model_config=model_config.get(
+                       "energy_model_config"),
+                   vpred_model_config=model_config.get("v_model_config"))
+    counts, share = {}, 1.0
+    if mesh is not None:
+        names, local = loss_counts(out, batch["input_lengths"],
+                                   batch["output_lengths"],
+                                   binarization=with_bin, **configs)
+        dist.all_reduce(local, group=mesh.data_group)
+        counts = dict(zip(names, local))
+        share = 1.0 if mesh.data_rank == 0 else 0.0
     loss_dict = radtts_loss(
         out, batch["input_lengths"], batch["output_lengths"], sigma=sigma,
-        n_group_size=model_config["n_group_size"],
-        dur_model_config=model_config.get("dur_model_config"),
-        f0_model_config=model_config.get("f0_model_config"),
-        energy_model_config=model_config.get("energy_model_config"),
-        vpred_model_config=model_config.get("v_model_config"),
-        loss_weights=loss_weights)
+        n_group_size=model_config["n_group_size"], loss_weights=loss_weights,
+        counts=counts, share=share, **configs)
     total = 0.0
     for v, w in loss_dict.values():
         if w > 0:
             total = total + v * w
     w_bin = loss_weights.get("binarization_loss_weight", 1.0)
-    if use_kl and binarize:
-        bin_loss = attention_binarization_loss(out["attn"], out["attn_soft"])
+    if with_bin:
+        bin_loss = attention_binarization_loss(
+            out["attn"], out["attn_soft"], counts.get("binarization_loss"))
         total = total + bin_loss * w_bin
     else:
         bin_loss = torch.zeros((), device=out["attn_soft"].device)
@@ -124,24 +142,40 @@ def compute_loss(model, batch, model_config, loss_weights, sigma, binarize,
 
 def train_step(model, optimizer, trainable, batch, model_config,
                loss_weights, sigma, binarize, use_kl, grad_clip_val,
-               generator=None, use_amp=False):
+               generator=None, use_amp=False, mesh=None, sharded=()):
     """One step in the JAX package's order: the power iteration, forward,
     losses, backward, the clip over the trainable gradients, RAdam.
     use_amp runs the forward's bf16 regions (ops/amp.py), as the JAX
     package's make_train_step wraps its loss; the master weights, the
     gradients and the optimizer stay fp32, with no loss scaler.
-    Returns (total, loss_dict, grad norm before the clip) as tensors."""
+    With a mesh (parallel/mesh.py) the batch is this data rank's rows:
+    the gradients and the logged losses are summed over the data group
+    in one all-reduce, so every rank steps with the global batch's
+    gradient; `sharded` names the trainable parameters that hold a
+    tensor-parallel shard, whose squared norms the clip sums over the
+    model group. Returns (total, loss_dict, grad norm before the clip) as
+    tensors, the global batch's with a mesh."""
     spectral_norm_update(model)
     with amp.scope(model, use_amp):
         total, loss_dict, _ = compute_loss(model, batch, model_config,
                                            loss_weights, sigma, binarize,
-                                           use_kl, generator)
+                                           use_kl, generator, mesh)
     optimizer.zero_grad(set_to_none=True)
     total.backward()
     for p in trainable:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grad_norm = clip_grad_norm(trainable, grad_clip_val)
+    group = None
+    if mesh is not None:
+        values = torch.stack([total.detach().float()] + [
+            v.detach().float().reshape(()) for v, _ in loss_dict.values()])
+        collectives.sum_over([p.grad for p in trainable] + [values],
+                             mesh.data_group)
+        total = values[0]
+        loss_dict = {k: (v, w) for (k, (_, w)), v in zip(loss_dict.items(),
+                                                         values[1:])}
+        group = mesh.model_group if mesh.n_model > 1 else None
+    grad_norm = clip_grad_norm(trainable, grad_clip_val, sharded, group)
     optimizer.step()
     return total.detach(), loss_dict, grad_norm
 
@@ -160,10 +194,11 @@ def eval_step(model, batch, model_config, loss_weights, sigma):
 def compute_validation_loss(model, valset, collate_fn, batch_size, device,
                             model_config, loss_weights, sigma, iteration=0,
                             logger=None, train_config=None,
-                            sampling_rate=22050):
+                            sampling_rate=22050, sample_model=None):
     """The validation set's mean losses (reference: train.py:200-297), the
     attention maps to tensorboardX when a logger is given, and with a
-    train_config the audio samples it asks for (_log_audio_samples)."""
+    train_config the audio samples it asks for (_log_audio_samples), from
+    sample_model where given (the whole model of a tensor-parallel run)."""
     from radtts_tpu_torch.data.dataset import DataLoader
 
     was_training = model.training
@@ -193,8 +228,11 @@ def compute_validation_loss(model, valset, collate_fn, batch_size, device,
                     a[0].float().cpu().numpy().T, name), iteration,
                     dataformats="HWC")
         if train_config is not None and last is not None:
-            _log_audio_samples(iteration, model, model_config, train_config,
-                               last, attn, logger, sampling_rate, device)
+            _log_audio_samples(iteration,
+                               model if sample_model is None
+                               else sample_model,
+                               model_config, train_config, last, attn,
+                               logger, sampling_rate, device)
     return totals
 
 
@@ -334,11 +372,14 @@ def init_model(model_config, seed, device):
     return model.to(device).train()
 
 
-def step_generator(device, seed, iteration):
-    """The dropout generator of one step, seeded from (seed, iteration),
-    so that a resumed run draws what the uninterrupted one would."""
+def step_generator(device, seed, iteration, data_rank=0):
+    """The dropout generator of one step, seeded from (seed, iteration,
+    data rank), so that a resumed run draws what the uninterrupted one
+    would, the ranks of a model group draw alike (their replicated
+    weights stay equal) and data ranks draw apart."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) * 1_000_003 + int(iteration))
+    gen.manual_seed(int(seed) * 1_000_003 + int(iteration)
+                    + int(data_rank) * 2 ** 40)
     return gen
 
 
@@ -349,7 +390,8 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
           grad_clip_val, loss_weights, binarization_start_iter=-1,
           kl_loss_start_iter=-1, unfreeze_modules="all", log_interval=1,
           optim_state_dtype="", use_amp=False, profile_dir="",
-          profile_start_iter=5, profile_n_iters=5, device=None, **kwargs):
+          profile_start_iter=5, profile_n_iters=5, device=None, mesh=None,
+          **kwargs):
     """The training loop (reference: train.py:300-455). use_amp runs each
     step's forward in the bf16 regions (validation stays fp32, as in the
     JAX package); optim_state_dtype "bfloat16" keeps bf16 moments. With a
@@ -358,16 +400,31 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
     profile_n_iters, as the JAX package's jax.profiler window does
     (radtts_tpu/train/trainer.py:504-512), and is written there as
     trace_<start>_<stop>.json (Chrome trace format).
+
+    With a mesh (parallel/mesh.py; train/cli.py makes it from the launch
+    environment), every rank builds the whole model from the seed, warm
+    starts and resumes from unsharded files, then keeps its tensor-parallel
+    shard (parallel.shard_model); each data rank loads batch_size rows of
+    its own (the loader sharded by data rank over n_data, so the ranks of
+    a model group read the same rows), and the step is the global batch's
+    (train_step). Every rank validates on the whole validation set, so
+    the numbers are a single process's. Rank 0 alone writes the output
+    folder, the logs, the profile and the checkpoints, gathered into the
+    single-process layout first (parallel.full_train_state).
     Returns a record per step: the iteration, its wall ms (host clock
     around the step and the read-back of its losses, which waits for the
-    device), the grad norm and the losses."""
+    device), the grad norm and the losses (the global batch's)."""
     from radtts_tpu_torch.data.dataset import (DataCollate, DataLoader,
                                                data_factory)
+    from radtts_tpu_torch.parallel import full_train_state, shard_model
     from radtts_tpu_torch.synthesizer import resolve_device
 
     device = resolve_device(device)
     data_config = config["data_config"]
     model_config = config["model_config"]
+    is_rank0 = mesh is None or mesh.is_rank0
+    data_rank, n_data = ((0, 1) if mesh is None
+                         else (mesh.data_rank, mesh.n_data))
     if seed is None:
         seed = int(hashlib.md5(
             output_directory.encode()).hexdigest(), 16) % 2000
@@ -389,6 +446,8 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
         iteration = meta["iteration"] + 1
         print(f"Loaded checkpoint '{checkpoint_path}' "
               f"(iteration {meta['iteration']})")
+    axes = shard_model(model, optimizer, mesh)
+    sharded = [p for name, p in model.named_parameters() if name in axes]
 
     trainset = data_factory(data_config, "training_files")
     valset = data_factory(data_config, "validation_files",
@@ -396,18 +455,22 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
     collate_fn = DataCollate()
     train_loader = DataLoader(
         trainset, batch_size, collate_fn, shuffle=True, seed=seed,
+        rank=data_rank, world_size=n_data,
         num_worker_procs=int(kwargs.get("num_worker_procs", 0)),
         worker_init=(data_factory, (data_config, "training_files",
                                     trainset.speaker_ids)))
-    logger = prepare_output_folder(output_directory, config)
+    logger = (prepare_output_folder(output_directory, config) if is_rank0
+              else None)
 
     history = []
     profiler = None
+    profile_dir = profile_dir if is_rank0 else ""
     profile_stop = profile_start_iter + profile_n_iters
     epoch_offset = max(0, iteration // max(len(train_loader), 1))
     for epoch in range(epoch_offset, epochs):
         train_loader.set_epoch(epoch)
-        print(f"Epoch: {epoch}")
+        if is_rank0:
+            print(f"Epoch: {epoch}")
         for batch in train_loader:
             tic = time.perf_counter()
             binarize = iteration >= binarization_start_iter
@@ -417,8 +480,9 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
             total, loss_dict, grad_norm = train_step(
                 model, optimizer, trainable, batch_to_device(batch, device),
                 model_config, loss_weights, sigma, binarize, use_kl,
-                grad_clip_val, step_generator(device, seed, iteration),
-                use_amp=bool(use_amp))
+                grad_clip_val,
+                step_generator(device, seed, iteration, data_rank),
+                use_amp=bool(use_amp), mesh=mesh, sharded=sharded)
             if profiler is not None and iteration == profile_stop:
                 stop_profiler(profiler, device, profile_dir,
                               profile_start_iter, profile_stop)
@@ -433,7 +497,7 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
                       "grad_norm": values[1], "binarize": binarize,
                       "use_kl": use_kl, **dict(zip(names, values[2:]))}
             history.append(record)
-            if iteration % max(log_interval, 1) == 0:
+            if is_rank0 and iteration % max(log_interval, 1) == 0:
                 line = [f"iter: {iteration}  ({ms / 1e3:.2f} s)  |  "
                         f"lr: {learning_rate}"]
                 for k in names:
@@ -445,16 +509,29 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
                                       iteration)
                 print("".join(line), flush=True)
             if iteration % iters_per_checkpoint == 0:
+                model_sd, optim_sd = full_train_state(model, optimizer, mesh,
+                                                      axes)
+                sample_model = None
+                if is_rank0 and axes:
+                    # the audio samples fold the whole model
+                    sample_model = RADTTS(model_config, factored=True)
+                    sample_model.load_state_dict(model_sd)
+                    sample_model.to(device)
                 val_losses = compute_validation_loss(
                     model, valset, collate_fn, batch_size, device,
                     model_config, loss_weights, sigma, iteration, logger,
-                    train_config=config["train_config"],
-                    sampling_rate=data_config["sampling_rate"])
-                path = os.path.join(output_directory, f"model_{iteration}")
-                save_train_checkpoint(path, model, optimizer, iteration,
-                                      learning_rate)
+                    train_config=(config["train_config"] if is_rank0
+                                  else None),
+                    sampling_rate=data_config["sampling_rate"],
+                    sample_model=sample_model)
+                if is_rank0:
+                    path = os.path.join(output_directory,
+                                        f"model_{iteration}")
+                    save_train_checkpoint(path, model_sd, optim_sd,
+                                          iteration, learning_rate)
+                    print("Validation loss:", val_losses, flush=True)
                 record["validation"] = val_losses
-                print("Validation loss:", val_losses, flush=True)
+                del model_sd, optim_sd, sample_model
             iteration += 1
     train_loader.close()
     return history

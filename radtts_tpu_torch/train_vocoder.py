@@ -66,8 +66,9 @@ def load_resume(path, models, optim_g, optim_d, h):
         return int(state["iteration"])
     tree, meta = load_checkpoint(path)
     models.load_state_dict(vocoder_train_from_jax(tree, h).state_dict())
-    states = opt_moments(path)
     emap = element_map(lambda t: vocoder_train_from_jax(t, h), tree)
+    del tree
+    states = opt_moments(path)
     for name, opt, wrap in (("g", optim_g, lambda m: {"gen": m}),
                             ("d", optim_d, lambda m: m)):
         adam, sched = states.get(f"{name}/0/"), states.get(f"{name}/2/")

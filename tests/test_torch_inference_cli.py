@@ -223,7 +223,7 @@ def test_honours_precision_flags(fixtures, tmp_path, monkeypatch, cli, flag):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--data_parallel", "2"], "one device"),
+    (["--data_parallel", "0"], "at least 1"),
     (["--matmul_precision", "bfloat16"], "highest"),
 ])
 @pytest.mark.parametrize("cli", ["inference", "serve"])

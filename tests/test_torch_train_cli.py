@@ -4,7 +4,7 @@ crosses both curriculum points, validates and checkpoints, resumes where
 an uninterrupted run would be, warm-starts with the include/ignore
 filters (from its own files, the JAX package's .npz and a reference state
 dict) and with a frozen decoder, serves from its checkpoint, writes a
-profiler trace, and refuses each option the port does not have."""
+profiler trace, and refuses the layouts the JAX trainer asserts against."""
 
 import copy
 import json
@@ -216,10 +216,12 @@ def test_honours_precision_options(config_path, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("param,item", [
-    ("dist_config.n_model=2", "A8"),
+    ("dist_config.n_model=2", "does not divide WORLD_SIZE=1"),
 ])
 def test_refuses_unsupported_options(config_path, tmp_path, capsys, param,
                                      item):
+    """Refused before anything is written: an n_model that does not divide
+    the world size (one process here), as the JAX trainer asserts."""
     config = json.loads(open(config_path).read())
     config["train_config"].setdefault("optim_state_dtype", "")
     config["dist_config"].setdefault("n_model", 1)
@@ -255,10 +257,15 @@ def test_profile_dir_writes_a_trace(config_path, tmp_path, capsys):
 
 
 def test_refuses_world_size(config_path, tmp_path, capsys, monkeypatch):
+    """WORLD_SIZE=2 whose data axis does not divide the batch (3 rows) is
+    refused before any process group forms, as the JAX trainer asserts;
+    tests/test_torch_parallel_cli.py runs the world it does divide."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit):
-        run(config_path, str(tmp_path / "o"))
-    assert "A8" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as err:
+        run(config_path, str(tmp_path / "o"), "train_config.batch_size=3")
+    assert err.value.code == 2
+    assert "not divisible by 2 data shards" in capsys.readouterr().err
+    assert not (tmp_path / "o").exists()
 
 
 def test_module_entry_point_runs(config_path, tmp_path):

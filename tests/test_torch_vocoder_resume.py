@@ -3,6 +3,9 @@ the JAX package's do_<it>.npz, on the CPU: both AdamW states (step counts
 and moments) and their staircase schedule; JAX resumes its own file; the
 next step must agree, the moments included."""
 
+import ctypes
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,17 @@ from radtts_tpu_torch.convert import vocoder_train_from_jax
 from radtts_tpu_torch.train import vocoder_trainer as tvt
 from radtts_tpu_torch.train.checkpoint import opt_moments
 from radtts_tpu_torch.train_vocoder import load_resume
+
+
+def release_memory():
+    """Hand freed heap memory back to the system: glibc keeps what JAX's
+    steps and its save over the full discriminators freed (~2 GB), and a
+    loaded machine ends the processes that hold the most."""
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
 
 
 def test_vocoder_resume_from_jax_npz(tmp_path, vocoder_params):  # noqa
@@ -42,36 +56,42 @@ def test_vocoder_resume_from_jax_npz(tmp_path, vocoder_params):  # noqa
                                        jax.random.PRNGKey(i))
     path = str(tmp_path / "do_00000002")
     save_checkpoint(path, params, {"g": opt_g, "d": opt_d}, iteration=2)
-    saved = (opt_g, opt_d)
+    release_memory()
+    # JAX's trees go into the port's layout as soon as they are made and
+    # are dropped: the full discriminators' weights and moments are ~0.3
+    # GB a tree, and the run's peak memory is what a loaded machine ends
+    mu = dict(vocoder_train_from_jax(
+        {"gen": np_tree(opt_g[0].mu), **np_tree(opt_d[0].mu)},
+        H32).named_parameters())
     new, opt_g, opt_d, metrics = step(params, opt_g, opt_d,
                                       jnp.asarray(audio[2]),
                                       jax.random.PRNGKey(2))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    want = vocoder_train_from_jax(np_tree(new), H32)
+    want_mu = vocoder_train_from_jax(
+        {"gen": np_tree(opt_g[0].mu), **np_tree(opt_d[0].mu)}, H32)
+    want_nu = vocoder_train_from_jax(
+        {"gen": np_tree(opt_g[0].nu), **np_tree(opt_d[0].nu)}, H32)
+    del params, new, opt_g, opt_d, step
+    release_memory()
 
     models = tvt.vocoder_train_init(H32, seed=9)
     t_opt_g, t_opt_d = tvt.make_optimizers(models, lr=lr, **kw)
     it = load_resume(path + ".npz", models, t_opt_g, t_opt_d, H32)
     assert it == 2
-    saved_models = vocoder_train_from_jax(
-        {"gen": np_tree(saved[0][0].mu),
-         **np_tree(saved[1][0].mu)}, H32)
-    mu = dict(saved_models.named_parameters())
     names = {id(p): n for n, p in models.named_parameters()}
     for opt in (t_opt_g, t_opt_d):
         for p in opt.param_groups[0]["params"]:
             st = opt.state[p]
             assert int(st["step"]) == 2
             assert torch.equal(st["exp_avg"], mu[names[id(p)]].detach())
+    del mu
     got = tvt.make_vocoder_train_step(MEL_KW, t_opt_g, t_opt_d)(
         models, torch.from_numpy(audio[2]))
     assert t_opt_g.param_groups[0]["lr"] == pytest.approx(lr * 0.5)
     for k, v in metrics.items():
-        np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-4,
-                                   err_msg=k)
-    close_params(models, vocoder_train_from_jax(np_tree(new), H32), lr)
-    want_mu = vocoder_train_from_jax(
-        {"gen": np_tree(opt_g[0].mu), **np_tree(opt_d[0].mu)}, H32)
-    want_nu = vocoder_train_from_jax(
-        {"gen": np_tree(opt_g[0].nu), **np_tree(opt_d[0].nu)}, H32)
+        np.testing.assert_allclose(float(got[k]), v, rtol=1e-4, err_msg=k)
+    close_params(models, want, lr)
     for opt in (t_opt_g, t_opt_d):
         close_moments(opt, models, want_mu, want_nu)
     assert set(opt_moments(path)) == {"g/0/", "g/2/", "d/0/", "d/2/"}
