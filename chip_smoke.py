@@ -7,9 +7,9 @@ Phases, each printing a JSON or text line:
   1. device: the card's name and power limit, torch/CUDA versions, the
      pinned TF32 flags;
   2. build: nvcc of radtts_tpu_torch/csrc/mrf_tc.cu (twice: 3xTF32 and
-     the one-pass -DMRF_TC_PASSES=1), csrc/mrf_stack.cu, csrc/mrf.cu,
-     csrc/mel.cu, csrc/mas.cu and csrc/ar_scan.cu for sm_90a, all seven
-     at once, with seconds
+     the one-pass -DMRF_TC_PASSES=1), csrc/mrf_tf32.cu, csrc/mrf_stack.cu,
+     csrc/mrf.cu, csrc/mel.cu, csrc/mas.cu and csrc/ar_scan.cu for sm_90a,
+     all eight at once, with seconds
      and ptxas register/spill lines; then each kernel's shared memory per
      block;
   3. MRF kernels vs plain: ops/mrf.py:mrf against mrf_plain on the card,
@@ -20,17 +20,24 @@ Phases, each printing a JSON or text line:
      (16, 2048, 128), (16, 4096, 64), (16, 8192, 32); ragged (2, 997, C)),
      csrc/mrf_stack.cu at HiFi-GAN V2's last stages (1, 77824, 16) and
      (1, 155648, 8), ragged (2, 997, 16) and (2, 997, 8), and T below one
-     tile (2, 50, 16); csrc/mrf.cu at a width only it takes (2, 997, 48).
+     tile (2, 50, 16); csrc/mrf.cu at widths only it takes: (2, 997, 48)
+     and, timed, (1, 77824, 48) and (1, 38912, 96), the C=48 and C=96
+     stages of a 384-channel v1-rate generator at 608 frames.
      With the kernel's, the plain version's and the cuDNN conv chain's
      times, the launch grid, the bound at the 3xTF32 rate beside the
      fp32-FMA one, and the 18-launch chain's activation-bytes floor; at
      C=64, 32, 16 and 8 also csrc/mrf.cu's time on the same inputs
      (route="conv", the kernel those stages ran before). Then the
      tensor-core kernel's tile shapes at the v1 serving stages and the
-     stack kernel's tile rows at the V2 ones; then the one-pass
-     build against mrf_plain(passes=1) at the four v1 serving stages,
-     timed beside the 3xTF32 build, the plain version, the cuDNN chain at
-     TF32 and the bound at the TF32 rate;
+     stack kernel's tile rows at the V2 ones; then csrc/mrf_tc.cu's
+     one-pass build (route="tc", passes=1) against mrf_plain(passes=1) at
+     the four v1 serving stages, timed beside the 3xTF32 build, the plain
+     version, the cuDNN chain at TF32 and the bound at the TF32 rate; then
+     csrc/mrf_tf32.cu (route "tf32") against mrf_plain(passes=1) at
+     the serving, training and ragged shapes, timed at the first two in
+     turns with that build ("before") and beside the same yardsticks and
+     the chain's bytes floor, and its tile shapes swept at the serving
+     stages;
   4. mel kernel vs plain: ops/mel.py:mel (the shared-memory real FFT)
      against mel_plain at (16, 8192), (1, 155648) and (3, 9001): log-mel
      within 1e-3 (fp32 sums in another order, amplified by the log near
@@ -51,7 +58,10 @@ Phases, each printing a JSON or text line:
      (highest, high, default): a request, the 608-frame utterance's stage
      times and RTF, its mel's and waveform's distance from highest's,
      counted from 0 (72 launches a generator call of mrf_tc at highest
-     and high, of the one-pass build at default); and the utterance's
+     and high, of mrf_tf32 at default), the
+     utterance once more at
+     default on csrc/mrf_tc.cu's one-pass build (mel and waveform at
+     most 1.5x its distance from highest); and the utterance's
      counted FLOP by stage (ops/flops.py) over its time;
   5b. AR scan kernels vs plain: ops/ar_scan.py:ar_scan against
      ar_scan_plain on the card at AR_SHAPES: one AR step of
@@ -212,7 +222,7 @@ Phases, each printing a JSON or text line:
      BGAP's serving attributes stage and training step with the
      SimpleConvNets on and off cuDNN; and the energy model's float64
      gradients under fp32-sized noise in those convs (the relu flips);
- 12. the {"kernels": [...]} line with the nine kernels (mrf_tc,
+ 12. the {"kernels": [...]} line with the ten kernels (mrf_tc, mrf_tf32,
      mrf_tc_one_pass, mrf_stack, mrf_conv, mel, mas and mas_block, ar_scan
      and ar_scan_barrier) and their launches by path (serve, serve_files,
      serve_v2, train, train_radtts, serve_bgap, serve_agap, train_gap,
@@ -267,6 +277,9 @@ RAGGED = [(2, 997, 256), (2, 997, 128), (2, 997, 64), (2, 997, 32)]
 STACK_STAGES = [(1, 77824, 16), (1, 155648, 8)]
 STACK_RAGGED = [(2, 997, 16), (2, 997, 8), (2, 50, 16)]   # 50 < one tile
 CONV_ONLY = [(2, 997, 48)]       # a width that only csrc/mrf.cu takes
+# csrc/mrf.cu's own widths at full size: the C=48 and C=96 stages of a
+# v1-rate generator with 384 initial channels at 608 frames
+CONV_STAGES = [(1, 77824, 48), (1, 38912, 96)]
 # a C <= 16 stage with more resblocks than csrc/mrf_stack.cu takes: routed
 # to csrc/mrf.cu
 CONV_RESBLOCKS = [((2, 997, 16), (3, 7, 11, 3, 7))]
@@ -384,7 +397,21 @@ def mrf_bound(B, T, C, ks=(3, 7, 11)):
             chain_bytes / HBM_BYTES * 1e3)
 
 
-KERNEL_OF_ROUTE = {"tc": "mrf_tc", "stack": "mrf_stack", "conv": "mrf_conv"}
+KERNEL_OF_ROUTE = {"tc": "mrf_tc", "tf32": "mrf_tf32", "stack": "mrf_stack",
+                   "conv": "mrf_conv"}
+
+
+def v1_launches(mrf_mod, passes):
+    """{kernel: launches} of one HiFi-GAN v1 generator call at `passes`
+    TF32 passes: 18 a stage on the kernel mrf_route names (route "tc" at
+    one pass is csrc/mrf_tc.cu's one-pass build, mrf_tc_one_pass)."""
+    want = {}
+    for C in (256, 128, 64, 32):
+        route = mrf_mod.mrf_route(C, 3, passes)
+        name = ("mrf_tc_one_pass" if (route, passes) == ("tc", 1)
+                else KERNEL_OF_ROUTE[route])
+        want[name] = want.get(name, 0) + 18
+    return want
 
 
 def phase_kernels(mrf_mod, dev):
@@ -393,10 +420,10 @@ def phase_kernels(mrf_mod, dev):
     stages = []
     max_err = {"mrf_tc": 0.0, "mrf_stack": 0.0, "mrf_conv": 0.0}
     inputs = {}
-    timed_shapes = STAGES + TRAIN_STAGES + STACK_STAGES
+    timed_shapes = STAGES + TRAIN_STAGES + STACK_STAGES + CONV_STAGES
     cases = [(shape, (3, 7, 11)) for shape in (
         STAGES + TRAIN_STAGES + RAGGED + STACK_STAGES + STACK_RAGGED
-        + CONV_ONLY)] + CONV_RESBLOCKS
+        + CONV_ONLY + CONV_STAGES)] + CONV_RESBLOCKS
     for (B, T, C), ks in cases:
         x = torch.randn(B, T, C, device=dev, generator=gen)
         w = random_mrf_weights(C, dev, gen, ks)
@@ -685,7 +712,8 @@ def phase_main_path(synth, mrf_mod, dev, power):
             audio).all():
         raise AssertionError(f"bad flagship audio {tuple(audio.shape)}")
     if launches != {"mrf_conv": 0, "mrf_tc": 72 * n_generator_calls,
-                    "mrf_tc_one_pass": 0, "mrf_stack": 0}:
+                    "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                    "mrf_stack": 0}:
         raise AssertionError(f"MRF launches {launches} != 72 tc x "
                              f"{n_generator_calls} generator calls")
     med = {k: statistics.median(v) for k, v in times.items()}
@@ -851,7 +879,8 @@ def phase_serve_files(synth, mrf_mod, dev, power):
                                      f"{dispatches} dispatches")
             launches = _mrf_counts(mrf_mod)
             if launches != {"mrf_conv": 0, "mrf_tc": 72 * generator_calls,
-                            "mrf_tc_one_pass": 0, "mrf_stack": 0}:
+                            "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                            "mrf_stack": 0}:
                 raise AssertionError(f"MRF launches {launches} != 72 tc x "
                                      f"{generator_calls} generator calls")
         finally:
@@ -919,7 +948,8 @@ def phase_serve_v2(mrf_mod, dev, power):
     if wav.shape != (1, MAX_FRAMES * 256) or not torch.isfinite(wav).all():
         raise AssertionError(f"bad V2 audio {tuple(wav.shape)}")
     if launches != {"mrf_conv": 0, "mrf_tc": 36 * n_calls,
-                    "mrf_tc_one_pass": 0, "mrf_stack": 2 * n_calls}:
+                    "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                    "mrf_stack": 2 * n_calls}:
         raise AssertionError(f"V2 MRF launches {launches} != 36 tc + 2 "
                              f"stack x {n_calls} generator calls")
     err = (wav.cpu() - wav_cpu).abs().max().item()
@@ -1043,6 +1073,7 @@ def phase_training(mel_mod, mrf_mod, dev, data_config):
         if len(history) != TRAIN_STEPS or launches != {
                 "mel": 2 * TRAIN_STEPS, "mrf_conv": 0,
                 "mrf_tc": 72 * TRAIN_STEPS, "mrf_tc_one_pass": 0,
+                "mrf_tf32": 0,
                 "mrf_stack": 0}:
             raise AssertionError(f"{len(history)} steps, launches {launches}")
         tag = f"{TRAIN_STEPS:08d}"
@@ -1295,16 +1326,17 @@ def write_train_dataset(root, seed=0):
 
 def _mrf_counts(mrf_mod):
     """The launches of each MRF kernel: mrf_tc's 3xTF32 and one-pass
-    builds, mrf_stack and mrf_conv (csrc/mrf.cu)."""
+    builds, mrf_tf32, mrf_stack and mrf_conv (csrc/mrf.cu)."""
     return {"mrf_tc": mrf_mod.mrf.tc_launches,
             "mrf_tc_one_pass": mrf_mod.mrf.tc1_launches,
+            "mrf_tf32": mrf_mod.mrf.tf32_launches,
             "mrf_stack": mrf_mod.mrf.stack_launches,
             "mrf_conv": mrf_mod.mrf.launches}
 
 
 def _reset_mrf(mrf_mod):
     for name in ("launches", "tc_launches", "tc1_launches",
-                 "stack_launches"):
+                 "tf32_launches", "stack_launches"):
         setattr(mrf_mod.mrf, name, 0)
 
 
@@ -1463,11 +1495,11 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
             or [h["iteration"] for h in runs["resume"]] != [4]
             or len(runs["dap"]) != 2
             or launches != {"mas": want_mas, "mel": 0, "mrf_tc": 0,
-                            "mrf_tc_one_pass": 0,
+                            "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                             "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0,
                             "mas_block": 0, "ar_scan_barrier": 0}
             or serve_launches != {"mas": 0, "mel": 0, "mrf_tc": 2 * 72,
-                                  "mrf_tc_one_pass": 0,
+                                  "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                                   "mrf_stack": 0, "mrf_conv": 0,
                                   "ar_scan": 0,
                                   "mas_block": 0, "ar_scan_barrier": 0}
@@ -2191,7 +2223,8 @@ def phase_serve_gap(kind, vocoder, denoiser, tp, mods, dev, power):
     if (launches["ar_scan"] != want_ar or launches["mrf_tc"] != 72
             or launches["mas"] or launches["mel"] or launches["mrf_stack"]
             or launches["mrf_conv"] or launches["mas_block"]
-            or launches["ar_scan_barrier"] or launches["mrf_tc_one_pass"]):
+            or launches["ar_scan_barrier"] or launches["mrf_tc_one_pass"]
+            or launches["mrf_tf32"]):
         raise AssertionError(f"serve_{kind} launches {launches}")
     if not (errs["f0_max_abs"] > 0 and
             errs["f0"] <= 1e-3 * errs["f0_max_abs"]
@@ -2265,7 +2298,8 @@ def phase_train_gap(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
          "launches": launches, "serve": serve})
     if (any(len(hs) != 2 for hs in runs.values())
             or launches != {"mas": 6, "mel": 0, "mrf_tc": 0,
-                            "mrf_tc_one_pass": 0, "mrf_stack": 0,
+                            "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                            "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0,
                             "mas_block": 0, "ar_scan_barrier": 0}
             or serve["agap"]["launches"]["ar_scan"] != 2
@@ -2273,6 +2307,7 @@ def phase_train_gap(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
             or any(v["launches"]["ar_scan_barrier"]
                    or v["launches"]["mas_block"]
                    or v["launches"]["mrf_tc_one_pass"]
+                   or v["launches"]["mrf_tf32"]
                    for v in serve.values())
             or any(v["launches"]["mrf_tc"] != 2 * 72
                    for v in serve.values())):
@@ -2661,7 +2696,8 @@ def phase_vc(mods, dev, power, root, dap_ckpt, dap_config):
         wavs = [_check_wav(p, p) for p in written]
         want = {"mas": VC_SAMPLES, "mel": 0,
                 "mrf_tc": 72 * (VC_SAMPLES + 1),
-                "mrf_tc_one_pass": 0, "mrf_stack": 0,
+                "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                "mrf_stack": 0,
                 "mrf_conv": 0, "ar_scan": 0,
                 "mas_block": 0, "ar_scan_barrier": 0}
         if len(written) != VC_SAMPLES or launches != want:
@@ -2913,7 +2949,7 @@ def phase_amp_serve(config, model, vocoder, denoiser, tp, mods, dev, power):
          "generator_calls": n_calls, "amp_decode_profile": profile,
          "amp_lstm_kernels": n_lstm})
     if launches != {"mas": 0, "mel": 0, "mrf_tc": 72 * n_calls,
-                    "mrf_tc_one_pass": 0,
+                    "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                     "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0,
                     "mas_block": 0, "ar_scan_barrier": 0}:
         raise AssertionError(f"amp serve launches {launches}, "
@@ -2991,7 +3027,8 @@ def phase_amp_train(mods, dev, power, root, files, dec_ckpt):
             or any(rows[k]["optimizer_state_dtypes"] != v
                    for k, v in want_dtypes.items())
             or launches != {"mas": 6, "mel": 0, "mrf_tc": 0,
-                            "mrf_tc_one_pass": 0, "mrf_stack": 0,
+                            "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                            "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0,
                             "mas_block": 0, "ar_scan_barrier": 0}):
         raise AssertionError(f"amp train: {rows}, launches {launches}")
@@ -3178,7 +3215,8 @@ def phase_serve_dap_variant(kind, vocoder, denoiser, tp, mods, dev, power,
         row["convlstm_attributes_ms_all"] = convlstm_ms
     log(row)
     if launches != {"mas": 0, "mel": 0, "mrf_tc": 72,
-                    "mrf_tc_one_pass": 0, "mrf_stack": 0,
+                    "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                    "mrf_stack": 0,
                     "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
                     "ar_scan_barrier": 0}:
         raise AssertionError(f"serve_{kind} launches {launches}")
@@ -3273,7 +3311,8 @@ def phase_serve_agap_bf16(vocoder, denoiser, tp, mods, dev, power):
     card = rows["bfloat16"]["mel_dist_from_fp32_card"]
     cpu = rows["bfloat16"]["mel_dist_from_fp32_cpu"]
     if launches != {"mas": 0, "mel": 0, "mrf_tc": 72,
-                    "mrf_tc_one_pass": 0, "mrf_stack": 0,
+                    "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                    "mrf_stack": 0,
                     "mrf_conv": 0, "ar_scan": 2, "mas_block": 0,
                     "ar_scan_barrier": 0}:
         raise AssertionError(f"serve_agap_bf16 launches {launches}")
@@ -3340,12 +3379,14 @@ def phase_train_fft(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
          "launches": launches, "serve": serve})
     if (len(history) != 2
             or launches != {"mas": 3, "mel": 0, "mrf_tc": 0,
-                            "mrf_tc_one_pass": 0, "mrf_stack": 0,
+                            "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                            "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
                             "ar_scan_barrier": 0}
             or serve["launches"]["mrf_tc"] != 2 * 72
             or serve["launches"]["mas"]
-            or serve["launches"]["mrf_tc_one_pass"]):
+            or serve["launches"]["mrf_tc_one_pass"]
+            or serve["launches"]["mrf_tf32"]):
         raise AssertionError(f"train_fft: {len(history)} steps, launches "
                              f"{launches}, serving {serve}")
     phase_radtts_vs_cpu(dev, config_path=path, unfreeze="durf0energyvpred",
@@ -3386,7 +3427,8 @@ def phase_train_plain_w(mods, dev, power, root, files):
     if (len(history) != 2 or len(w_keys) != 8
             or not all(torch.isfinite(state[k]).all() for k in w_keys)
             or launches != {"mas": 3, "mel": 0, "mrf_tc": 0,
-                            "mrf_tc_one_pass": 0, "mrf_stack": 0,
+                            "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+                            "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
                             "ar_scan_barrier": 0}):
         raise AssertionError(f"train_plain_w: {len(history)} steps, "
@@ -3490,7 +3532,8 @@ def phase_train_audio_samples(mods, dev, power, root, files, dec_ckpt, voc,
                             for t, a, _, sr in recorded],
          "trace_events": len(trace), "trace_cuda_kernels": cuda_kernels})
     zero = {"mas": 0, "mel": 0, "mrf_tc": 0,
-            "mrf_tc_one_pass": 0, "mrf_stack": 0, "mrf_conv": 0,
+            "mrf_tc_one_pass": 0, "mrf_tf32": 0,
+            "mrf_stack": 0, "mrf_conv": 0,
             "ar_scan": 0, "mas_block": 0, "ar_scan_barrier": 0}
     if (cli_launches != dict(zero, mas=2, mrf_tc=6 * 72 if has_tbx else 0)
             or launches["with_samples"] != dict(zero, mas=1, mrf_tc=6 * 72)
@@ -3518,8 +3561,10 @@ PRECISIONS = ("highest", "high", "default")
 
 
 def phase_mrf_tc_one_pass(mrf_mod, dev, power, inputs):
-    """csrc/mrf_tc.cu's one-TF32-pass build (the "tc" route at
-    --matmul_precision default) against mrf_plain(passes=1) on the card at
+    """csrc/mrf_tc.cu's one-TF32-pass build (route="tc", passes=1: the
+    route of --matmul_precision default until csrc/mrf_tf32.cu replaced
+    it) against mrf_plain(passes=1)
+    on the card at
     the four v1 serving stages, within 1e-4 * max|plain| (each conv's
     operands rounded to TF32, fp32 sums in another order; a rounding
     boundary crossed between the two chains moves an operand by one TF32
@@ -3533,7 +3578,7 @@ def phase_mrf_tc_one_pass(mrf_mod, dev, power, inputs):
     rows, max_err = [], 0.0
     for B, T, C in STAGES:
         x, w = inputs[(B, T, C)]
-        got = mrf_mod.mrf_cuda(x, w, passes=1)
+        got = mrf_mod.mrf_cuda(x, w, route="tc", passes=1)
         three = mrf_mod.mrf_cuda(x, w, passes=3)
         want = mrf_mod.mrf_plain(x, w, passes=1)
         fp32 = mrf_mod.mrf_plain(x, w)
@@ -3553,7 +3598,8 @@ def phase_mrf_tc_one_pass(mrf_mod, dev, power, inputs):
                "dist_from_fp32": (got - fp32).abs().max().item(),
                "three_pass_dist_from_fp32": (three - fp32).abs().max()
                .item(),
-               "ms": cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, passes=1)),
+               "ms": cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, route="tc",
+                                                     passes=1)),
                "three_pass_ms": cuda_ms(
                    lambda: mrf_mod.mrf_cuda(x, w, passes=3)),
                "plain_ms": cuda_ms(
@@ -3571,6 +3617,108 @@ def phase_mrf_tc_one_pass(mrf_mod, dev, power, inputs):
     return rows, max_err
 
 
+def tf32_tiles(C):
+    """csrc/mrf_tf32.cu's tile shapes (TN, NWG) at width C."""
+    tns = {256: (64, 128), 128: (64, 128), 64: (32, 64), 32: (32,)}[C]
+    return [(tn, nwg) for tn in tns for nwg in (1, 2)]
+
+
+def tf32_bound(B, T, C, ks=(3, 7, 11)):
+    """(bound ms, bound_by, FLOP) of one MRF stage in one TF32 pass: its
+    FLOP at the 495 TFLOP/s TF32 rate against x and the weights read once
+    and the output written once."""
+    _, _, flop, _, _ = mrf_bound(B, T, C, ks)
+    n_weights = sum(6 * (k * C * C + C) for k in ks)
+    t_ops = flop / TF32_FLOPS
+    t_bytes = 4.0 * (2 * B * T * C + n_weights) / HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flop)
+
+
+def phase_mrf_tf32(mrf_mod, dev, power, inputs):
+    """csrc/mrf_tf32.cu (route "tf32", the route of --matmul_precision
+    default) against mrf_plain(passes=1) on the card
+    within 1e-4 * max|plain| (each conv's operands rounded to TF32, fp32
+    sums in another order) at the four v1 serving stages, the four training
+    shapes and ragged (2, 997, C) at each width. At the serving and
+    training shapes it is timed against csrc/mrf_tc.cu's one-pass build
+    (before_ms, in turns: before, new, new, before), the 3xTF32 build, the
+    plain version, the cuDNN chain at TF32 (library), the bound at the
+    TF32 rate and the 18-launch chain's bytes floor; then its tile shapes
+    at the serving stages, each held to the same limit. Launches here are
+    comparisons: the path's count is the precision sweep's."""
+    from radtts_tpu_torch.ops import precision
+
+    gen = torch.Generator(dev).manual_seed(14)
+    rows, max_err = [], 0.0
+    for B, T, C in STAGES + TRAIN_STAGES + RAGGED:
+        if (B, T, C) in inputs:
+            x, w = inputs[(B, T, C)]
+        else:
+            x = torch.randn(B, T, C, device=dev, generator=gen)
+            w = random_mrf_weights(C, dev, gen)
+        got = mrf_mod.mrf_cuda(x, w, route="tf32", passes=1)
+        want = mrf_mod.mrf_plain(x, w, passes=1)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        row = {"shape": [B, T, C], "tile": list(mrf_mod.tf32_tile(C)),
+               "routed": mrf_mod.mrf_route(C, 3, 1), "max_abs_err": err,
+               "max_abs_plain": scale}
+        if (B, T, C) not in RAGGED:
+            xc, tw = library_inputs(x, w)
+            bound_ms, bound_by, flop = tf32_bound(B, T, C)
+
+            def new():
+                return cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, route="tf32",
+                                                        passes=1))
+
+            def before():
+                return cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, route="tc",
+                                                        passes=1))
+            turns = [before(), new(), new(), before()]
+            with precision.scope("high"):
+                library_ms = cuda_ms(lambda: library_mrf(xc, tw))
+            row.update(
+                ms=statistics.mean(turns[1:3]),
+                before_ms=statistics.mean(turns[::3]), turns_ms=turns,
+                three_pass_ms=cuda_ms(lambda: mrf_mod.mrf_cuda(x, w)),
+                plain_ms=cuda_ms(lambda: mrf_mod.mrf_plain(x, w, passes=1)),
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                chain_bytes_floor_ms=mrf_bound(B, T, C)[4],
+                gflop=flop / 1e9, serving=(B, T, C) in STAGES)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["share_of_chain_floor"] = (row["chain_bytes_floor_ms"]
+                                           / row["ms"])
+            row["new_over_before"] = row["ms"] / row["before_ms"]
+        log({"phase": "mrf_tf32_vs_plain", "card": power, **row})
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"mrf_tf32 disagrees at {(B, T, C)}: "
+                                 f"{err} > 1e-4 * {scale}")
+        rows.append(row)
+    sweep = []
+    for B, T, C in STAGES:
+        x, w = inputs[(B, T, C)]
+        want = mrf_mod.mrf_plain(x, w, passes=1)
+        scale = want.abs().max().item()
+        for tile in tf32_tiles(C):
+            err = (mrf_mod.mrf_cuda(x, w, tile, "tf32", passes=1)
+                   - want).abs().max().item()
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"mrf_tf32 tile {tile} disagrees at "
+                                     f"{(B, T, C)}: {err} > 1e-4 * {scale}")
+            row = {"phase": "mrf_tf32_tiles", "shape": [B, T, C],
+                   "tile": list(tile),
+                   "chosen": tile == mrf_mod.tf32_tile(C),
+                   "max_abs_err": err, "ms": cuda_ms(
+                       lambda: mrf_mod.mrf_cuda(x, w, tile, "tf32",
+                                                passes=1))}
+            log(row)
+            sweep.append(row)
+    return rows, max_err, sweep
+
+
 def phase_precision_sweep(synth, mrf_mod, dev, power):
     """The flagship Synthesizer at each --matmul_precision (the
     Synthesizer's matmul_precision, as the CLIs set it): one request
@@ -3579,7 +3727,11 @@ def phase_precision_sweep(synth, mrf_mod, dev, power):
     RTF inside ops/precision.py:scope, and its mel's and waveform's
     distance from highest's. Counted from 0 at each precision: 72
     launches a generator call of the 3xTF32 mrf_tc at highest and high,
-    of the one-pass build at default, of no other MRF kernel. Then the
+    at default of the one-pass kernels mrf_route names (v1_launches), of
+    no other MRF kernel. Then the utterance at default once more on
+    csrc/mrf_tc.cu's one-pass build at every width (before, 72
+    launches a call of it alone): the mel's and the waveform's distance
+    from highest at default may be at most 1.5x the before run's. Then the
     counted FLOP of the utterance by stage at highest (ops/flops.py) and
     each over its measured time."""
     from radtts_tpu_torch.models.hifigan import denoiser_apply
@@ -3620,8 +3772,9 @@ def phase_precision_sweep(synth, mrf_mod, dev, power):
         torch.cuda.synchronize()
         launches = _mrf_counts(mrf_mod)
         calls = 1 + len(runs)
-        key = "mrf_tc_one_pass" if p == "default" else "mrf_tc"
-        want = dict({k: 0 for k in launches}, **{key: 72 * calls})
+        want = dict({k: 0 for k in launches}, **{
+            k: n * calls for k, n in v1_launches(
+                mrf_mod, 1 if p == "default" else 3).items()})
         mel, wav, _ = runs[-1]
         med = {k: statistics.median(r[2][k] for r in runs)
                for k in runs[0][2]}
@@ -3649,6 +3802,46 @@ def phase_precision_sweep(synth, mrf_mod, dev, power):
         if p != "highest":
             paths[f"serve_{p}"] = launches
     synth.matmul_precision = "highest"
+    # the same utterance at default on csrc/mrf_tc.cu's one-pass build
+    # (before): mrf_route's "tf32" read as "tc" for the run
+    route = mrf_mod.mrf_route
+
+    def before_route(C, n_resblocks=3, passes=3):
+        got = route(C, n_resblocks, passes)
+        return "tc" if got == "tf32" else got
+    _reset_mrf(mrf_mod)
+    mrf_mod.mrf_route = before_route
+    try:
+        with torch.inference_mode(), precision.scope("default"):
+            runs = [utterance() for _ in range(3)]
+        torch.cuda.synchronize()
+    finally:
+        mrf_mod.mrf_route = route
+    launches = _mrf_counts(mrf_mod)
+    _reset_mrf(mrf_mod)
+    mel, wav, _ = runs[-1]
+    dist = {"mel": ((mel - out["highest"][0]).abs().max().item(),
+                    (out["default"][0] - out["highest"][0]).abs().max()
+                    .item()),
+            "wav": ((wav - out["highest"][1]).abs().max().item(),
+                    (out["default"][1] - out["highest"][1]).abs().max()
+                    .item())}
+    med = {k: statistics.median(r[2][k] for r in runs) for k in runs[0][2]}
+    log({"phase": "precision_default_before", "card": power,
+         "stage_ms": med, "rtf": sum(med.values()) / 1e3 / audio_s,
+         "launches": launches,
+         "before_mel_dist_from_highest": dist["mel"][0],
+         "mel_dist_from_highest": dist["mel"][1],
+         "before_wav_dist_from_highest": dist["wav"][0],
+         "wav_dist_from_highest": dist["wav"][1]})
+    if launches != dict({k: 0 for k in launches},
+                        mrf_tc_one_pass=72 * len(runs)):
+        raise AssertionError(f"before launches {launches}")
+    for name, (before, new) in dist.items():
+        if not new <= 1.5 * before:
+            raise AssertionError(f"{name} at default {new} from highest, "
+                                 f"more than 1.5x the one-pass mrf_tc "
+                                 f"build's {before}")
     # the model FLOP of the utterance by stage, counted at highest
     with torch.inference_mode():
         counted = {
@@ -4170,10 +4363,11 @@ def main():
          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         builds = {name: pool.submit(fn) for name, fn in (
             ("mrf_tc", mrf_mod.build_tc),
             ("mrf_tc_one_pass", lambda: mrf_mod.build_tc(1)),
+            ("mrf_tf32", mrf_mod.build_tf32),
             ("mrf_stack", mrf_mod.build_stack),
             ("mrf_conv", mrf_mod.build), ("mel", mel_mod.build),
             ("mas", mas_mod.build), ("ar_scan", ar_mod.build))}
@@ -4190,6 +4384,11 @@ def main():
         "mrf_tc_narrow_weight_stages": {
             f"C{C}:{C}x{nwg}": tc_lib.radtts_mrf_tc_weight_stages(C, nwg)
             for C in (64, 32) for nwg in (1, 2)},
+        "mrf_tf32_bytes_and_weight_stages": {
+            f"{tn}x{nwg}": [
+                mrf_mod._tf32_lib.radtts_mrf_tf32_smem_bytes(tn, nwg),
+                mrf_mod._tf32_lib.radtts_mrf_tf32_weight_stages(tn, nwg)]
+            for tn in (128, 64, 32) for nwg in (1, 2)},
         "mrf_stack_bytes_per_block": {
             f"C{C}:{rows}": mrf_mod._stack_lib.radtts_mrf_stack_smem_bytes(
                 C, rows, 11) for C in (16, 8) for rows in STACK_TILES},
@@ -4201,6 +4400,8 @@ def main():
     phase_tiles(mrf_mod, inputs)
     one_pass, one_pass_err = phase_mrf_tc_one_pass(mrf_mod, dev, power,
                                                    inputs)
+    tf32_rows, tf32_err, tf32_tiles_rows = phase_mrf_tf32(mrf_mod, dev,
+                                                          power, inputs)
     del inputs
     with open(CONFIG) as f:
         data_config = json.load(f)["data_config"]
@@ -4305,12 +4506,15 @@ def main():
              "train_audio_samples": gap_train["train_audio_samples"],
              "serve_dp2": dp2_launches, **step_paths,
              **precision_launches}
-    # every path counts the one-pass build, and only serve_default runs it
-    stray = {p: c.get("mrf_tc_one_pass") for p, c in paths.items()
-             if p != "serve_default" and c.get("mrf_tc_one_pass") != 0}
+    # every path counts the one-pass kernels, and only serve_default runs
+    # them (as mrf_route names them; the precision sweep checks the counts)
+    stray = {p: (c.get("mrf_tf32"), c.get("mrf_tc_one_pass"))
+             for p, c in paths.items() if p != "serve_default" and (
+                 c.get("mrf_tf32") != 0 or c.get("mrf_tc_one_pass") != 0)}
     if stray:
-        raise AssertionError(f"one-pass mrf_tc launches outside "
-                             f"serve_default (or not counted): {stray}")
+        raise AssertionError(f"one-pass launches (mrf_tf32, "
+                             f"mrf_tc_one_pass) off serve_default (or not "
+                             f"counted): {stray}")
 
     def by_path(kernel):
         return {p: c.get(kernel, 0) for p, c in paths.items()}
@@ -4359,6 +4563,36 @@ def main():
              note="sums over the four v1 MRF stages of one 608-frame "
                   "utterance; bound_ms at the 3xTF32 rate (495/3 TFLOP/s), "
                   "fp32_fma_bound_ms at 67 TFLOP/s"), {
+        "name": "mrf_tf32",
+        "route": "cuda",
+        "source": "radtts_tpu_torch/csrc/mrf_tf32.cu",
+        "replaces": "radtts_tpu/ops/pallas_mrf.py:177",
+        "also_replaces": ["radtts_tpu/ops/pallas_mrf.py:121 (at C=128, 64)",
+                          "radtts_tpu/ops/pallas_mrf.py:231 (C=32)"],
+        "launches": sum(by_path("mrf_tf32").values()),
+        "launches_by_path": by_path("mrf_tf32"),
+        "max_abs_err": tf32_err,
+        **{key: sum(r[key] for r in tf32_rows if r.get("serving"))
+           for key in ("ms", "before_ms", "three_pass_ms", "plain_ms",
+                       "library_ms", "bound_ms", "chain_bytes_floor_ms")},
+        "bound_by": "operations" if all(
+            r["bound_by"] == "operations" for r in tf32_rows
+            if r.get("serving")) else "bytes",
+        "stages": [r for r in tf32_rows if r.get("serving")],
+        "training": [r for r in tf32_rows
+                     if "ms" in r and not r["serving"]],
+        "ragged": [{k: r[k] for k in ("shape", "max_abs_err",
+                                      "max_abs_plain")}
+                   for r in tf32_rows if "ms" not in r],
+        "tiles": tf32_tiles_rows,
+        "note": "one TF32 pass, the route of --matmul_precision default "
+                "(mrf_route), against "
+                "mrf_plain(passes=1); sums over the four v1 MRF stages of "
+                "one 608-frame utterance; before_ms csrc/mrf_tc.cu's "
+                "one-pass build on the same inputs, in turns; bound_ms at "
+                "the TF32 rate (495 TFLOP/s); chain_bytes_floor_ms the 18 "
+                "launches' activation bytes at 3.35 TB/s; library_ms the "
+                "cuDNN conv chain at TF32; three_pass_ms the 3xTF32 build"}, {
         "name": "mrf_tc_one_pass",
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mrf_tc.cu (built with "
@@ -4377,11 +4611,13 @@ def main():
                                          for r in one_pass) else "bytes"),
         "library_ms": sum(r["library_ms"] for r in one_pass),
         "stages": one_pass,
-        "note": "one TF32 pass (--matmul_precision default), against "
-                "mrf_plain(passes=1); sums over the four v1 MRF stages of "
-                "one 608-frame utterance; bound_ms at the TF32 rate (495 "
-                "TFLOP/s); library_ms the cuDNN conv chain at TF32; "
-                "three_pass_ms the 3xTF32 build on the same inputs"},
+        "note": "one TF32 pass, replaced by mrf_tf32 as the route of "
+                "--matmul_precision default (0 launches on every path; "
+                "route='tc', passes=1), against mrf_plain(passes=1); sums "
+                "over the four v1 MRF stages of one 608-frame utterance; "
+                "bound_ms at the TF32 rate (495 TFLOP/s); library_ms the "
+                "cuDNN conv chain at TF32; three_pass_ms the 3xTF32 build "
+                "on the same inputs"},
         dict(mrf_entry("mrf_stack", "radtts_tpu_torch/csrc/mrf_stack.cu",
                        "radtts_tpu/ops/pallas_mrf.py:121 (at C=16, 8)", []),
              note="sums over HiFi-GAN V2's C=16 and C=8 stages of one "
@@ -4397,7 +4633,15 @@ def main():
                   "path); it takes the widths no other kernel takes (held "
                   "at (2, 997, 48)); times are route='conv' on the V2 "
                   "C=16 and C=8 stages' inputs, summed, with their plain, "
-                  "library and bound times"), {
+                  "library and bound times; own_stages: its own widths, "
+                  "the C=48 and C=96 stages of a 384-channel v1-rate "
+                  "generator at 608 frames (library: the cuDNN fp32 chain; "
+                  "its products are fp32 FMA: fp32_fma_bound_ms)",
+             own_stages=[{k: s[k] for k in (
+                 "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "fp32_fma_bound_ms", "chain_bytes_floor_ms",
+                 "max_abs_err")} for s in stages
+                 if tuple(s["shape"]) in CONV_STAGES]), {
         "name": "mel",
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mel.cu",

@@ -31,12 +31,14 @@
 // (10-bit mantissas) lands hundreds of times further from fp32 in the
 // arithmetic's emulation (tests/test_torch_mrf_tc.py).
 //
-// One-pass variant: built with -DMRF_TC_PASSES=1 (ops/mrf.py:build_tc(1),
-// the route of --matmul_precision default, ops/precision.py), each product
-// is hi*hi alone: one TF32 pass, the counterpart of the Pallas MRF's single
-// default-precision dot (radtts_tpu/ops/pallas_mrf.py:55-63). The loads,
-// the weight pack and the split stay as they are; only the lo products
-// go. Its plain version is ops/mrf.py:mrf_plain(..., passes=1).
+// One-pass variant: built with -DMRF_TC_PASSES=1 (ops/mrf.py:build_tc(1)),
+// each product is hi*hi alone: one TF32 pass, the counterpart of the Pallas
+// MRF's single default-precision dot (radtts_tpu/ops/pallas_mrf.py:55-63).
+// The loads, the weight pack and the split stay as they are; only the lo
+// products go. Its plain version is ops/mrf.py:mrf_plain(..., passes=1).
+// csrc/mrf_tf32.cu, designed for one pass, replaced it as the route of
+// --matmul_precision default; this build runs only when asked for by name
+// (ops/mrf.py:mrf_cuda(..., route="tc", passes=1)), as its "before".
 //
 // Design (one block = a TM x TN output tile of one batch item, TM = 64 *
 // NWG time rows, TN output channels; M = time, N = C_out, K = taps x C_in):
@@ -45,8 +47,11 @@
 //    flight through mbarrier rings (2 activation slabs, 3 weight stages).
 //  - A (activations) come from registers: tf32 wgmma reads shared-memory
 //    operands only K-major, and tap j reads the slab shifted by j*d rows,
-//    d in {1, 3, 5}, which no descriptor start address can express for a
-//    shift that is not a multiple of 8 rows. So the producer stages, once
+//    d in {1, 3, 5}. A K-major plane in which each 4-channel group holds
+//    all its rows contiguously would express any such shift as a
+//    descriptor start 16*j*d bytes further on, as the narrow kernel below
+//    and csrc/mrf_tf32.cu do; this kernel keeps its register operands, and
+//    with them the per-tap fragment loads. The producer stages, once
 //    per chunk of kCK input channels, the slab of rows [t0 - pad, t0 + TM +
 //    pad) with cp.async, whose zero fill for a source size of 0 is the
 //    conv's zero padding (rows outside [0, T) of this item, never the

@@ -7,13 +7,17 @@ lrelu slope 0.1, every conv zero-padded at 0 and T.
 
 Port of the TPU kernels in radtts_tpu/ops/pallas_mrf.py (pallas_mrf,
 pallas_mrf_wide, pallas_mrf_folded: one function at every width). On the
-card `mrf` runs one of three hand-written kernels, by `mrf_route` (see
+card `mrf` runs one of four hand-written kernels, by `mrf_route` (see
 their headers for the design and what bounds them):
   "tc"    csrc/mrf_tc.cu, a 3xTF32 implicit GEMM on the tensor cores, 18
           launches per stage, at C=256, 128, 64 and 32 (every HiFi-GAN v1
-          stage), counted by mrf.tc_launches; at --matmul_precision default
-          (ops/precision.py) its one-TF32-pass build, counted by
-          mrf.tc1_launches;
+          stage), counted by mrf.tc_launches;
+  "tf32"  csrc/mrf_tf32.cu, the same widths in one TF32 pass, at
+          --matmul_precision default (ops/precision.py), counted by
+          mrf.tf32_launches. csrc/mrf_tc.cu's own one-pass build, which it
+          replaced (chip_smoke.py's mrf_tf32_vs_plain; PERF.md), runs only
+          when asked for by name (mrf_cuda(..., route="tc", passes=1)),
+          counted by mrf.tc1_launches;
   "stack" csrc/mrf_stack.cu, the whole stack in one launch with every
           intermediate in shared memory, fp32 FMA, at C <= 16 with at most
           4 resblocks (HiFi-GAN V2's C=16 and C=8 stages), counted by
@@ -24,7 +28,7 @@ their headers for the design and what bounds them):
 `mrf_plain` is the same function in plain PyTorch, which the CPU path,
 the tests and every pass that needs gradients use (at every precision:
 the CPU computes fp32); `mrf_plain(..., passes=1)` is the one-pass
-kernel's plain version.
+kernels' plain version.
 
 weights: one dict per resblock, {w1: (3, k, C, C), b1: (3, C), w2: (3, k, C,
 C), b2: (3, C)}, w*[i] being the dilation-i conv taps-major (k, C_in, C_out)
@@ -46,7 +50,9 @@ KERNEL_SIZES = (3, 7, 11)   # the standard MRF (JAX ops/pallas_mrf.py)
 DILATIONS = (1, 3, 5)
 LRELU_SLOPE = 0.1
 
-TC_CK = 32            # input channels per chunk of csrc/mrf_tc.cu (kCK)
+TC_CK = 32            # input channels per chunk of csrc/mrf_tc.cu and
+#                       csrc/mrf_tf32.cu (kCK)
+TF32_MAX_HALO = 50    # csrc/mrf_tf32.cu's kMaxHalo: (k - 1) * d at most
 PACK_CACHE_SIZE = 8   # packed stages kept (HiFi-GAN v1 has 4)
 STACK_MAX_TILE = 400  # rows per block of csrc/mrf_stack.cu (see stack_tile)
 STACK_WIDTHS = (4, 8, 12, 16)
@@ -55,6 +61,7 @@ STACK_MAX_RESBLOCKS = 4
 _lib = None
 _tc_libs = {}         # csrc/mrf_tc.cu by TF32 passes: 3, or 1 (one-pass)
 _TC_COUNTS = {3: "tc_launches", 1: "tc1_launches"}   # mrf's count of each
+_tf32_lib = None
 _stack_lib = None
 _packs = collections.OrderedDict()
 
@@ -73,7 +80,7 @@ def mrf_plain(x, weights, passes=3):
     """Plain PyTorch MRF mean, as the JAX package's _resblock1_apply runs
     it: one F.conv1d per conv. x: (B, T, C) -> (B, T, C). passes=1: each
     conv's activations (after the leaky ReLU) and taps rounded to TF32,
-    the products summed in fp32, as csrc/mrf_tc.cu's one-pass build."""
+    the products summed in fp32, as the one-pass kernels compute it."""
     if passes not in (1, 3):
         raise ValueError(f"mrf_plain: passes={passes}, expected 1 or 3")
     xc = x.transpose(1, 2)
@@ -124,6 +131,24 @@ def build_tc(passes=3):
     return lib, log, seconds
 
 
+def build_tf32():
+    """Compile csrc/mrf_tf32.cu and load it. Returns (library, nvcc output,
+    build seconds)."""
+    global _tf32_lib
+    lib, log, seconds = build_library("mrf_tf32")
+    fn = lib.radtts_mrf_tf32_conv
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
+                   + [ctypes.c_int] * 5 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    for name in ("radtts_mrf_tf32_smem_bytes",
+                 "radtts_mrf_tf32_weight_stages"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 2
+        getattr(lib, name).restype = ctypes.c_int
+    _tf32_lib = lib
+    return lib, log, seconds
+
+
 def build_stack():
     """Compile csrc/mrf_stack.cu and load it. Returns (library, nvcc
     output, build seconds)."""
@@ -139,14 +164,16 @@ def build_stack():
     return lib, log, seconds
 
 
-def mrf_route(C, n_resblocks=3):
+def mrf_route(C, n_resblocks=3, passes=3):
     """The routing rule, the kernel a stage of width C with n_resblocks
-    resblocks runs on the card: "tc" (csrc/mrf_tc.cu) at C=32, 64 and
-    multiples of 64 from 128; "stack" (csrc/mrf_stack.cu) at C=4, 8, 12,
-    16 with at most STACK_MAX_RESBLOCKS resblocks; "conv" (csrc/mrf.cu)
-    at the other multiples of 4."""
+    resblocks runs on the card with `passes` TF32 passes: "tc"
+    (csrc/mrf_tc.cu, 3xTF32) or, at passes=1, "tf32" (csrc/mrf_tf32.cu)
+    at C=32, 64 and multiples of 64 from 128; "stack"
+    (csrc/mrf_stack.cu) at C=4, 8, 12, 16 with at most STACK_MAX_RESBLOCKS
+    resblocks; "conv" (csrc/mrf.cu) at the other multiples of 4. The last
+    two are fp32 FMA at either passes."""
     if C in (32, 64) or (C >= 128 and C % 64 == 0):
-        return "tc"
+        return "tf32" if passes == 1 else "tc"
     if C in STACK_WIDTHS and n_resblocks <= STACK_MAX_RESBLOCKS:
         return "stack"
     return "conv"
@@ -195,6 +222,20 @@ def tc_grid(B, T, C, tile=None):
     return (-(-T // (64 * nwg)), C // tn, B)
 
 
+def tf32_tile(C):
+    """(TN, NWG) of csrc/mrf_tf32.cu for width C: TN output channels and
+    NWG consumer warpgroups (64 NWG time rows) per tile. The fastest on
+    the H100 (chip_smoke.py's mrf_tf32_tiles): 128 x 128 tiles at C=256
+    and C=128, TN = C with two warpgroups at C=64 and C=32."""
+    return (min(C, 128), 2)
+
+
+def tf32_plane_rows(nwg):
+    """Rows of csrc/mrf_tf32.cu's activation plane (kR): the tile's 64 nwg
+    rows, the largest halo and one more, so the count is odd."""
+    return 64 * nwg + TF32_MAX_HALO + 1
+
+
 def tf32_round(x):
     """Round float32 to TF32 as cvt.rna.tf32.f32 does (to nearest, ties
     away from zero; the 13 low mantissa bits zero), for finite x."""
@@ -237,6 +278,21 @@ def tc_pack_narrow(w):
     n = len(lead)
     p = p.reshape(*lead, 2, C // 8, 8, C // TC_CK, TC_CK // 4, 4)
     order = [n + 3, n + 4, n, n + 1, n + 2, n + 5]
+    return p.permute(*range(n), *order).contiguous()
+
+
+def tf32_pack(w, tn):
+    """Taps w (..., C_in, C_out) -> the order in which csrc/mrf_tf32.cu
+    streams them: (..., C/tn, C/TC_CK, TC_CK/4, tn/8, 8, 4), tf32_round(w)
+    alone. Per (tap, C_out tile, C_in chunk) one K-major unit of tn x
+    TC_CK in wgmma's core-matrix layout: element (co, ci) of the unit at
+    ((ci // 4) * tn / 8 + co // 8) * 32 + (co % 8) * 4 + ci % 4, co and ci
+    counted within the tile and the chunk."""
+    p = tf32_round(w).transpose(-1, -2)          # (..., C_out, C_in)
+    *lead, C, _ = p.shape
+    n = len(lead)
+    p = p.reshape(*lead, C // tn, tn // 8, 8, C // TC_CK, TC_CK // 4, 4)
+    order = [n, n + 3, n + 4, n + 1, n + 2, n + 5]
     return p.permute(*range(n), *order).contiguous()
 
 
@@ -283,6 +339,19 @@ def stage_pack(weights, tn):
             return (tc_pack_narrow(taps) if narrow(C, tn)
                     else tc_pack(taps, tn))
     return _cached_pack(ts, tn, pack)
+
+
+def tf32_stage_pack(weights, tn):
+    """The packed taps of a stage for csrc/mrf_tf32.cu (w1 then w2 of each
+    resblock, tf32_pack), kept per weight version (_cached_pack)."""
+    ts = [wd[key] for wd in weights for key in ("w1", "w2")]
+    C = ts[0].shape[-1]
+
+    def pack():
+        with torch.no_grad():
+            return tf32_pack(torch.cat([t.reshape(-1, C, C) for t in ts]),
+                             tn)
+    return _cached_pack(ts, ("tf32", tn), pack)
 
 
 def stack_pack(weights):
@@ -334,17 +403,17 @@ def _conv_launch(x, w, b, d, res, out, acc, acc_scale):
     mrf.launches += 1
 
 
-def _tc_conv_launch(x, wp, k, b, d, res, out, acc, acc_scale, tile,
-                    passes):
+def _tc_conv_launch(fn, count, x, wp, k, b, d, res, out, acc, acc_scale,
+                    tile):
+    """One conv on a tensor-core kernel: fn, csrc/mrf_tc.cu's or
+    csrc/mrf_tf32.cu's entry (the same arguments), counted in mrf.<count>."""
     B, T, C = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _tc_libs[passes].radtts_mrf_tc_conv(
-            _ptr(x), _ptr(wp), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
-            acc_scale, B, T, C, k, d, LRELU_SLOPE, *tile, stream)
+        err = fn(_ptr(x), _ptr(wp), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
+                 acc_scale, B, T, C, k, d, LRELU_SLOPE, *tile, stream)
     if err != 0:
         _raise(err, x, k, d)
-    count = _TC_COUNTS[passes]
     setattr(mrf, count, getattr(mrf, count) + 1)
 
 
@@ -376,10 +445,11 @@ def mrf(x, weights):
     """MRF mean of one stage. x: (B, T, C) float32 -> (B, T, C).
 
     A CPU tensor runs mrf_plain. A CUDA tensor runs the hand-written
-    kernel that mrf_route names (route "tc" in one TF32 pass at matmul
-    precision "default", ops/precision.py), or raises. The kernels have no
-    backward: with grad enabled and x or a weight requiring grad it raises,
-    since its output would carry no gradient; differentiate mrf_plain."""
+    kernel that mrf_route names at the current matmul precision's passes
+    (ops/precision.py: one pass at "default"), or raises. The kernels
+    have no backward: with grad enabled and x or a weight requiring grad
+    it raises, since its output would carry no gradient; differentiate
+    mrf_plain."""
     if x.device.type == "cpu":
         return mrf_plain(x, weights)
     if x.device.type != "cuda":
@@ -394,11 +464,13 @@ def mrf(x, weights):
 
 
 def mrf_cuda(x, weights, tile=None, route=None, passes=3):
-    """The card's kernels of mrf; `route` ("tc", "stack" or "conv")
-    overrides mrf_route, to time one kernel against another on the same
-    inputs, and `tile` overrides tc_tile(C) ((TN, NWG), route "tc") or
-    stack_tile(T) (rows, route "stack"). `passes` (3 or 1) picks the "tc"
-    route's build; the other routes are fp32 FMA at either."""
+    """The card's kernels of mrf at `passes` TF32 passes (3 or 1); `route`
+    ("tc", "tf32", "stack" or "conv") overrides mrf_route, to time one
+    kernel against another on the same inputs, and `tile` overrides
+    tc_tile(C) or tf32_tile(C) ((TN, NWG), routes "tc" and "tf32") or
+    stack_tile(T) (rows, route "stack"). Route "tc" at passes=1 is
+    csrc/mrf_tc.cu's one-pass build, which "tf32" replaced; "tf32" takes
+    passes=1 only; the other routes are fp32 FMA at either."""
     B, T, C = x.shape
     _check("x", x, (B, T, C), x.device)
     if C % 4:
@@ -413,8 +485,10 @@ def mrf_cuda(x, weights, tile=None, route=None, passes=3):
             _check(f"{key}[{m}]", wd[key], (n, k, C, C), x.device)
         for key in ("b1", "b2"):
             _check(f"{key}[{m}]", wd[key], (n, C), x.device)
-    route = mrf_route(C, len(weights)) if route is None else route
-    if route not in ("tc", "stack", "conv"):
+    if passes not in _TC_COUNTS:
+        raise ValueError(f"mrf: passes={passes}, expected 1 or 3")
+    route = mrf_route(C, len(weights), passes) if route is None else route
+    if route not in ("tc", "tf32", "stack", "conv"):
         raise ValueError(f"mrf: unknown route {route!r}")
 
     if route == "stack":
@@ -430,14 +504,24 @@ def mrf_cuda(x, weights, tile=None, route=None, passes=3):
                       [wd["w1"].shape[1] for wd in weights], out,
                       tile or stack_tile(T, B, _sm_count(x.device)))
         return out
-    if route == "tc":
-        if passes not in _TC_COUNTS:
-            raise ValueError(f"mrf: passes={passes}, expected 1 or 3")
+    if route == "tf32":
+        if passes != 1 or C % TC_CK:
+            raise ValueError(f"mrf: the one-pass TF32 kernel takes passes=1 "
+                             f"and C a multiple of {TC_CK}, got passes="
+                             f"{passes}, C={C}")
+        if _tf32_lib is None:
+            build_tf32()
+        fn, count = _tf32_lib.radtts_mrf_tf32_conv, "tf32_launches"
+        tile = tile or tf32_tile(C)
+        packed = tf32_stage_pack(weights, tile[0])
+    elif route == "tc":
         if passes not in _tc_libs:
             build_tc(passes)
+        fn, count = _tc_libs[passes].radtts_mrf_tc_conv, _TC_COUNTS[passes]
         tile = tile or tc_tile(C)
         packed = stage_pack(weights, tile[0])
-        first, n = {}, 0
+    if route in ("tc", "tf32"):
+        first, n = {}, 0    # each conv's first tap in the packed stage
         for m, wd in enumerate(weights):
             for key in ("w1", "w2"):
                 first[m, key] = n
@@ -446,8 +530,8 @@ def mrf_cuda(x, weights, tile=None, route=None, passes=3):
         def conv(m, key, i, src, b, d, res, dst, acc, scale):
             k = weights[m][key].shape[1]
             j = first[m, key] + i * k
-            _tc_conv_launch(src, packed[j:j + k], k, b, d, res, dst, acc,
-                            scale, tile, passes)
+            _tc_conv_launch(fn, count, src, packed[j:j + k], k, b, d, res,
+                            dst, acc, scale, tile)
     else:
         if _lib is None:
             build()
@@ -472,5 +556,6 @@ def mrf_cuda(x, weights, tile=None, route=None, passes=3):
 
 mrf.launches = 0        # csrc/mrf.cu launches
 mrf.tc_launches = 0     # csrc/mrf_tc.cu launches (3xTF32)
-mrf.tc1_launches = 0    # its one-pass build's launches
+mrf.tc1_launches = 0    # its one-pass build's launches (route="tc" only)
+mrf.tf32_launches = 0   # csrc/mrf_tf32.cu launches (one TF32 pass)
 mrf.stack_launches = 0  # csrc/mrf_stack.cu launches

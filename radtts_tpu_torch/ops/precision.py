@@ -5,8 +5,8 @@
 cuDNN, and csrc/mrf_tc.cu in 3xTF32. "high" and "default" let cuBLAS and
 cuDNN round fp32 operands to TF32, as XLA does at those precisions on a
 Hopper card; "default" also runs the tensor-core MRF in one TF32 pass
-(csrc/mrf_tc.cu built with MRF_TC_PASSES=1), the counterpart of the Pallas
-MRF's single default-precision dot (radtts_tpu/ops/pallas_mrf.py:55-63).
+(csrc/mrf_tf32.cu), the counterpart of the Pallas MRF's single
+default-precision dot (radtts_tpu/ops/pallas_mrf.py:55-63).
 The csrc/mrf_stack.cu and csrc/mrf.cu FMA kernels stay fp32 at every
 setting.
 
@@ -79,6 +79,6 @@ def island(fn):
 
 
 def mrf_passes():
-    """TF32 passes of csrc/mrf_tc.cu at the current precision: 1 at
-    "default", else 3."""
+    """TF32 passes of the tensor-core MRF at the current precision: 1 at
+    "default", else 3 (ops/mrf.py:mrf_route names the kernel)."""
     return 1 if _current[0] == "default" else 3

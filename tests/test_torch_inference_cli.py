@@ -36,6 +36,18 @@ from radtts_tpu_torch.models.attributes import attribute_model_infer
 from radtts_tpu_torch.models.hifigan import generator_to_reference
 from radtts_tpu_torch.text.chunking import split_text_to_chunks
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """This file's small models run on one intra-op thread, its module
+    fixtures included: where the suite's workers share the cores, OpenMP's
+    barriers stall many short ops (tests/test_torch_parallel_serve.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LINES = [
     "# a comment line is skipped",
     "The quick brown fox jumps over the lazy dog.",
@@ -127,7 +139,7 @@ def test_cli_matches_jax_inference(fixtures, tmp_path, capsys):
     paths, _, _ = fixtures
     extra = ["--sigma", "0", "--batch_size", "2", "--long_text_chunk",
              str(CHUNK), "--seed", "7"]
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     jax_out = tmp_path / "jax"
     result = subprocess.run(
         [sys.executable, "inference.py", *cli_args(paths, jax_out, *extra)],

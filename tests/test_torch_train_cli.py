@@ -32,6 +32,19 @@ from radtts_tpu_torch.train.checkpoint import (load_radtts_for_inference,
                                                warmstart_state)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """This file's small models run on one intra-op thread, its module
+    fixtures included: where the suite's workers share the cores, OpenMP's
+    barriers stall many short ops (tests/test_torch_parallel_serve.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SR = 22050
 TEXTS = ["The cat sat.", "A big dog ran fast!", "Hello world again.",
          "Testing one two three."]
@@ -272,6 +285,7 @@ def test_module_entry_point_runs(config_path, tmp_path):
     """python -m radtts_tpu_torch.train, in a process of its own; without
     --device it would need CUDA."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run(
         [sys.executable, "-m", "radtts_tpu_torch.train", "-c", config_path,
          "--device", "cpu", "-p", f"train_config.output_directory={tmp_path}",

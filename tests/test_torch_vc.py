@@ -43,6 +43,19 @@ from radtts_tpu_torch.models.hifigan import (generator_from_reference,
                                              generator_to_reference)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """This file's small models run on one intra-op thread, its module
+    fixtures included: where the suite's workers share the cores, OpenMP's
+    barriers stall many short ops (tests/test_torch_parallel_serve.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SR = 22050
 
 # ---------------------------------------------------------------------------
@@ -332,7 +345,8 @@ def test_cli_matches_jax_voice_conversion(vc_fixtures, tmp_path, mode,
     --filter_invalid takes one pass (the DAPs are deterministic)."""
     paths = vc_fixtures
     extra = MODES[mode]
-    env = dict(os.environ, JAX_PLATFORMS="cpu", RADTTS_JAX_CACHE="off")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", RADTTS_JAX_CACHE="off",
+               OMP_NUM_THREADS="1")
     jax_out = tmp_path / "jax"
     result = subprocess.run(
         [sys.executable, "inference_voice_conversion.py",
