@@ -20,12 +20,15 @@ Phases, each printing a JSON or text line:
      (16, 2048, 128), (16, 4096, 64), (16, 8192, 32); ragged (2, 997, C)),
      csrc/mrf_stack.cu at HiFi-GAN V2's last stages (1, 77824, 16) and
      (1, 155648, 8), ragged (2, 997, 16) and (2, 997, 8), and T below one
-     tile (2, 50, 16); csrc/mrf.cu at widths only it takes: (2, 997, 48)
-     and, timed, (1, 77824, 48) and (1, 38912, 96), the C=48 and C=96
-     stages of a 384-channel v1-rate generator at 608 frames.
+     tile (2, 50, 16); csrc/mrf_tc.cu at (2, 997, 192), a multiple of 64
+     that 128 does not divide; csrc/mrf.cu at widths only it takes: (2,
+     997, 48) and, timed, (1, 38912, 96), (1, 77824, 48) and (1, 155648,
+     24), 608 frames of stages at these widths.
      With the kernel's, the plain version's and the cuDNN conv chain's
      times, the launch grid, the bound at the 3xTF32 rate beside the
      fp32-FMA one, and the 18-launch chain's activation-bytes floor; at
+     csrc/mrf.cu's timed widths also the cuDNN chain at TF32 and the bound
+     at the TF32 rate; at
      C=64, 32, 16 and 8 also csrc/mrf.cu's time on the same inputs
      (route="conv", the kernel those stages ran before). Then the
      tensor-core kernel's tile shapes at the v1 serving stages and the
@@ -34,7 +37,8 @@ Phases, each printing a JSON or text line:
      the four v1 serving stages, timed beside the 3xTF32 build, the plain
      version, the cuDNN chain at TF32 and the bound at the TF32 rate; then
      csrc/mrf_tf32.cu (route "tf32") against mrf_plain(passes=1) at
-     the serving, training and ragged shapes, timed at the first two in
+     the serving, training and ragged shapes and (2, 997, 192), timed at
+     the first two in
      turns with that build ("before") and beside the same yardsticks and
      the chain's bytes floor, and its tile shapes swept at the serving
      stages;
@@ -149,12 +153,13 @@ Phases, each printing a JSON or text line:
      updates) and its generator gradients against the step in float64;
   8. MAS kernels vs plain: ops/mas.py:mas against mas_plain on the card
      at (16, 512, 112), the flagship training batch, ragged (3, 997, 61),
-     an item with in_len > out_len and (2, 2500, 100): csrc/mas.cu's warp
-     kernel (the route mas_route names, asserted) and the block kernel
-     kernel on the same inputs ("before"); then (2, 400, 300), whose 300
-     tokens take the block kernel (asserted): the hard alignments must be
-     equal; the kernels' and the plain version's times and the bytes
-     floor;
+     an item with in_len > out_len, (2, 2500, 100), (1, 7000, 200) and,
+     past 256 tokens, ragged (2, 400, 300), (1, 2000, 600) and (1, 3000,
+     1000) (16 and 32 tokens a lane): csrc/mas.cu's warp kernel (the route
+     mas_route names, asserted) and the block kernel on the same inputs
+     ("before"); then (1, 300, 1100), whose 1100 tokens take the block
+     kernel (asserted): the hard alignments must be equal; the kernels'
+     and the plain version's times and the bytes floor;
   9. RADTTS training path: python -m radtts_tpu_torch.train's main on a
      seeded dataset (16 training and 2 validation int16 wavs of 2-6 s,
      texts from filelists/), its caches first warmed by python -m
@@ -277,9 +282,12 @@ RAGGED = [(2, 997, 256), (2, 997, 128), (2, 997, 64), (2, 997, 32)]
 STACK_STAGES = [(1, 77824, 16), (1, 155648, 8)]
 STACK_RAGGED = [(2, 997, 16), (2, 997, 8), (2, 50, 16)]   # 50 < one tile
 CONV_ONLY = [(2, 997, 48)]       # a width that only csrc/mrf.cu takes
-# csrc/mrf.cu's own widths at full size: the C=48 and C=96 stages of a
-# v1-rate generator with 384 initial channels at 608 frames
-CONV_STAGES = [(1, 77824, 48), (1, 38912, 96)]
+# csrc/mrf.cu's own widths at full size: 608 frames of stages at C=96, 48
+# and 24 (the rates of v1 with 384 initial channels; no published
+# generator has these stages)
+CONV_STAGES = [(1, 38912, 96), (1, 77824, 48), (1, 155648, 24)]
+# a multiple of 64 that 128 does not divide: csrc/mrf_tf32.cu's tile 64
+ODD_TC = [(2, 997, 192)]
 # a C <= 16 stage with more resblocks than csrc/mrf_stack.cu takes: routed
 # to csrc/mrf.cu
 CONV_RESBLOCKS = [((2, 997, 16), (3, 7, 11, 3, 7))]
@@ -420,9 +428,11 @@ def phase_kernels(mrf_mod, dev):
     stages = []
     max_err = {"mrf_tc": 0.0, "mrf_stack": 0.0, "mrf_conv": 0.0}
     inputs = {}
+    from radtts_tpu_torch.ops import precision
+
     timed_shapes = STAGES + TRAIN_STAGES + STACK_STAGES + CONV_STAGES
     cases = [(shape, (3, 7, 11)) for shape in (
-        STAGES + TRAIN_STAGES + RAGGED + STACK_STAGES + STACK_RAGGED
+        STAGES + TRAIN_STAGES + RAGGED + ODD_TC + STACK_STAGES + STACK_RAGGED
         + CONV_ONLY + CONV_STAGES)] + CONV_RESBLOCKS
     for (B, T, C), ks in cases:
         x = torch.randn(B, T, C, device=dev, generator=gen)
@@ -469,6 +479,11 @@ def phase_kernels(mrf_mod, dev):
             if "conv_route_max_abs_err" in row:
                 row["conv_route_ms"] = cuda_ms(
                     lambda: mrf_mod.mrf_cuda(x, w, route="conv"))
+            if kernel == "mrf_conv":
+                with precision.scope("high"):
+                    row["library_tf32_ms"] = cuda_ms(
+                        lambda: library_mrf(xc, tw))
+                row["tf32_bound_ms"] = tf32_bound(B, T, C)[0]
             row["tflops"] = flop / row["ms"] / 1e9
             row["serving"] = (B, T, C) in STAGES + STACK_STAGES
             stages.append(row)
@@ -1206,9 +1221,13 @@ MAS_SHAPES = [((16, 512, 112), None),          # the flagship training batch
               ((2, 2500, 100), ([2500, 1700], [100, 64])),  # long
               # the warp kernel's choices in global scratch (T x K words
               # beside its ring exceed a block's shared memory)
-              ((1, 7000, 200), None)]
-# N > 256 tokens: mas_route gives the block kernel
-MAS_BLOCK_SHAPE = ((2, 400, 300), ([400, 260], [300, 211]))
+              ((1, 7000, 200), None),
+              # past 256 tokens: 16 tokens a lane (choices in shared
+              # memory), then 32 (choices in global scratch)
+              ((2, 400, 300), ([400, 260], [300, 211])),
+              ((1, 2000, 600), None), ((1, 3000, 1000), None)]
+# N > 1024 tokens: mas_route gives the block kernel
+MAS_BLOCK_SHAPE = ((1, 300, 1100), ([300], [1037]))
 RADTTS_STEP = (16, 112, 512)       # bench_train.py's (B, N, T)
 RADTTS_TRAIN_WAVS, RADTTS_VAL_WAVS = 16, 2
 
@@ -1232,7 +1251,7 @@ def phase_mas_kernel(mas_mod, dev, power):
     """csrc/mas.cu against mas_plain on the card: at every MAS_SHAPES entry
     the warp kernel (the route mas_route names there; asserted: one warp
     launch), and the block kernel on the same inputs (route="block",
-    its time "before"); then MAS_BLOCK_SHAPE, whose N > 256 the planner
+    its time "before"); then MAS_BLOCK_SHAPE, whose N > 1024 the planner
     gives the block kernel (asserted). The hard alignments must be equal.
     Times of all (CUDA events); the bound is the bytes floor (B*T*N fp32
     read and written at 3.35 TB/s; ~4 operations a cell are far below
@@ -1269,6 +1288,7 @@ def phase_mas_kernel(mas_mod, dev, power):
             row["block_smem_bytes"] = mas_mod._lib.radtts_mas_smem_bytes(T, N)
             want_routed = (0, 1)
         else:
+            row["tokens_a_lane"] = mas_mod.warp_tokens_a_lane(N)
             row["warp_choices_in_smem"] = \
                 mas_mod._lib.radtts_mas_warp_scratch_words(B, T, N) == 0
             old = mas_mod.mas_cuda(attn, out_lens, in_lens, route="block")
@@ -3651,7 +3671,7 @@ def phase_mrf_tf32(mrf_mod, dev, power, inputs):
 
     gen = torch.Generator(dev).manual_seed(14)
     rows, max_err = [], 0.0
-    for B, T, C in STAGES + TRAIN_STAGES + RAGGED:
+    for B, T, C in STAGES + TRAIN_STAGES + RAGGED + ODD_TC:
         if (B, T, C) in inputs:
             x, w = inputs[(B, T, C)]
         else:
@@ -3666,7 +3686,7 @@ def phase_mrf_tf32(mrf_mod, dev, power, inputs):
         row = {"shape": [B, T, C], "tile": list(mrf_mod.tf32_tile(C)),
                "routed": mrf_mod.mrf_route(C, 3, 1), "max_abs_err": err,
                "max_abs_plain": scale}
-        if (B, T, C) not in RAGGED:
+        if (B, T, C) in STAGES + TRAIN_STAGES:
             xc, tw = library_inputs(x, w)
             bound_ms, bound_by, flop = tf32_bound(B, T, C)
 
@@ -4634,13 +4654,14 @@ def main():
                   "at (2, 997, 48)); times are route='conv' on the V2 "
                   "C=16 and C=8 stages' inputs, summed, with their plain, "
                   "library and bound times; own_stages: its own widths, "
-                  "the C=48 and C=96 stages of a 384-channel v1-rate "
-                  "generator at 608 frames (library: the cuDNN fp32 chain; "
-                  "its products are fp32 FMA: fp32_fma_bound_ms)",
+                  "608 frames of stages at C=96, 48 and 24 (library_ms: "
+                  "the cuDNN fp32 chain, library_tf32_ms at TF32; its "
+                  "products are fp32 FMA: fp32_fma_bound_ms; bound_ms at "
+                  "the 3xTF32 rate, tf32_bound_ms at the TF32 rate)",
              own_stages=[{k: s[k] for k in (
-                 "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                 "fp32_fma_bound_ms", "chain_bytes_floor_ms",
-                 "max_abs_err")} for s in stages
+                 "shape", "ms", "plain_ms", "library_ms", "library_tf32_ms",
+                 "bound_ms", "tf32_bound_ms", "fp32_fma_bound_ms",
+                 "chain_bytes_floor_ms", "max_abs_err")} for s in stages
                  if tuple(s["shape"]) in CONV_STAGES]), {
         "name": "mel",
         "route": "cuda",
@@ -4679,13 +4700,15 @@ def main():
         "bound_ms": mas_warp[0]["bound_ms"],
         "bound_by": mas_warp[0]["bound_by"],
         "library_ms": None,
-        "note": "one warp an utterance (N <= 256, mas_route); times at (16, "
+        "note": "one warp an utterance (N <= 1024, mas_route; 1 to 32 "
+                "tokens a lane); times at (16, "
                 "512, 112), the flagship training batch; before_ms: the "
                 "block kernel on the same inputs; no PyTorch call computes "
                 "MAS; bound_ms is the bytes floor, but the dependence over "
                 "frames (a chain of out_len steps an utterance) bounds it",
         "shapes": [{k: r[k] for k in (
-            "shape", "warp_choices_in_smem", "ms", "before_ms", "plain_ms",
+            "shape", "tokens_a_lane", "warp_choices_in_smem", "ms",
+            "before_ms", "plain_ms",
             "bound_ms", "bound_by", "cells_different",
             "before_cells_different", "max_abs_err")} for r in mas_warp],
     }, {
@@ -4702,7 +4725,7 @@ def main():
         "bound_by": mas_warp[0]["bound_by"],
         "library_ms": None,
         "note": "The block kernel, one block an utterance, the route of texts "
-                "of N > 256 tokens (0 launches on every path); held at "
+                "of N > 1024 tokens (0 launches on every path); held at "
                 f"{mas_block['shape']} ({mas_block['ms']} ms there); ms, "
                 "plain_ms and bound_ms at (16, 512, 112), route='block'",
     }, {

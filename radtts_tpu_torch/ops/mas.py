@@ -5,9 +5,9 @@ Port of radtts_tpu/ops/mas.py:mas_width1, which the JAX package compiles as
 one XLA scan over mel frames (not a Pallas kernel). On the card `mas`
 launches a hand-written kernel of csrc/mas.cu once per call, the one
 `mas_route(N)` names by shape: "warp" (one warp an utterance, the DP row in
-registers, for N <= 256 tokens) or "block" (one block an utterance,
-the DP row in shared memory, for longer texts); see its header for both
-designs and what bounds them. `mas_plain` is the same function in plain
+registers, K = 1 to 32 tokens a lane, for N <= 1024 tokens) or "block"
+(one block an utterance, the DP row in shared memory, for longer texts);
+see its header for both designs and what bounds them. `mas_plain` is the same function in plain
 PyTorch, a loop over frames vectorized over the batch and the tokens,
 which the CPU path and the tests use. Both give the JAX package's 0/1
 matrix exactly: its tie-break (prefer the token before when the scores
@@ -21,7 +21,7 @@ import torch
 from radtts_tpu_torch.ops.cuda_build import build_library
 
 NEG_INF = -1e30
-WARP_MAX_N = 256    # csrc/mas.cu kWarpMaxN
+WARP_MAX_N = 1024   # csrc/mas.cu kWarpMaxN: 32 lanes x 32 tokens
 _lib = None
 
 
@@ -82,6 +82,13 @@ def build():
     lib.radtts_mas_warp_scratch_words.restype = ctypes.c_int
     _lib = lib
     return lib, log, seconds
+
+
+def warp_tokens_a_lane(N):
+    """K of csrc/mas.cu's warp kernel at N tokens (tokens_a_lane): the
+    least of 1, 2, 4, 8, 16, 32 with 32 K >= N, one template instance
+    each."""
+    return next(k for k in (1, 2, 4, 8, 16, 32) if 32 * k >= N)
 
 
 def mas_route(N):

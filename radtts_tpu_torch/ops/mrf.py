@@ -226,8 +226,10 @@ def tf32_tile(C):
     """(TN, NWG) of csrc/mrf_tf32.cu for width C: TN output channels and
     NWG consumer warpgroups (64 NWG time rows) per tile. The fastest on
     the H100 (chip_smoke.py's mrf_tf32_tiles): 128 x 128 tiles at C=256
-    and C=128, TN = C with two warpgroups at C=64 and C=32."""
-    return (min(C, 128), 2)
+    and C=128 (every multiple of 128), TN = C with two warpgroups at C=64
+    and C=32, and 64 at the other multiples of 64 (C=192), which 128 does
+    not divide."""
+    return (128, 2) if C % 128 == 0 else (min(C, 64), 2)
 
 
 def tf32_plane_rows(nwg):

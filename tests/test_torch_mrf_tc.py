@@ -20,11 +20,11 @@ import jax.numpy as jnp
 from radtts_tpu.ops.pallas_mrf import pallas_mrf, pallas_mrf_folded
 
 from radtts_tpu_torch.ops import mrf as mrf_mod
-from radtts_tpu_torch.ops.mrf import (DILATIONS, LRELU_SLOPE, TC_CK, mrf,
-                                      mrf_cuda, mrf_plain, mrf_route, narrow,
-                                      stage_pack, tc_grid, tc_pack,
-                                      tc_pack_narrow, tc_split, tc_tile,
-                                      tf32_round)
+from radtts_tpu_torch.ops.mrf import (DILATIONS, LRELU_SLOPE, TC_CK,
+                                      _conv_plain, mrf, mrf_cuda, mrf_plain,
+                                      mrf_route, narrow, stage_pack, tc_grid,
+                                      tc_pack, tc_pack_narrow, tc_split,
+                                      tc_tile, tf32_plane_rows, tf32_round)
 
 
 def _weights(C, seed, std=0.03):
@@ -269,3 +269,86 @@ def test_stage_pack_is_kept_per_weight_version(C):
     copy = [{k: v.clone() for k, v in wd.items()} for wd in w]
     assert stage_pack(copy, 64) is not third
     assert stage_pack(w, 32) is not third      # another tile width
+
+
+def _desc_rows(start, lbo, sbo, n_rows):
+    """Float indices of an n_rows x 8 tf32 K-major operand read through a
+    no-swizzle wgmma descriptor (byte offsets): element (m, kk) of core
+    matrix (m // 8, kk // 4) at start + (m // 8) * sbo + (kk // 4) * lbo +
+    (m % 8) * 16 + (kk % 4) * 4."""
+    m = np.arange(n_rows)[:, None]
+    kk = np.arange(8)[None, :]
+    return (start + (m // 8) * sbo + (kk // 4) * lbo + (m % 8) * 16
+            + (kk % 4) * 4) // 4
+
+
+def _narrow_conv_emulated(x, w_taps, b, d, nwg):
+    """One launch of csrc/mrf_tc.cu's narrow kernel, addressing and all. x
+    (B, T, C) before leaky ReLU, w_taps (k, C_in, C_out), b (C,) -> (B, T,
+    C) numpy: per (item, time tile) the hi and lo planes of all C channels
+    (the 16-byte unit (group g, row i) at (g * R + i) * 16 bytes), then per
+    (tap j, chunk c) unit of tc_pack_narrow and k-step q the kernel's
+    descriptors: A at group 8c + 2q, j d rows on; B the unit's 2C rows (hi,
+    then lo), its first C for the lo * hi product; the sum acc_w[:, :C] +
+    (acc_w[:, C:] + acc_l)."""
+    x = x.numpy()
+    B, T, C = x.shape
+    k = w_taps.shape[0]
+    TM, R = 64 * nwg, tf32_plane_rows(nwg)
+    pad = (k - 1) // 2 * d
+    rows = TM + 2 * pad
+    units = tc_pack_narrow(w_taps).numpy().reshape(k * (C // TC_CK), -1)
+    a = F.leaky_relu(torch.from_numpy(x), LRELU_SLOPE)
+    a_hi = _rna(a)
+    a_lo = _rna(a - a_hi)
+    ib = np.concatenate([_desc_rows(q * C * 64, C * 32, 128, 2 * C)
+                         for q in range(TC_CK // 8)], axis=1)
+    y = np.zeros_like(x)
+    for item in range(B):
+        for t0 in range(0, T, TM):
+            t = t0 - pad + np.arange(rows)
+            inside = (t >= 0) & (t < T)
+            planes = []
+            for src in (a_hi.numpy(), a_lo.numpy()):
+                slab = np.zeros((rows, C), np.float32)
+                slab[inside] = src[item, t[inside]]
+                plane = np.zeros((C // 4, R, 4), np.float32)
+                plane[:, :rows] = slab.reshape(rows, C // 4, 4).transpose(
+                    1, 0, 2)
+                planes.append(plane.reshape(-1))
+            acc_w = np.zeros((TM, 2 * C), np.float32)
+            acc_l = np.zeros((TM, C), np.float32)
+            for j in range(k):
+                for c in range(C // TC_CK):
+                    bw = units[j * (C // TC_CK) + c][ib]    # (2C, 32)
+                    for wg in range(nwg):
+                        ia = np.concatenate([_desc_rows(
+                            (TC_CK // 4 * c + 2 * q) * R * 16
+                            + (64 * wg + j * d) * 16, R * 16, 128, 64)
+                            for q in range(TC_CK // 8)], axis=1)
+                        rs = slice(64 * wg, 64 * wg + 64)
+                        acc_w[rs] += planes[0][ia] @ bw.T
+                        acc_l[rs] += planes[1][ia] @ bw[:C].T
+            frag = acc_w[:, :C] + (acc_w[:, C:] + acc_l)
+            n = min(TM, T - t0)
+            y[item, t0:t0 + n] = frag[:n] + b.numpy()
+    return y
+
+
+@pytest.mark.parametrize("C,T,k,d,nwg", [
+    (64, 101, 7, 3, 2), (64, 97, 11, 5, 1), (32, 97, 11, 1, 2),
+    (32, 150, 3, 3, 1)])
+def test_narrow_descriptor_emulation_matches_plain(C, T, k, d, nwg):
+    """One conv through the narrow kernel's hi/lo planes, its descriptors
+    and tc_pack_narrow's units equals the fp32 conv on the same inputs
+    within 1e-6 * max (3xTF32 drops lo * lo, ~2^-22 of a product), ragged
+    T."""
+    rng = np.random.default_rng(C + T + k)
+    x = torch.from_numpy(rng.standard_normal((2, T, C)).astype(np.float32))
+    w = torch.from_numpy((0.03 * rng.standard_normal((k, C, C)))
+                         .astype(np.float32))
+    b = torch.from_numpy((0.03 * rng.standard_normal(C)).astype(np.float32))
+    want = _conv_plain(F.leaky_relu(x.transpose(1, 2), LRELU_SLOPE), w, b,
+                       d).transpose(1, 2).numpy()
+    got = _narrow_conv_emulated(x, w, b, d, nwg)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()

@@ -34,18 +34,8 @@ from radtts_tpu_torch.ops.mrf import (DILATIONS, LRELU_SLOPE, TC_CK,
                                       _conv_plain, mrf, mrf_cuda, mrf_plain,
                                       mrf_route, tf32_pack, tf32_plane_rows,
                                       tf32_round, tf32_stage_pack, tf32_tile)
-from tests.test_torch_mrf_tc import _rna, _weights, _x
+from tests.test_torch_mrf_tc import _desc_rows, _rna, _weights, _x
 
-
-def _desc_rows(start, lbo, sbo, n_rows):
-    """Float indices of an n_rows x 8 tf32 K-major operand read through a
-    no-swizzle wgmma descriptor (byte offsets): element (m, kk) of core
-    matrix (m // 8, kk // 4) at start + (m // 8) * sbo + (kk // 4) * lbo +
-    (m % 8) * 16 + (kk % 4) * 4."""
-    m = np.arange(n_rows)[:, None]
-    kk = np.arange(8)[None, :]
-    return (start + (m // 8) * sbo + (kk // 4) * lbo + (m % 8) * 16
-            + (kk % 4) * 4) // 4
 
 
 def _conv_emulated(x, w_taps, b, d, tn, nwg, res=None):
@@ -150,9 +140,15 @@ def test_cpu_tensor_at_default_precision_takes_plain_path():
 
 
 @pytest.mark.parametrize("C,tile", [(256, (128, 2)), (128, (128, 2)),
-                                    (64, (64, 2)), (32, (32, 2))])
+                                    (64, (64, 2)), (32, (32, 2)),
+                                    (192, (64, 2))])
 def test_tile(C, tile):
+    """TN = C up to 64, 128 at the multiples of 128, else 64: a tile the
+    kernel takes (TN in 32, 64, 128 dividing C) at every width mrf_route
+    sends it, C=192 among them."""
     assert tf32_tile(C) == tile
+    assert tile[0] in (32, 64, 128) and C % tile[0] == 0
+    assert mrf_route(C, 3, 1) == "tf32"
 
 
 @pytest.mark.parametrize("tn", [128, 64, 32])

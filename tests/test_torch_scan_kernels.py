@@ -283,31 +283,41 @@ def test_paired_agap_decode_matches_jax_and_unpaired(monkeypatch):
 
 
 @pytest.mark.parametrize("N,route", [(1, "warp"), (112, "warp"),
-                                     (256, "warp"), (257, "block"),
-                                     (600, "block")])
+                                     (256, "warp"), (257, "warp"),
+                                     (600, "warp"), (1024, "warp"),
+                                     (1025, "block")])
 def test_mas_route_by_tokens(N, route):
     assert mas_mod.mas_route(N) == route
 
 
+@pytest.mark.parametrize("N,K", [(1, 1), (32, 1), (33, 2), (112, 4),
+                                 (256, 8), (257, 16), (300, 16), (512, 16),
+                                 (513, 32), (1000, 32), (1024, 32)])
+def test_mas_warp_tokens_a_lane(N, K):
+    """The warp kernel's template instance by N: the least K of 1, 2, 4,
+    8, 16, 32 with 32 K >= N."""
+    assert mas_mod.warp_tokens_a_lane(N) == K
+
+
 def test_mas_warp_route_refuses_long_texts():
-    attn = torch.zeros(1, 4, 300, device="meta")
-    with pytest.raises(ValueError, match="N <= 256"):
-        mas_mod.mas_cuda(attn, torch.tensor([4]), torch.tensor([300]),
+    attn = torch.zeros(1, 4, 1100, device="meta")
+    with pytest.raises(ValueError, match="N <= 1024"):
+        mas_mod.mas_cuda(attn, torch.tensor([4]), torch.tensor([1100]),
                          route="warp")
 
 
 def warp_emulation(attn, out_lens, in_lens):
     """csrc/mas.cu's warp kernel in numpy float32: lane l holds tokens
-    l K .. l K + K - 1, the choices of a frame as K 32-bit words (bit l of
-    word q: token l K + q), the backtrack reading those bits."""
+    l K .. l K + K - 1, the choices of a frame as 32 lane words (bit q of
+    word l: token l K + q), the backtrack reading those bits."""
     B, T, N = attn.shape
-    K = 1 if N <= 32 else 2 if N <= 64 else 4 if N <= 128 else 8
+    K = mas_mod.warp_tokens_a_lane(N)
     out = np.zeros_like(attn)
     neg = np.float32(-1e30)
     for b in range(B):
         out_len = min(max(out_lens[b], 0), T)
         in_len = min(max(in_lens[b], 0), N)
-        words = np.zeros((T, K), np.uint64)
+        words = np.zeros((T, 32), np.uint64)
         with np.errstate(divide="ignore", invalid="ignore"):
             la = np.where(np.arange(32 * K) < in_len,
                           np.log(np.pad(attn[b], ((0, 0), (0, 32 * K - N)),
@@ -321,16 +331,17 @@ def warp_emulation(attn, out_lens, in_lens):
                 best = np.where(np.isnan(sh) | np.isnan(s), np.nan,
                                 np.maximum(sh, s)).astype(np.float32)
                 s = (la[i] + best).astype(np.float32)
-                for q in range(K):
-                    words[i, q] = sum(int(left[lane * K + q]) << lane
-                                      for lane in range(32))
+                for lane in range(32):
+                    words[i, lane] = sum(int(left[lane * K + q]) << q
+                                         for q in range(K))
         if out_len > 0 and in_len > 0:
             curr = in_len - 1
             for i in range(out_len - 1, -1, -1):
                 if curr < 0:
                     break
                 out[b, i, curr] = 1.0
-                if i > 0 and (int(words[i, curr % K]) >> (curr // K)) & 1:
+                lane, q = divmod(curr, K)
+                if i > 0 and (int(words[i, lane]) >> q) & 1:
                     curr -= 1
             out[b, 0, 0] = 1.0
     return out
@@ -340,10 +351,13 @@ def warp_emulation(attn, out_lens, in_lens):
     (3, 41, 13, [41, 20, 9], [13, 7, 2], False),
     (2, 19, 70, [19, 11], [70, 44], True),
     (2, 30, 112, [30, 0], [112, 5], False),
-    (1, 12, 200, [12], [150], False)])
+    (1, 12, 200, [12], [150], False),
+    (2, 14, 300, [14, 9], [300, 211], False),
+    (1, 10, 300, [10], [300], True),
+    (1, 9, 1000, [9], [977], False)])
 def test_warp_kernel_algorithm_equals_mas_plain(B, T, N, ol, il, ties):
-    """The warp kernel's algorithm (K = 1, 2, 4 and 8 tokens a lane, ties,
-    an empty utterance) gives mas_plain's matrix."""
+    """The warp kernel's algorithm (K = 1, 2, 4, 8, 16 and 32 tokens a
+    lane, ties, an empty utterance) gives mas_plain's matrix."""
     rng = np.random.default_rng(B * T + N)
     if ties:
         attn = np.full((B, T, N), 1.0 / N, np.float32)
@@ -354,3 +368,25 @@ def test_warp_kernel_algorithm_equals_mas_plain(B, T, N, ol, il, ties):
     want = mas_mod.mas_plain(torch.from_numpy(attn), torch.as_tensor(ol),
                              torch.as_tensor(il)).numpy()
     np.testing.assert_array_equal(warp_emulation(attn, ol, il), want)
+
+
+@pytest.mark.parametrize("B,T,N,ol,il", [
+    (2, 14, 300, [14, 9], [300, 211]),     # K = 16
+    (1, 9, 1000, [9], [977])])             # K = 32
+def test_wide_warp_kernel_algorithm_equals_jax(B, T, N, ol, il):
+    """Past 256 tokens the warp kernel's algorithm (K = 16 and 32 tokens a
+    lane) gives the JAX package's mas_width1 matrix, as mas_plain does."""
+    from radtts_tpu.ops.mas import mas_width1
+
+    rng = np.random.default_rng(N + T)
+    logits = rng.normal(size=(B, T, N)) * 3.0
+    pad = np.arange(N)[None, :] >= np.asarray(il)[:, None]
+    logits = np.where(pad[:, None, :], -np.inf, logits)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    attn = (e / e.sum(-1, keepdims=True)).astype(np.float32)
+    want = np.asarray(mas_width1(jnp.asarray(attn), jnp.asarray(ol),
+                                 jnp.asarray(il)))
+    np.testing.assert_array_equal(warp_emulation(attn, ol, il), want)
+    np.testing.assert_array_equal(
+        mas_mod.mas_plain(torch.from_numpy(attn), torch.as_tensor(ol),
+                          torch.as_tensor(il)).numpy(), want)
