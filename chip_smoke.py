@@ -227,6 +227,12 @@ Phases, each printing a JSON or text line:
      BGAP's serving attributes stage and training step with the
      SimpleConvNets on and off cuDNN; and the energy model's float64
      gradients under fp32-sized noise in those convs (the relu flips);
+ 11c. Griffin-Lim: ops/stft.py:griffin_lim (plain PyTorch; no path calls
+     it) on (1, 608, 513) magnitudes, n_fft 1024, hop 256, 30 rounds,
+     from one initial phase drawn on the CPU: the card's waveform within
+     1e-2 * max of the CPU's (both runs' distances from a float64 run on
+     the CPU logged); median ms of 10 synchronized runs, a profiled run;
+     no hand-kernel launch;
  12. the {"kernels": [...]} line with the ten kernels (mrf_tc, mrf_tf32,
      mrf_tc_one_pass, mrf_stack, mrf_conv, mel, mas and mas_block, ar_scan
      and ar_scan_barrier) and their launches by path (serve, serve_files,
@@ -2645,6 +2651,73 @@ AMP_VARIANTS = {"fp32": {}, "amp": {"use_amp": True},
                                      "weight_dtype": "bfloat16"}}
 
 
+GL_FFT, GL_HOP, GL_ITERS = 1024, 256, 30   # griffin_lim's defaults
+GL_RTOL = 1e-2      # card against CPU, of max|CPU|
+
+
+def phase_griffin_lim(mods, dev, power):
+    """ops/stft.py:griffin_lim (plain PyTorch, called by no path) on the
+    card: the magnitudes (1, 608, 513) of a seeded two-sine-plus-noise
+    signal of the flagship length, n_fft 1024, hop 256, 30 rounds, from
+    one initial phase drawn on the CPU and given to the card and to the
+    CPU. The card's waveform must lie within GL_RTOL * max of the CPU's:
+    the phase of a bin whose magnitude is near 0 is ill-conditioned, so
+    30 rounds amplify fp32 differences between two FFTs well past one
+    round's rounding (tests/test_torch_griffin_lim.py: 1e-7 of max at 0
+    rounds, up to 7.2e-6 at 4, at a small shape). Each run's distance
+    from the CPU's float64 run is logged beside it. ms: median of 10
+    synchronized runs on the host clock after 2 warm-ups; then one run
+    under the profiler. Launches no hand kernel (counted)."""
+    from radtts_tpu_torch.ops.stft import griffin_lim, stft_magnitude_phase
+
+    n = GL_HOP * (MAX_FRAMES - 1)
+    rng = np.random.default_rng(11)
+    t = np.arange(n) / 22050
+    sig = torch.from_numpy((0.4 * np.sin(2 * np.pi * 220 * t)
+                            + 0.2 * np.sin(2 * np.pi * 1330 * t)
+                            + 0.05 * rng.standard_normal(n))[None]
+                           .astype(np.float32))
+    mag, _ = stft_magnitude_phase(sig, GL_FFT, GL_HOP, GL_FFT)
+    phase0 = (torch.rand(mag.shape, generator=torch.Generator()
+                         .manual_seed(12)) * (2 * np.pi) - np.pi)
+    cpu = griffin_lim(mag, GL_ITERS, GL_FFT, GL_HOP, GL_FFT, phase0=phase0)
+    f64 = griffin_lim(mag.double(), GL_ITERS, GL_FFT, GL_HOP, GL_FFT,
+                      phase0=phase0.double())
+    mag_d, phase0_d = mag.to(dev), phase0.to(dev)
+
+    def run():
+        return griffin_lim(mag_d, GL_ITERS, GL_FFT, GL_HOP, GL_FFT,
+                           phase0=phase0_d)
+
+    before = _counts(*mods)
+    for _ in range(2):
+        card, _ = timed(run)
+    times = [timed(run)[1] for _ in range(10)]
+    profile = profile_run(lambda: (run(), torch.cuda.synchronize()))
+    launches = {k: v - before[k] for k, v in _counts(*mods).items()}
+    card = card.cpu()
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max()) / scale
+    card_f64 = float((card.double() - f64).abs().max()) / scale
+    cpu_f64 = float((cpu.double() - f64).abs().max()) / scale
+    log({"phase": "griffin_lim", "nvidia_smi": power,
+         "shape": list(mag.shape), "n_fft": GL_FFT, "hop": GL_HOP,
+         "n_iters": GL_ITERS, "out_shape": list(card.shape),
+         "ms": statistics.median(times), "ms_runs": times,
+         "max_abs_err_rel_cpu": err, "card_from_float64": card_f64,
+         "cpu_from_float64": cpu_f64, "launches": launches,
+         "profile": profile})
+    if tuple(card.shape) != (1, n) or not torch.isfinite(card).all():
+        raise AssertionError(f"griffin_lim: {tuple(card.shape)}, finite "
+                             f"{bool(torch.isfinite(card).all())}")
+    if err > GL_RTOL:
+        raise AssertionError(f"griffin_lim: card {err:.3g} of max from "
+                             f"the CPU (limit {GL_RTOL})")
+    if any(launches.values()):
+        raise AssertionError(f"griffin_lim launched hand kernels: "
+                             f"{launches}")
+
+
 def _audible(gen, gain=3.0, seed=2):
     """A random generator made audible: conv_pre, the ups and conv_post
     scaled by gain and their biases drawn at sd 0.05 (normal(0, 0.01)
@@ -4507,6 +4580,7 @@ def main():
                             unfreeze="durf0energyvpred",
                             phase=f"{kind}_train_step_card_vs_cpu")
     phase_simple_conv_cudnn(dev, power)
+    phase_griffin_lim(mods, dev, power)
     # launches by path of every kernel: the earlier paths counted the MRF
     # kernels (and mel, mas) only; the others never launch there
     paths = {"serve": serve_launches, "serve_files": files_launches,

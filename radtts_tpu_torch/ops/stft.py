@@ -4,11 +4,13 @@ The round trip (stft_reim / istft_reim) uses the same matmul DFT bases and
 overlap-add with window-sumsquare correction as the JAX package, not
 torch.stft / torch.istft, so the output length and edge handling match it.
 stft_magnitude_phase (the denoiser's bias spectrum) is an rfft.
+istft (from magnitude and phase) and griffin_lim (phase reconstruction)
+complete the JAX package's set; no path of the port calls them.
 mel_basis and dynamic_range_compression are the pieces of the reference's
 TacotronSTFT mel (slaney filterbank, log-clamp dynamic range compression),
-which ops/mel.py assembles on the same matmul DFT. The matmul STFTs are
-fp32 islands at every matmul precision (ops/precision.py), as the JAX
-package runs them at HIGHEST.
+which ops/mel.py assembles on the same matmul DFT. The matmul STFTs,
+istft and griffin_lim are fp32 islands at every matmul precision
+(ops/precision.py), as the JAX package runs them at HIGHEST.
 """
 
 import functools
@@ -121,3 +123,35 @@ def istft_reim(re, im, n_fft=1024, hop_length=256, win_length=1024):
     sig = torch.where(wss > _TINY, sig / wss.clamp(min=_TINY), sig)
     pad = n_fft // 2
     return sig[:, pad:-pad]
+
+
+@precision.island
+def istft(magnitude, phase, n_fft=1024, hop_length=256, win_length=1024):
+    """Inverse STFT from (magnitude, phase), each (B, T, F)."""
+    return istft_reim(magnitude * torch.cos(phase),
+                      magnitude * torch.sin(phase),
+                      n_fft, hop_length, win_length)
+
+
+@precision.island
+def griffin_lim(magnitudes, n_iters=30, n_fft=1024, hop_length=256,
+                win_length=1024, *, generator=None, phase0=None):
+    """Phase reconstruction from magnitudes (B, T, F) by n_iters rounds of
+    stft/istft projection; returns (B, hop_length * (T - 1)). The initial
+    phase is phase0 when given, else uniform on [-pi, pi) drawn from
+    `generator`, a torch.Generator on the magnitudes' device: no global
+    RNG is read."""
+    if phase0 is None:
+        if generator is None:
+            raise ValueError("griffin_lim needs phase0 or a generator")
+        phase0 = (torch.rand(magnitudes.shape, generator=generator,
+                             device=magnitudes.device,
+                             dtype=magnitudes.dtype)
+                  * (2 * np.pi) - np.pi)
+    signal = istft(magnitudes, phase0, n_fft, hop_length, win_length)
+    for _ in range(n_iters):
+        _, angle = stft_magnitude_phase(signal, n_fft, hop_length,
+                                        win_length)
+        signal = istft(magnitudes, angle[:, :magnitudes.shape[1]], n_fft,
+                       hop_length, win_length)
+    return signal

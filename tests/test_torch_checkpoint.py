@@ -7,6 +7,7 @@ and read by both; then the port's writer read back by the JAX package.
 
 import copy
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -63,6 +64,16 @@ def ljs_small_config():
 
 CONFIGS = {"small": MODEL_CONFIG,
            "ljs_shrunk": ljs_small_config()["model_config"]}
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, removed when the test ends, passed or failed. The
+    checkpoints written there take 0.4-0.8 GB each, and pytest keeps the
+    directories of its last three runs. (Modules that import this fixture
+    get the same.)"""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))

@@ -10,6 +10,7 @@ port cannot honour must be refused.
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -108,9 +109,26 @@ def cli_args(paths, out_dir, *extra):
             *extra]
 
 
-@pytest.fixture(scope="module")
+# write_fixtures' files, kept for every module of a worker process that
+# imports `fixtures`: pytest runs an imported session fixture once for each
+# importing module, so the files are written once here and removed when the
+# last of those modules' fixtures is torn down
+_SHARED = {}
+
+
+@pytest.fixture(scope="session")
 def fixtures(tmp_path_factory):
-    return write_fixtures(tmp_path_factory.mktemp("cli"))
+    """write_fixtures' files (its checkpoint is 0.4 GB), written once a
+    worker process and removed at the end of the session."""
+    if not _SHARED:
+        root = tmp_path_factory.mktemp("cli")
+        _SHARED.update(root=root, files=write_fixtures(root), users=0)
+    _SHARED["users"] += 1
+    yield _SHARED["files"]
+    _SHARED["users"] -= 1
+    if not _SHARED["users"]:
+        shutil.rmtree(_SHARED["root"], ignore_errors=True)
+        _SHARED.clear()
 
 
 def _assert_rounding_margin(synth, texts):

@@ -18,7 +18,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
-from tests.test_torch_inference_cli import write_fixtures
+from tests.test_torch_inference_cli import fixtures  # noqa: F401
 from tests.test_torch_synthesizer_parity import _audible_vocoder, np_tree
 
 from radtts_tpu_torch.convert import hifigan_from_jax, radtts_from_jax
@@ -131,10 +131,10 @@ CHUNK = 40
 
 
 @pytest.fixture(scope="module")
-def served(tmp_path_factory):
+def served(fixtures):  # noqa: F811
     """The daemon on port 0 in a thread, and a from_parts Synthesizer of
     the same weights; shut down at the end."""
-    paths, params, h = write_fixtures(tmp_path_factory.mktemp("serve"))
+    paths, params, h = fixtures
     server, synth, state = build_server([
         "-c", paths["config"], "-r", paths["radtts"], "-v", paths["vocoder"],
         "-k", paths["vocoder_config"], "-s", "ljs", "--port", "0",

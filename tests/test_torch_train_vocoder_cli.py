@@ -8,6 +8,7 @@ discriminators and both optimizers).
 
 import json
 import pathlib
+import shutil
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 
 from radtts_tpu.models.hifigan import (hifigan_generator_apply,
                                        hifigan_generator_from_torch)
+from tests.test_torch_checkpoint import tmp_path  # noqa: F401
 
 from radtts_tpu_torch.train_vocoder import main
 from radtts_tpu_torch.train.vocoder_trainer import vocoder_train_init
@@ -69,8 +71,12 @@ def run(dataset, out, steps, *extra):
 
 @pytest.fixture(scope="module")
 def straight(dataset, tmp_path_factory):
+    """Two steps from scratch; their do_00000002.pt (0.85 GB: both full
+    discriminators and both AdamW states) is read by two tests and removed
+    when the module ends."""
     out = tmp_path_factory.mktemp("straight")
-    return out, run(dataset, out, 2)
+    yield out, run(dataset, out, 2)
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def test_cli_writes_reference_generator(straight):

@@ -11,6 +11,7 @@ deterministic).
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -319,7 +320,11 @@ def write_vc_fixtures(root):
 
 @pytest.fixture(scope="module")
 def vc_fixtures(tmp_path_factory):
-    return write_vc_fixtures(tmp_path_factory.mktemp("vc"))
+    """write_vc_fixtures' files (a 0.4 GB checkpoint), removed when the
+    module ends."""
+    root = tmp_path_factory.mktemp("vc")
+    yield write_vc_fixtures(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def vc_args(paths, out_dir, *extra):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from radtts_tpu.train import vocoder_trainer as jvt
 from radtts_tpu.train.checkpoint import save_checkpoint
+from tests.test_torch_checkpoint import tmp_path  # noqa: F401
 from tests.test_torch_resume import close_moments, close_params
 from tests.test_torch_synthesizer_parity import np_tree
 from tests.test_torch_vocoder_train import H32, MEL_KW, SEGMENT, _audio
