@@ -8,7 +8,8 @@ Phases, each printing a JSON or text line:
      pinned TF32 flags;
   2. build: nvcc of radtts_tpu_torch/csrc/mrf_tc.cu (twice: 3xTF32 and
      the one-pass -DMRF_TC_PASSES=1), csrc/mrf_tf32.cu, csrc/mrf_stack.cu,
-     csrc/mrf.cu, csrc/mel.cu, csrc/mas.cu and csrc/ar_scan.cu for sm_90a,
+     csrc/mrf.cu (run by name only: the "before" of the padded widths),
+     csrc/mel.cu, csrc/mas.cu and csrc/ar_scan.cu for sm_90a,
      all eight at once, with seconds
      and ptxas register/spill lines; then each kernel's shared memory per
      block;
@@ -21,14 +22,10 @@ Phases, each printing a JSON or text line:
      csrc/mrf_stack.cu at HiFi-GAN V2's last stages (1, 77824, 16) and
      (1, 155648, 8), ragged (2, 997, 16) and (2, 997, 8), and T below one
      tile (2, 50, 16); csrc/mrf_tc.cu at (2, 997, 192), a multiple of 64
-     that 128 does not divide; csrc/mrf.cu at widths only it takes: (2,
-     997, 48) and, timed, (1, 38912, 96), (1, 77824, 48) and (1, 155648,
-     24), 608 frames of stages at these widths.
+     that 128 does not divide.
      With the kernel's, the plain version's and the cuDNN conv chain's
      times, the launch grid, the bound at the 3xTF32 rate beside the
      fp32-FMA one, and the 18-launch chain's activation-bytes floor; at
-     csrc/mrf.cu's timed widths also the cuDNN chain at TF32 and the bound
-     at the TF32 rate; at
      C=64, 32, 16 and 8 also csrc/mrf.cu's time on the same inputs
      (route="conv", the kernel those stages ran before). Then the
      tensor-core kernel's tile shapes at the v1 serving stages and the
@@ -41,7 +38,15 @@ Phases, each printing a JSON or text line:
      the first two in
      turns with that build ("before") and beside the same yardsticks and
      the chain's bytes floor, and its tile shapes swept at the serving
-     stages;
+     stages; then (mrf_padded) the widths csrc/mrf.cu took before,
+     on the tensor cores at ops/mrf.py:padded_width(C) at both passes
+     (csrc/mrf_tc.cu, csrc/mrf_tf32.cu; 18 launches of the route's kernel
+     and none of csrc/mrf.cu counted a call): (1, 38912, 96), (1, 77824,
+     48), (1, 155648, 24), (1, 38912, 160), ragged (2, 997, 40) and a C=16
+     stage of 5 resblocks, each within 1e-4 * max of mrf_plain(passes),
+     the first four timed beside csrc/mrf.cu on the same inputs (before),
+     the plain version, the cuDNN chain at the same precision and the
+     bound;
   4. mel kernel vs plain: ops/mel.py:mel (the shared-memory real FFT)
      against mel_plain at (16, 8192), (1, 155648) and (3, 9001): log-mel
      within 1e-3 (fp32 sums in another order, amplified by the log near
@@ -81,9 +86,13 @@ Phases, each printing a JSON or text line:
      plain version; then f0's and energy's steps paired in one launch at
      (1, 608), (8, 608) ragged and (16, 608) against the two launched
      apart and against plain, and at (24, 96), where the planner names a
-     launch each (asserted); a step of H = 1024, whose weights do not fit
-     the blocks' shared memory, on the barrier kernel (asserted, timed
-     beside the plain version and the bound); the
+     launch each (asserted); steps of H = 1024 and 1022 (padded to 1024),
+     whose weights do not fit the blocks' shared memory, on the split
+     route (asserted: one resident-kernel launch, no barrier-kernel
+     launch; the rows that do not fit read from L2), timed beside the
+     barrier kernel on the same inputs (before), the plain version, the
+     bound and the chain floor (overflow bytes over the L2 read rate plus
+     the handoff probe); the
      handoff probe (608 x 6 empty phases on the resident grid, joined by
      the handoff and by the barrier kernel's grid barrier: the chain
      floor); and the frame traced at (1, 608), one flow and the pair
@@ -242,7 +251,9 @@ Phases, each printing a JSON or text line:
      serve_agap_bf16, train_audio_samples, serve_dp2, radtts_step_dp2,
      radtts_step_tp2, radtts_step_dp1_nccl, serve_high, serve_default);
      the ar_scan entry carries the
-     chain floor, the ar_scan_barrier entry its H = 1024 timing.
+     chain floor and the split route's rows, the ar_scan_barrier entry its
+     H = 1024 and 1022 timings; the mrf_tc and mrf_tf32 entries carry the
+     padded widths' rows, the mrf_conv entry their before.
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 exit code is not 0. Without CUDA, or without the rest of the repo beside
 it, it exits 1 and prints no result. `--step-rank SPEC` runs one rank of
@@ -287,16 +298,18 @@ RAGGED = [(2, 997, 256), (2, 997, 128), (2, 997, 64), (2, 997, 32)]
 # csrc/mrf_stack.cu's widths: HiFi-GAN V2's last two stages at 608 frames
 STACK_STAGES = [(1, 77824, 16), (1, 155648, 8)]
 STACK_RAGGED = [(2, 997, 16), (2, 997, 8), (2, 50, 16)]   # 50 < one tile
-CONV_ONLY = [(2, 997, 48)]       # a width that only csrc/mrf.cu takes
-# csrc/mrf.cu's own widths at full size: 608 frames of stages at C=96, 48
-# and 24 (the rates of v1 with 384 initial channels; no published
-# generator has these stages)
-CONV_STAGES = [(1, 38912, 96), (1, 77824, 48), (1, 155648, 24)]
+# the widths csrc/mrf.cu took before, now run padded on the tensor
+# cores (ops/mrf.py:padded_width): 608 frames of stages at C=96, 48 and 24
+# (the rates of v1 with 384 initial channels; no published generator has
+# these stages) and one at C=160 (padded to 192), timed; a ragged C=40
+PADDED_STAGES = [(1, 38912, 96), (1, 77824, 48), (1, 155648, 24),
+                 (1, 38912, 160)]
+PADDED_RAGGED = [(2, 997, 40)]
 # a multiple of 64 that 128 does not divide: csrc/mrf_tf32.cu's tile 64
 ODD_TC = [(2, 997, 192)]
-# a C <= 16 stage with more resblocks than csrc/mrf_stack.cu takes: routed
-# to csrc/mrf.cu
-CONV_RESBLOCKS = [((2, 997, 16), (3, 7, 11, 3, 7))]
+# a C <= 16 stage with more resblocks than csrc/mrf_stack.cu takes: the
+# narrow tensor-core kernel at 32
+PADDED_RESBLOCKS = [((2, 997, 16), (3, 7, 11, 3, 7))]
 MEL_SHAPES = [(16, 8192), (1, 155648), (3, 9001)]   # training, flagship
 TRAIN_STEPS, TRAIN_BATCH, SEGMENT = 5, 16, 8192      # train_vocoder.py CLI
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -312,7 +325,14 @@ TEXTS = [
 ]
 
 
+_T0 = time.perf_counter()
+
+
 def log(obj):
+    """Print one line: a dict as JSON (a phase's with t_s, the seconds
+    since the script started, so a run shows where its time went)."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
@@ -380,7 +400,10 @@ def library_inputs(x, weights):
 
 def tc_tiles(C):
     """The tensor-core kernel's tile shapes (TN, NWG) at width C: TN = C
-    at C=64 and C=32 (one or two warpgroups), four at the wider stages."""
+    at C=64 and C=32 (one or two warpgroups) and C=96 (one), four at the
+    wider stages."""
+    if C == 96:
+        return [(96, 1)]
     if C <= 64:
         return [(C, 1), (C, 2)]
     return [(64, 1), (64, 2), (128, 1), (128, 2)]
@@ -434,12 +457,10 @@ def phase_kernels(mrf_mod, dev):
     stages = []
     max_err = {"mrf_tc": 0.0, "mrf_stack": 0.0, "mrf_conv": 0.0}
     inputs = {}
-    from radtts_tpu_torch.ops import precision
-
-    timed_shapes = STAGES + TRAIN_STAGES + STACK_STAGES + CONV_STAGES
+    timed_shapes = STAGES + TRAIN_STAGES + STACK_STAGES
     cases = [(shape, (3, 7, 11)) for shape in (
-        STAGES + TRAIN_STAGES + RAGGED + ODD_TC + STACK_STAGES + STACK_RAGGED
-        + CONV_ONLY + CONV_STAGES)] + CONV_RESBLOCKS
+        STAGES + TRAIN_STAGES + RAGGED + ODD_TC + STACK_STAGES
+        + STACK_RAGGED)]
     for (B, T, C), ks in cases:
         x = torch.randn(B, T, C, device=dev, generator=gen)
         w = random_mrf_weights(C, dev, gen, ks)
@@ -485,11 +506,6 @@ def phase_kernels(mrf_mod, dev):
             if "conv_route_max_abs_err" in row:
                 row["conv_route_ms"] = cuda_ms(
                     lambda: mrf_mod.mrf_cuda(x, w, route="conv"))
-            if kernel == "mrf_conv":
-                with precision.scope("high"):
-                    row["library_tf32_ms"] = cuda_ms(
-                        lambda: library_mrf(xc, tw))
-                row["tf32_bound_ms"] = tf32_bound(B, T, C)[0]
             row["tflops"] = flop / row["ms"] / 1e9
             row["serving"] = (B, T, C) in STAGES + STACK_STAGES
             stages.append(row)
@@ -2010,40 +2026,133 @@ def wide_step(dev, H=1024, seed=3):
             "kind": "affine", "scaling_fn": "tanh"}
 
 
-def phase_ar_scan_barrier_route(ar_mod, dev, power):
-    """wide_step at (1, 32): the planner names the barrier kernel by shape
-    (asserted: one barrier launch, no resident launch), within 1e-4 * max
-    of plain; the kernel's time, the plain version's and the bound (the
-    FLOP at 67 TFLOP/s fp32 or the bytes at 3.35 TB/s, as ar_bound counts
-    them)."""
-    params = wide_step(dev)
-    gen = torch.Generator().manual_seed(4)
-    res = (torch.randn(1, 32, 1, generator=gen) * 0.8).to(dev)
-    cproj = torch.randn(1, 32, 4 * 1024, generator=gen).to(dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = ar_mod.ar_scan_plan([params], 1, sms)
+AR_SPLIT_H = (1024, 1022)      # wide_step's widths (1022: padded to 1024)
+AR_SPLIT_SHAPE = (1, 32)
+L2_PROBE_BYTES = 32 * 2 ** 20          # a tensor that fits the 50 MB L2
+L2_PROBE_PASSES = 16
+
+
+def l2_read_rate(dev):
+    """Bytes/s of one reduction that reads a 32 MB tensor 16 times over (an
+    expanded view of one storage, which stays in the 50 MB L2): the L2 read
+    rate the split route's chain floor divides its overflow by. One launch,
+    so launch gaps do not count."""
+    t = torch.ones(L2_PROBE_BYTES // 4, device=dev).expand(L2_PROBE_PASSES,
+                                                          -1)
+    return L2_PROBE_PASSES * L2_PROBE_BYTES / (
+        cuda_ms(lambda: t.sum(1)) * 1e-3)
+
+
+def split_kernel_ms_and_frame(ar_mod, params, res, cproj, n_phases, dev,
+                              calls=5):
+    """(ms, frame) of the split route's kernel alone: its device time per
+    call under the profiler over `calls` calls of ar_scan (the rest of a
+    call is the weight gather and the plan's copies), and block 0's traced
+    frame in us (mean over the frames but the first and the last: the
+    attribute LSTM, then each phase's rows, its handoff and its load, then
+    the inverse)."""
+    from torch.profiler import ProfilerActivity, profile
+
     with torch.no_grad():
-        before = _ar_counts(ar_mod)
-        got = ar_mod.ar_scan(params, res, cproj)
-        routed = _routed(ar_mod, before)
-        want = ar_mod.ar_scan_plain(params, res, cproj)
+        ar_mod.ar_scan(params, res, cproj)
         torch.cuda.synchronize()
-        ms = cuda_ms(lambda: ar_mod.ar_scan(params, res, cproj))
-        plain_ms = cuda_ms(lambda: ar_mod.ar_scan_plain(params, res, cproj),
-                           reps=3, warmup=1)
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    bound_ms, bound_by, mflop, mbytes = ar_bound(params, 1, 32, 1)
-    row = {"shape": [1, 32, 1], "H": 1024, "route": plan[0]["route"],
-           "routed": routed, "max_abs_err": err, "max_abs_plain": scale,
-           "weight_bytes": ar_mod.weight_bytes(params), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "mflop": mflop, "mbytes": mbytes}
-    log({"phase": "ar_scan_barrier_route", "card": power, **row})
-    if routed != (0, 1) or plan[0]["route"] != "barrier" \
-            or not err <= 1e-4 * scale:
-        raise AssertionError(f"ar_scan barrier route: {row}")
-    return row
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ar_mod.ar_scan(params, res, cproj)
+            torch.cuda.synchronize()
+        trace = ar_mod.trace_buffer(dev)
+        ar_mod.ar_scan_multi([(params, res, cproj)], trace=trace)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+             if "ar_scan_resident_kernel" in e.key)
+    T = res.shape[1]
+    tr = trace.cpu().numpy()[:T].astype(np.float64) / 1e3
+    frames = slice(1, T - 1)
+
+    def mean(a, b):
+        return float(np.mean(tr[frames, b] - tr[frames, a]))
+    return us / calls / 1e3, {
+        "frame_us": float(np.mean(tr[2:T, 0] - tr[1:T - 1, 0])),
+        "attr_us": mean(0, 1),
+        "phases": [{"rows_us": mean(1 if p == 0 else 3 * p + 1, 3 * p + 2),
+                    "handoff_us": mean(3 * p + 2, 3 * p + 3),
+                    "load_us": mean(3 * p + 3, 3 * p + 4)}
+                   for p in range(n_phases)],
+        "inverse_us": mean(3 * n_phases + 1, 3 * n_phases + 2)}
+
+
+def phase_ar_scan_split_route(ar_mod, dev, power):
+    """wide_step at (1, 32), H = 1024 and 1022 (whose widths pad_widths
+    pads to 1024): the planner names the split route, by shape (asserted:
+    one launch of the resident kernel, none of the barrier kernel), within
+    1e-4 * max of plain; the kernel's time beside the barrier kernel on
+    the same inputs (before, held to the same limit), the plain version's
+    and the bound (the FLOP at 67 TFLOP/s fp32 or the weights' bytes once
+    at 3.35 TB/s, as ar_bound counts them) and the split route's chain
+    floor: the overflow bytes a frame over the L2 read rate (l2_read_rate)
+    plus the handoff probe's time for the same frames and phases on the
+    same grid; the kernel's own device time (the rest of a call is the
+    weight gather) and block 0's traced frame."""
+    rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    l2_rate = l2_read_rate(dev)
+    B, T = AR_SPLIT_SHAPE
+    for H in AR_SPLIT_H:
+        params = wide_step(dev, H=H)
+        gen = torch.Generator().manual_seed(4)
+        res = (torch.randn(B, T, 1, generator=gen) * 0.8).to(dev)
+        cproj = torch.randn(B, T, 4 * H, generator=gen).to(dev)
+        plan = ar_mod.ar_scan_plan([params], B, sms)
+        pl = plan[0]["plans"][0]
+        with torch.no_grad():
+            before = _ar_counts(ar_mod)
+            got = ar_mod.ar_scan(params, res, cproj)
+            routed = _routed(ar_mod, before)
+            want = ar_mod.ar_scan_plain(params, res, cproj)
+            old = ar_mod.ar_scan_cuda(params, res, cproj)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: ar_mod.ar_scan(params, res, cproj))
+            before_ms = cuda_ms(lambda: ar_mod.ar_scan_cuda(params, res,
+                                                            cproj))
+            plain_ms = cuda_ms(lambda: ar_mod.ar_scan_plain(
+                params, res, cproj), reps=3, warmup=1)
+        err = (got - want).abs().max().item()
+        old_err = (old - want).abs().max().item()
+        scale = want.abs().max().item()
+        n_phases = len(params["lstm"]) + len(params["head"])
+        kernel_ms, frame = split_kernel_ms_and_frame(
+            ar_mod, params, res, cproj, n_phases, dev)
+        ar_mod.handoff_probe(n_phases, T, "handoff", plan[0]["blocks"],
+                             plan[0]["smem"], dev)
+        probe_ms = cuda_ms(lambda: ar_mod.handoff_probe(
+            n_phases, T, "handoff", plan[0]["blocks"], plan[0]["smem"],
+            dev))
+        ovf_bytes = 4.0 * float(pl["ovf_floats"].sum())
+        bound_ms, bound_by, mflop, mbytes = ar_bound(params, B, T, 1)
+        row = {"shape": [B, T, 1], "H": H, "padded_H": pl["H"],
+               "route": plan[0]["route"], "routed": routed,
+               "blocks": plan[0]["blocks"], "smem_bytes": plan[0]["smem"],
+               "kept_weight_bytes_per_block_max": 4 * int(
+                   pl["img_floats"].max()),
+               "overflow_bytes_per_frame": ovf_bytes,
+               "streamed_units": sum(n for *_, n in pl["streamed"]),
+               "max_abs_err": err, "before_max_abs_err": old_err,
+               "max_abs_plain": scale,
+               "weight_bytes": ar_mod.weight_bytes(params), "ms": ms,
+               "kernel_ms": kernel_ms, "frame_trace_us": frame,
+               "before_ms": before_ms, "plain_ms": plain_ms,
+               "us_per_frame": ms * 1e3 / T,
+               "before_us_per_frame": before_ms * 1e3 / T,
+               "bound_ms": bound_ms, "bound_by": bound_by, "mflop": mflop,
+               "mbytes": mbytes, "l2_read_bytes_per_s": l2_rate,
+               "handoff_probe_ms": probe_ms,
+               "chain_floor_ms": T * ovf_bytes / l2_rate * 1e3 + probe_ms}
+        log({"phase": "ar_scan_split_route", "card": power, **row})
+        if (routed != (1, 0) or plan[0]["route"] != "split"
+                or not err <= 1e-4 * scale or not old_err <= 1e-4 * scale):
+            raise AssertionError(f"ar_scan split route: {row}")
+        rows.append(row)
+    return rows
 
 
 def phase_ar_scan_trace(ar_mod, dev, power):
@@ -3812,6 +3921,81 @@ def phase_mrf_tf32(mrf_mod, dev, power, inputs):
     return rows, max_err, sweep
 
 
+def phase_mrf_padded(mrf_mod, dev, power):
+    """The widths csrc/mrf.cu took before: the tensor-core kernels
+    at ops/mrf.py:padded_width(C), through mrf_cuda's routing, at three
+    passes (csrc/mrf_tc.cu) and one (csrc/mrf_tf32.cu): each call must
+    count 18 launches of the route's kernel and none of csrc/mrf.cu, and
+    come within 1e-4 * max|plain| of mrf_plain(passes); at PADDED_STAGES,
+    PADDED_RAGGED and a C=16 stage of 5 resblocks (the narrow kernel at
+    32). Timed at PADDED_STAGES beside csrc/mrf.cu on the same inputs
+    (before: route="conv", fp32 FMA, also held to the limit), the plain
+    version, the cuDNN chain at the same precision (library: fp32, or TF32
+    at one pass), the bound (the C real channels' FLOP at the 3xTF32 or
+    the TF32 rate, or the bytes) and the 18-launch chain's bytes floor."""
+    from radtts_tpu_torch.ops import precision
+
+    gen = torch.Generator(dev).manual_seed(17)
+    rows = []
+    cases = [(shape, (3, 7, 11)) for shape in PADDED_STAGES + PADDED_RAGGED]
+    for (B, T, C), ks in cases + PADDED_RESBLOCKS:
+        x = torch.randn(B, T, C, device=dev, generator=gen)
+        w = random_mrf_weights(C, dev, gen, ks)
+        timed = (B, T, C) in PADDED_STAGES
+        if timed:
+            xc, tw = library_inputs(x, w)
+            before = mrf_mod.mrf_cuda(x, w, route="conv")
+            before_err = (before - mrf_mod.mrf_plain(x, w)).abs().max().item()
+            before_ms = cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, route="conv"))
+            del before
+        for passes in (3, 1):
+            route = mrf_mod.mrf_route(C, len(ks), passes)
+            kernel = KERNEL_OF_ROUTE[route]
+            count = {"tc": "tc_launches", "tf32": "tf32_launches"}[route]
+            counts = (getattr(mrf_mod.mrf, count), mrf_mod.mrf.launches)
+            got = mrf_mod.mrf_cuda(x, w, passes=passes)
+            launched = (getattr(mrf_mod.mrf, count) - counts[0],
+                        mrf_mod.mrf.launches - counts[1])
+            want = mrf_mod.mrf_plain(x, w, passes=passes)
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            tile = (mrf_mod.tc_tile(C) if passes == 3
+                    else mrf_mod.tf32_tile(C))
+            row = {"kernel": kernel, "passes": passes, "shape": [B, T, C],
+                   "resblocks": len(ks),
+                   "padded_width": mrf_mod.padded_width(C),
+                   "tile": list(tile), "launches": launched[0],
+                   "mrf_conv_launches": launched[1], "max_abs_err": err,
+                   "max_abs_plain": scale}
+            if timed:
+                bound_ms, bound_by, flop, fp32_bound_ms, chain_ms = (
+                    mrf_bound(B, T, C))
+                if passes == 1:
+                    bound_ms, bound_by, flop = tf32_bound(B, T, C)
+                with precision.scope("highest" if passes == 3 else "high"):
+                    library_ms = cuda_ms(lambda: library_mrf(xc, tw))
+                row.update(
+                    ms=cuda_ms(lambda: mrf_mod.mrf_cuda(x, w, passes=passes)),
+                    before_ms=before_ms, before_max_abs_err=before_err,
+                    plain_ms=cuda_ms(lambda: mrf_mod.mrf_plain(
+                        x, w, passes=passes)),
+                    library_ms=library_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, fp32_fma_bound_ms=fp32_bound_ms,
+                    chain_bytes_floor_ms=chain_ms, gflop=flop / 1e9)
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                row["over_library"] = row["ms"] / row["library_ms"]
+                row["over_before"] = row["ms"] / row["before_ms"]
+            log({"phase": "mrf_padded", "card": power, **row})
+            # two convs a dilation and resblock: 18 a stage of 3
+            if (launched != (6 * len(ks), 0) or not err <= 1e-4 * scale
+                    or (timed and not before_err <= 1e-4 * scale)):
+                raise AssertionError(f"mrf padded route at {(B, T, C)}, "
+                                     f"passes={passes}: {row}")
+            rows.append(row)
+    return rows
+
+
 def phase_precision_sweep(synth, mrf_mod, dev, power):
     """The flagship Synthesizer at each --matmul_precision (the
     Synthesizer's matmul_precision, as the CLIs set it): one request
@@ -4473,15 +4657,15 @@ def main():
     tc_lib = mrf_mod._tc_libs[3]
     log({"phase": "smem", "mrf_tc_bytes_per_block": {
         f"C{C}:{tn}x{nwg}": tc_lib.radtts_mrf_tc_smem_bytes(C, tn, nwg)
-        for C in (256, 64, 32) for tn, nwg in tc_tiles(C)},
+        for C in (256, 96, 64, 32) for tn, nwg in tc_tiles(C)},
         "mrf_tc_narrow_weight_stages": {
             f"C{C}:{C}x{nwg}": tc_lib.radtts_mrf_tc_weight_stages(C, nwg)
-            for C in (64, 32) for nwg in (1, 2)},
+            for C in (96, 64, 32) for nwg in (1, 2)},
         "mrf_tf32_bytes_and_weight_stages": {
             f"{tn}x{nwg}": [
                 mrf_mod._tf32_lib.radtts_mrf_tf32_smem_bytes(tn, nwg),
                 mrf_mod._tf32_lib.radtts_mrf_tf32_weight_stages(tn, nwg)]
-            for tn in (128, 64, 32) for nwg in (1, 2)},
+            for tn in (128, 96, 64, 32) for nwg in (1, 2)},
         "mrf_stack_bytes_per_block": {
             f"C{C}:{rows}": mrf_mod._stack_lib.radtts_mrf_stack_smem_bytes(
                 C, rows, 11) for C in (16, 8) for rows in STACK_TILES},
@@ -4496,6 +4680,14 @@ def main():
     tf32_rows, tf32_err, tf32_tiles_rows = phase_mrf_tf32(mrf_mod, dev,
                                                           power, inputs)
     del inputs
+    padded_rows = phase_mrf_padded(mrf_mod, dev, power)
+    padded_tc = [r for r in padded_rows if r["passes"] == 3]
+    padded_tf32 = [r for r in padded_rows if r["passes"] == 1]
+    max_err["mrf_tc"] = max([max_err["mrf_tc"]]
+                            + [r["max_abs_err"] for r in padded_tc])
+    tf32_err = max([tf32_err] + [r["max_abs_err"] for r in padded_tf32])
+    max_err["mrf_conv"] = max([max_err["mrf_conv"]] + [
+        r["before_max_abs_err"] for r in padded_tc if "ms" in r])
     with open(CONFIG) as f:
         data_config = json.load(f)["data_config"]
     mel_kw = {k: data_config[k] for k in (
@@ -4528,7 +4720,7 @@ def main():
     ar_rows, ar_sweep = phase_ar_scan_kernel(ar_mod, dev, power)
     ar_bf16 = phase_ar_scan_bf16(ar_mod, dev, power)
     ar_pairs = phase_ar_scan_pair(ar_mod, dev, power)
-    ar_wide = phase_ar_scan_barrier_route(ar_mod, dev, power)
+    ar_split = phase_ar_scan_split_route(ar_mod, dev, power)
     probe = phase_handoff_probe(
         ar_mod, dev, power, ar_rows[0]["blocks"], ar_rows[0]["smem_bytes"],
         ar_rows[0]["handoffs_per_frame"], MAX_FRAMES)
@@ -4656,7 +4848,11 @@ def main():
                         "radtts_tpu/ops/pallas_mrf.py:231 (C=32)"]),
              note="sums over the four v1 MRF stages of one 608-frame "
                   "utterance; bound_ms at the 3xTF32 rate (495/3 TFLOP/s), "
-                  "fp32_fma_bound_ms at 67 TFLOP/s"), {
+                  "fp32_fma_bound_ms at 67 TFLOP/s; padded: the widths "
+                  "csrc/mrf.cu took before, run at padded_width(C) "
+                  "(before_ms: csrc/mrf.cu on the same inputs; library_ms "
+                  "the cuDNN fp32 chain)",
+             padded=padded_tc), {
         "name": "mrf_tf32",
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mrf_tf32.cu",
@@ -4679,6 +4875,7 @@ def main():
                                       "max_abs_plain")}
                    for r in tf32_rows if "ms" not in r],
         "tiles": tf32_tiles_rows,
+        "padded": padded_tf32,
         "note": "one TF32 pass, the route of --matmul_precision default "
                 "(mrf_route), against "
                 "mrf_plain(passes=1); sums over the four v1 MRF stages of "
@@ -4723,20 +4920,27 @@ def main():
                        "radtts_tpu/ops/pallas_mrf.py:121",
                        ["radtts_tpu/ops/pallas_mrf.py:231"],
                        shapes=STACK_STAGES, ms_key="conv_route_ms"),
-             note="runs no stage of HiFi-GAN v1 or V2 (0 launches on every "
-                  "path); it takes the widths no other kernel takes (held "
-                  "at (2, 997, 48)); times are route='conv' on the V2 "
-                  "C=16 and C=8 stages' inputs, summed, with their plain, "
-                  "library and bound times; own_stages: its own widths, "
-                  "608 frames of stages at C=96, 48 and 24 (library_ms: "
-                  "the cuDNN fp32 chain, library_tf32_ms at TF32; its "
-                  "products are fp32 FMA: fp32_fma_bound_ms; bound_ms at "
-                  "the 3xTF32 rate, tf32_bound_ms at the TF32 rate)",
-             own_stages=[{k: s[k] for k in (
-                 "shape", "ms", "plain_ms", "library_ms", "library_tf32_ms",
-                 "bound_ms", "tf32_bound_ms", "fp32_fma_bound_ms",
-                 "chain_bytes_floor_ms", "max_abs_err")} for s in stages
-                 if tuple(s["shape"]) in CONV_STAGES]), {
+             note="no route names it any more (0 launches on every "
+                  "path; mrf_cuda(route='conv') runs it by name); times "
+                  "are route='conv' on the V2 C=16 and C=8 stages' inputs, "
+                  "summed, with their plain, library and bound times; "
+                  "own_stages: the widths it took before, 608 frames of "
+                  "stages at C=96, 48, 24 and 160, where mrf_tc_ms and "
+                  "mrf_tf32_ms are the padded tensor-core routes on the "
+                  "same inputs (library_ms: the cuDNN fp32 chain, "
+                  "library_tf32_ms at TF32; its products are fp32 FMA: "
+                  "fp32_fma_bound_ms; bound_ms at the 3xTF32 rate, "
+                  "tf32_bound_ms at the TF32 rate)",
+             own_stages=[{
+                 "shape": r["shape"], "ms": r["before_ms"],
+                 "max_abs_err": r["before_max_abs_err"],
+                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                 "library_tf32_ms": r1["library_ms"],
+                 "bound_ms": r["bound_ms"], "tf32_bound_ms": r1["bound_ms"],
+                 "fp32_fma_bound_ms": r["fp32_fma_bound_ms"],
+                 "chain_bytes_floor_ms": r["chain_bytes_floor_ms"],
+                 "mrf_tc_ms": r["ms"], "mrf_tf32_ms": r1["ms"]}
+                 for r, r1 in zip(padded_tc, padded_tf32) if "ms" in r]), {
         "name": "mel",
         "route": "cuda",
         "source": "radtts_tpu_torch/csrc/mel.cu",
@@ -4812,7 +5016,7 @@ def main():
         "launches": sum(by_path("ar_scan").values()),
         "launches_by_path": by_path("ar_scan"),
         "max_abs_err": max(r["max_abs_err"]
-                           for r in ar_rows + ar_pairs + ar_bf16),
+                           for r in ar_rows + ar_pairs + ar_bf16 + ar_split),
         "ms": ar_rows[0]["ms"],
         "before_ms": ar_rows[0]["before_ms"],
         "plain_ms": ar_rows[0]["plain_ms"],
@@ -4823,7 +5027,10 @@ def main():
         "barrier_chain_ms": probe["barrier_ms"],
         "handoffs_per_frame": ar_rows[0]["handoffs_per_frame"],
         "us_per_frame": ar_rows[0]["us_per_frame"],
-        "note": "weights resident in shared memory, one handoff a phase; "
+        "note": "weights resident in shared memory (or, split, the rows "
+                "that do not fit read from L2: `split`, H = 1024 and "
+                "1022 at (1, 32), beside the barrier kernel, with its "
+                "chain floor), one handoff a phase; "
                 "times at (1, 608, 1), one AR flow of config_ljs_agap.json's "
                 "f0 model over the flagship utterance (an AGAP request pairs "
                 "f0's and energy's flows: 2 launches); before_ms: the barrier "
@@ -4844,6 +5051,13 @@ def main():
         "blocks_sweep": ar_sweep,
         "handoff_probe": probe,
         "frame_trace": ar_trace,
+        "split": [{k: r[k] for k in (
+            "shape", "H", "padded_H", "route", "blocks", "smem_bytes",
+            "overflow_bytes_per_frame", "ms", "kernel_ms",
+            "frame_trace_us", "before_ms", "plain_ms", "us_per_frame",
+            "bound_ms", "bound_by",
+            "chain_floor_ms", "handoff_probe_ms", "l2_read_bytes_per_s",
+            "max_abs_err")} for r in ar_split],
     }, {
         "name": "ar_scan_barrier",
         "route": "cuda",
@@ -4852,22 +5066,23 @@ def main():
                     "Pallas)",
         "launches": sum(by_path("ar_scan_barrier").values()),
         "launches_by_path": by_path("ar_scan_barrier"),
-        "max_abs_err": max([ar_wide["max_abs_err"]]
-                           + [r["before_max_abs_err"] for r in ar_rows]),
+        "max_abs_err": max([r["before_max_abs_err"]
+                            for r in ar_rows + ar_split]),
         "ms": ar_rows[0]["before_ms"],
         "plain_ms": ar_rows[0]["plain_ms"],
         "bound_ms": ar_rows[0]["bound_ms"],
         "bound_by": ar_rows[0]["bound_by"],
         "library_ms": None,
-        "wide": {k: ar_wide[k] for k in ("shape", "H", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "max_abs_err")},
+        "wide": [{"shape": r["shape"], "H": r["H"], "ms": r["before_ms"],
+                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                  "bound_by": r["bound_by"],
+                  "max_abs_err": r["before_max_abs_err"]} for r in ar_split],
         "note": "The barrier kernel (a grid barrier, weights from L2), "
-                "the route of steps whose weights do not fit the blocks' "
-                "shared "
-                "memory (0 launches on every path; held and timed at H = "
-                "1024, (1, 32): `wide`); times at (1, 608, 1) on the "
-                "resident kernel's inputs",
+                "which no route names any more (0 launches on every "
+                "path; ar_scan_cuda runs it by name): the before of the "
+                "split route, held and timed at H = 1024 and 1022, (1, "
+                "32): `wide`; times at (1, 608, 1) on the resident "
+                "kernel's inputs",
     }]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(power, flush=True)

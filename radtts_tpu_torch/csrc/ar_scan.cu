@@ -23,7 +23,7 @@
 //
 // Two kernels; ops/ar_scan.py:ar_scan_plan picks one by shape.
 //
-// ar_scan_resident_kernel (the route of every configuration in the repo):
+// ar_scan_resident_kernel (the route of every step, split or not):
 // one cooperative launch of up to kMaxProblems independent steps (f0's and
 // energy's flows), the blocks split between them by weight bytes. Every
 // block holds a contiguous slice of each layer's rows (an LSTM unit's four
@@ -47,14 +47,30 @@
 // owns rows of some phase, so no buffer is rewritten before its last
 // reader has arrived somewhere later. The kernel is templated on the items
 // a warp takes at once (1, 2, 4, 8: by B) and needs H and each head input
-// width to be multiples of 4 (float4 reads).
+// width to be multiples of 4 (float4 reads; ops/ar_scan.py:pad_widths pads
+// other widths with zero units and rows, which stay exactly zero).
 //
-// ar_scan_kernel (the barrier kernel; the route of a step whose weights do
-// not fit the blocks' shared memory, or of other widths): every block owns
-// a slice of each layer's rows (a warp per LSTM unit or head row), reads
-// its weights from global memory (L2) and the layer's input from a global
-// scratch, with a grid barrier (one atomic counter and a generation word)
-// after each of the 1 + L + n_head phases a frame.
+// Split plans (ops/ar_scan.py:problem_plan, route "split"): a step whose
+// weights do not fit the blocks' shared memory (H = 1024: ~55 MB against
+// ~30 MB on 132 blocks). Each block keeps, in segment order, the whole
+// units that fit beside its state; the rest of its units lie in its
+// overflow image in global memory, which the wrapper gathers in the same
+// layout. A warp reads such a unit's rows with its own float4 loads
+// (streamed_w), so a row is summed in the same order wherever it lies. The
+// overflow images (32.4 MB at H = 1024) fit the 50 MB L2, and stay there
+// from frame to frame without a persisting window. The handoff protocol is
+// the same. The split is its own instantiation (SPLIT), so the resident
+// kernel keeps its shared-memory loads. Bound:
+// the overflow bytes a frame at the L2 rate plus the handoffs, times the
+// frames (PERF.md's chain floor of the split route).
+//
+// ar_scan_kernel (the barrier kernel, which no route names since the split
+// plans; ops/ar_scan.py:ar_scan_cuda runs it by name, chip_smoke.py's
+// "before"): every block owns a slice of each layer's rows (a warp per
+// LSTM unit or head row), reads its weights from global memory (L2) and
+// the layer's input from a global scratch, with a grid barrier (one atomic
+// counter and a generation word) after each of the 1 + L + n_head phases a
+// frame.
 //
 // handoff_probe_kernel: the resident launch's grid with empty phases,
 // joined by the handoff or by the barrier kernel's grid barrier; its time
@@ -488,10 +504,14 @@ constexpr int kResThreads = 512;
 constexpr int kMaxProblems = 4;
 // a block's slices: the common part (the attribute LSTM's input weights and
 // bias), the attribute LSTM's recurrent rows, each stacked layer, each head
-// layer; four ints each: first unit or row, count, weight and bias offsets
-// (floats from the start of shared memory)
+// layer; eight ints each: first unit or row, count, weight and bias offsets
+// (floats from the start of shared memory), then the split: the units kept
+// in shared memory (the first n_res of the slice) and the offset of the
+// others in the block's overflow image (floats; ops/ar_scan.py:
+// problem_plan)
 constexpr int kMaxSegs = 2 + kMaxLayers + kMaxHead;
-constexpr int kSegInts = 4;
+constexpr int kSegInts = 6;
+enum { sFirst, sCount, sW, sB, sRes, sOvf };
 constexpr int kMaxPhases = kMaxLayers + kMaxHead;
 enum { kSegCommon = 0, kSegAttr = 1, kSegLayer0 = 2 };
 
@@ -499,17 +519,18 @@ enum { kSegCommon = 0, kSegAttr = 1, kSegLayer0 = 2 };
 enum {
   rB, rT, rC, rH, rL, rKind, rScaling, rBins, rNHead, rBlock0, rBlocks,
   rImgStride, rOffHs, rOffCattr, rOffCown, rOffXs, rOffQs, rOffPrev, rOffCtx,
-  rOffRes, rOffImg, rCmax, rNumScalars
+  rOffRes, rOffImg, rCmax, rOvfStride, rNumScalars
 };
 constexpr int kResInts =
     rNumScalars + kMaxSegs + 4 * kMaxHead + kMaxPhases;
-constexpr int kResPtrs = 9;
+constexpr int kResPtrs = 10;
 
 struct Problem {
   const float* res;        // (B, T, C)
   const float* ctx;        // (B, T, 4H): layer 0's context half and biases
   float* out;              // (B, T, C)
   const float* img;        // blocks x img_stride: each block's weights
+  const float* ovf;        // blocks x ovf_stride: the rows not kept (split)
   const int* table;        // blocks x kMaxSegs x kSegInts
   float* hbuf;             // L x 2 x B x H: each layer's h, by frame parity
   float* apbuf;            // 2 x B x 4H: W_hh_attr . h_attr, by parity
@@ -517,7 +538,7 @@ struct Problem {
   unsigned int* counters;  // one a phase, zero before the launch
   int B, T, C, H, L, kind, scaling, n_bins, n_head, block0, blocks;
   int img_stride, off_hs, off_cattr, off_cown, off_xs, off_qs, off_prev,
-      off_ctx, off_res, off_img, cmax;
+      off_ctx, off_res, off_img, cmax, ovf_stride;
   int ld[kMaxSegs];
   int head_in[kMaxHead], head_out[kMaxHead], head_act[kMaxHead],
       act_off[kMaxHead];
@@ -775,6 +796,29 @@ __device__ __forceinline__ float lstm_cell(float gi, float gf, float gg,
   return sigm(go) * tanhf(c);
 }
 
+// Unit (or head row) k of the block's slice sl, unit_floats floats each,
+// lies in shared memory (the first n_res, in the block's image) or in the
+// block's overflow image in global memory (L2), which the lanes read with
+// their own float4 loads. Both hold the same values in the same layout, so
+// dot_rows sums a row in one order wherever it lies. The callers branch on
+// is_kept and call dot_rows with kept_w's or streamed_w's pointer, so that
+// the kept rows' loads stay shared-memory loads (a pointer that may be
+// either would make every load a generic one).
+__device__ __forceinline__ bool is_kept(const int* sl, int k) {
+  return k < sl[sRes];
+}
+
+__device__ __forceinline__ const float* kept_w(const int* sl, float* smem,
+                                               int k, int unit_floats) {
+  return smem + sl[sW] + k * unit_floats;
+}
+
+__device__ __forceinline__ const float* streamed_w(const int* sl,
+                                                   const float* ovf, int k,
+                                                   int unit_floats) {
+  return ovf + sl[sOvf] + (size_t)(k - sl[sRes]) * unit_floats;
+}
+
 // ctx[b, t] of the block's layer-0 units and res[b, t] into shared slot
 // `slot`, as cp.async copies that the next frame's top waits for
 __device__ __forceinline__ void prefetch_frame(const Problem& a,
@@ -782,8 +826,8 @@ __device__ __forceinline__ void prefetch_frame(const Problem& a,
                                                int t, int slot) {
   if (t >= a.T) return;
   const int B = a.B, H = a.H;
-  const int u0 = seg[kSegLayer0 * kSegInts],
-            cnt = seg[kSegLayer0 * kSegInts + 1];
+  const int u0 = seg[kSegLayer0 * kSegInts + sFirst],
+            cnt = seg[kSegLayer0 * kSegInts + sCount];
   float* cs = smem + a.off_ctx + slot * a.cmax * 4 * B;
   for (int i = threadIdx.x; i < cnt * 4 * B; i += blockDim.x) {
     const int ug = i / B, b = i - ug * B;
@@ -797,8 +841,10 @@ __device__ __forceinline__ void prefetch_frame(const Problem& a,
   }
 }
 
-// NG: items a warp takes at once (1, 2, 4 or 8, by B)
-template <int NG>
+// NG: items a warp takes at once (1, 2, 4 or 8, by B); SPLIT: a split
+// plan's launch (some rows streamed; the unsplit kernel compiles none of
+// the split's code)
+template <int NG, bool SPLIT>
 __global__ void __launch_bounds__(kResThreads, 1)
 ar_scan_resident_kernel(const __grid_constant__ ResidentArgs args) {
   extern __shared__ __align__(16) float smem[];
@@ -818,6 +864,9 @@ ar_scan_resident_kernel(const __grid_constant__ ResidentArgs args) {
   const int nw = blockDim.x >> 5;
   const int B = a.B, C = a.C, H = a.H, L = a.L, T = a.T, G = 4 * H;
   const int nq = a.head_out[a.n_head - 1];
+  // the block's overflow image: its rows not kept in shared memory (a
+  // split plan)
+  const float* ovf = a.ovf + (size_t)lb * a.ovf_stride;
 
   // prologue: the block's slice table, zero state, then its weights (once)
   for (int i = tid; i < kMaxSegs * kSegInts; i += blockDim.x)
@@ -838,8 +887,8 @@ ar_scan_resident_kernel(const __grid_constant__ ResidentArgs args) {
   float* xs = smem + a.off_xs;        // B x xmax: a head input, W_hh_attr.h
   float* qs = smem + a.off_qs;        // B x nq: the head's output
   float* prev = smem + a.off_prev;    // B x C
-  const float* w_ih_attr = smem + seg[kSegCommon * kSegInts + 2];  // 4H x C
-  const float* b_attr = smem + seg[kSegCommon * kSegInts + 3];     // 4H
+  const float* w_ih_attr = smem + seg[kSegCommon * kSegInts + sW];  // 4H x C
+  const float* b_attr = smem + seg[kSegCommon * kSegInts + sB];     // 4H
 
   for (int t = 0; t < T; ++t) {
     const int par = t & 1;
@@ -869,27 +918,33 @@ ar_scan_resident_kernel(const __grid_constant__ ResidentArgs args) {
     //    own h]; with layer 0, the block's rows of W_hh_attr . h_attr(t)
     for (int l = 0; l < L; ++l) {
       const int* sl = seg + (kSegLayer0 + l) * kSegInts;
-      const int u0 = sl[0], cnt = sl[1], ldw = a.ld[kSegLayer0 + l];
-      const int na = l == 0 ? seg[kSegAttr * kSegInts + 1] : 0;
+      const int* sa = seg + kSegAttr * kSegInts;
+      const int u0 = sl[sFirst], cnt = sl[sCount], ldw = a.ld[kSegLayer0 + l];
+      const int na = l == 0 ? sa[sCount] : 0;
       const float* x_in = hs + l * B * H;
       const float* h_old = hs + (l + 1) * B * H;
       float* hout = a.hbuf + (size_t)(l * 2 + par) * B * H;
       for (int item = warp; item < cnt + na; item += nw) {
         const bool unit = item < cnt;
         const int k = unit ? item : item - cnt;
-        const float* W =
-            unit ? smem + sl[2] + k * 4 * ldw
-                 : smem + seg[kSegAttr * kSegInts + 2]
-                       + k * 4 * a.ld[kSegAttr];
+        const int* su = unit ? sl : sa;
+        const int uf = 4 * (unit ? ldw : a.ld[kSegAttr]);
+        const bool kept = !SPLIT || is_kept(su, k);
         for (int b0 = 0; b0 < B; b0 += NG) {
           const int nb = min(NG, B - b0);
           float acc[4][NG];
-          if (unit)
-            dot_rows<4, NG>(W, ldw, x_in, H, H, h_old, H, H, b0, nb, lane,
-                           acc);
+          auto dots = [&](const float* W) {
+            if (unit)
+              dot_rows<4, NG>(W, ldw, x_in, H, H, h_old, H, H, b0, nb, lane,
+                             acc);
+            else
+              dot_rows<4, NG>(W, a.ld[kSegAttr], hs, H, H, hs, 0, H, b0,
+                             nb, lane, acc);
+          };
+          if (kept)
+            dots(kept_w(su, smem, k, uf));
           else
-            dot_rows<4, NG>(W, a.ld[kSegAttr], hs, H, H, hs, 0, H, b0, nb,
-                           lane, acc);
+            dots(streamed_w(su, ovf, k, uf));
 #pragma unroll
           for (int i = 0; i < NG; ++i) {
             if (i < nb && lane == i) {
@@ -902,12 +957,12 @@ ar_scan_resident_kernel(const __grid_constant__ ResidentArgs args) {
                          + (l == 0 ? smem[a.off_ctx
                                           + par * a.cmax * 4 * B
                                           + (k * 4 + q) * B + b]
-                                   : smem[sl[3] + k * 4 + q]);
+                                   : smem[sl[sB] + k * 4 + q]);
                 float& c = cown[(l * a.cmax + k) * B + b];
                 hout[b * H + u0 + k] = lstm_cell(g[0], g[1], g[2], g[3], c);
               } else {
                 float* ap = a.apbuf + (size_t)par * B * G + b * G
-                            + seg[kSegAttr * kSegInts] + k;
+                            + sa[sFirst] + k;
 #pragma unroll
                 for (int q = 0; q < 4; ++q) ap[q * H] = acc[q][i];
               }
@@ -927,26 +982,33 @@ ar_scan_resident_kernel(const __grid_constant__ ResidentArgs args) {
     // 3. the head: the block's rows of each layer
     for (int k = 0; k < a.n_head; ++k) {
       const int* sk = seg + (kSegLayer0 + L + k) * kSegInts;
-      const int r0 = sk[0], cnt = sk[1], ldw = a.ld[kSegLayer0 + L + k];
+      const int r0 = sk[sFirst], cnt = sk[sCount],
+                ldw = a.ld[kSegLayer0 + L + k];
       const int K = a.head_in[k], N = a.head_out[k];
       const int act = a.head_act[k] & kActMask;
       const bool rnd = a.head_act[k] & kRoundBf16;
       const float* x = k == 0 ? hs + L * B * H : xs;
       float* y = a.actbuf + a.act_off[k] + (size_t)par * B * N;
       for (int r = warp; r < cnt; r += nw) {
+        const bool kept = !SPLIT || is_kept(sk, r);
         for (int b0 = 0; b0 < B; b0 += NG) {
           const int nb = min(NG, B - b0);
           float acc[1][NG];
-          if (rnd)
-            dot_rows<1, NG, true>(smem + sk[2] + r * ldw, ldw, x, K, K, x, 0,
-                                  K, b0, nb, lane, acc);
+          auto dots = [&](const float* W) {
+            if (rnd)
+              dot_rows<1, NG, true>(W, ldw, x, K, K, x, 0, K, b0, nb, lane,
+                                    acc);
+            else
+              dot_rows<1, NG>(W, ldw, x, K, K, x, 0, K, b0, nb, lane, acc);
+          };
+          if (kept)
+            dots(kept_w(sk, smem, r, ldw));
           else
-            dot_rows<1, NG>(smem + sk[2] + r * ldw, ldw, x, K, K, x, 0, K,
-                           b0, nb, lane, acc);
+            dots(streamed_w(sk, ovf, r, ldw));
 #pragma unroll
           for (int i = 0; i < NG; ++i) {
             if (i < nb && lane == i) {
-              float v = acc[0][i] + smem[sk[3] + r];
+              float v = acc[0][i] + smem[sk[sB] + r];
               if (act == kActRelu) v = fmaxf(v, 0.0f);
               else if (act == kActTanh) v = tanhf(v);
               y[(b0 + i) * N + r0 + r] = v;
@@ -999,12 +1061,16 @@ ar_scan_resident_kernel(const __grid_constant__ ResidentArgs args) {
   }
 }
 
-const void* resident_kernel(int G) {
+const void* resident_kernel(int G, bool split) {
   switch (G) {
-    case 1: return (const void*)ar_scan_resident_kernel<1>;
-    case 2: return (const void*)ar_scan_resident_kernel<2>;
-    case 4: return (const void*)ar_scan_resident_kernel<4>;
-    case 8: return (const void*)ar_scan_resident_kernel<8>;
+    case 1: return split ? (const void*)ar_scan_resident_kernel<1, true>
+                         : (const void*)ar_scan_resident_kernel<1, false>;
+    case 2: return split ? (const void*)ar_scan_resident_kernel<2, true>
+                         : (const void*)ar_scan_resident_kernel<2, false>;
+    case 4: return split ? (const void*)ar_scan_resident_kernel<4, true>
+                         : (const void*)ar_scan_resident_kernel<4, false>;
+    case 8: return split ? (const void*)ar_scan_resident_kernel<8, true>
+                         : (const void*)ar_scan_resident_kernel<8, false>;
     default: return nullptr;
   }
 }
@@ -1108,11 +1174,11 @@ int radtts_ar_scan(const float* w, const float* res, const float* ctx,
 
 extern "C" {
 
-// Blocks of the resident kernel (item group G) that can be resident at
-// once with this much dynamic shared memory, or 0 if a block cannot take
-// it.
-int radtts_ar_scan_resident_max_blocks(int smem, int G) {
-  const void* fn = resident_kernel(G);
+// Blocks of the resident kernel (item group G, split or not) that can be
+// resident at once with this much dynamic shared memory, or 0 if a block
+// cannot take it.
+int radtts_ar_scan_resident_max_blocks(int smem, int G, int split) {
+  const void* fn = resident_kernel(G, split != 0);
   if (fn == nullptr
       || cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem) != cudaSuccess)
@@ -1138,8 +1204,8 @@ int radtts_ar_scan_trace_stamps() { return kStamps; }
 // blocks block0_i ..). icfg: n x kResInts ints (the rNumScalars fields, then
 // ld[kMaxSegs], head_in, head_out, head_act, act_off [kMaxHead each],
 // producers[kMaxPhases]); fcfg: n x (left, right, bottom, top); ptrs: n x
-// (res, ctx, out, img, table, hbuf, apbuf, actbuf, counters); trace: null,
-// or kTraceFrames x kStamps of block trace_block's clock.
+// (res, ctx, out, img, ovf, table, hbuf, apbuf, actbuf, counters); trace:
+// null, or kTraceFrames x kStamps of block trace_block's clock.
 int radtts_ar_scan_resident(const int* icfg, const float* fcfg,
                             void* const* ptrs, int n, int blocks, int smem,
                             int G, unsigned long long* trace,
@@ -1150,6 +1216,7 @@ int radtts_ar_scan_resident(const int* icfg, const float* fcfg,
   args.trace = trace;
   args.trace_block = trace_block;
   int covered = 0;
+  bool split = false;
   for (int pi = 0; pi < n; ++pi) {
     Problem& a = args.p[pi];
     const int* c = icfg + pi * kResInts;
@@ -1158,11 +1225,12 @@ int radtts_ar_scan_resident(const int* icfg, const float* fcfg,
     a.ctx = (const float*)q[1];
     a.out = (float*)q[2];
     a.img = (const float*)q[3];
-    a.table = (const int*)q[4];
-    a.hbuf = (float*)q[5];
-    a.apbuf = (float*)q[6];
-    a.actbuf = (float*)q[7];
-    a.counters = (unsigned int*)q[8];
+    a.ovf = (const float*)q[4];
+    a.table = (const int*)q[5];
+    a.hbuf = (float*)q[6];
+    a.apbuf = (float*)q[7];
+    a.actbuf = (float*)q[8];
+    a.counters = (unsigned int*)q[9];
     a.B = c[rB];
     a.T = c[rT];
     a.C = c[rC];
@@ -1185,6 +1253,7 @@ int radtts_ar_scan_resident(const int* icfg, const float* fcfg,
     a.off_res = c[rOffRes];
     a.off_img = c[rOffImg];
     a.cmax = c[rCmax];
+    a.ovf_stride = c[rOvfStride];
     const int* p = c + rNumScalars;
     for (int i = 0; i < kMaxSegs; ++i) a.ld[i] = *p++;
     int* heads[4] = {a.head_in, a.head_out, a.head_act, a.act_off};
@@ -1196,21 +1265,24 @@ int radtts_ar_scan_resident(const int* icfg, const float* fcfg,
     a.bottom = fcfg[4 * pi + 2];
     a.top = fcfg[4 * pi + 3];
     if (a.L < 1 || a.L > kMaxLayers || a.n_head < 1 || a.n_head > kMaxHead
-        || a.block0 != covered || a.blocks < 1)
+        || a.block0 != covered || a.blocks < 1
+        || (a.ovf_stride > 0 && a.ovf == nullptr))
       return (int)cudaErrorInvalidValue;
     const int bins = a.kind == kQuadratic ? a.n_bins / 2 : a.n_bins;
     if (a.kind != kAffine && (bins < 1 || bins > kMaxBins))
       return (int)cudaErrorInvalidValue;
     covered += a.blocks;
+    split = split || a.ovf_stride > 0;
   }
-  if (covered != blocks || resident_kernel(G) == nullptr)
+  const void* fn = resident_kernel(G, split);
+  if (covered != blocks || fn == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (blocks > radtts_ar_scan_resident_max_blocks(smem, G))
+  if (blocks > radtts_ar_scan_resident_max_blocks(smem, G, split))
     return (int)cudaErrorCooperativeLaunchTooLarge;
   void* kargs[] = {&args};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      resident_kernel(G), dim3(blocks), dim3(kResThreads), kargs,
-      (size_t)smem, (cudaStream_t)stream);
+      fn, dim3(blocks), dim3(kResThreads), kargs, (size_t)smem,
+      (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

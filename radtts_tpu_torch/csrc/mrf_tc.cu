@@ -1,10 +1,17 @@
 // One fused convolution of the HiFi-GAN multi-receptive-field (MRF)
 // resblock chain on Hopper's tensor cores, channels-last, fp32-accurate,
-// for sm_90a. It serves the C=256, 128, 64 and 32 stages; csrc/mrf_stack.cu
-// serves C <= 16 and csrc/mrf.cu the other widths (the routing rule is
-// ops/mrf.py:mrf_route). Two kernels: mrf_tc_kernel for C=256
-// and C=128 (the design below), mrf_tc_narrow_kernel for C=64 and C=32
-// (its own section further down).
+// for sm_90a. It serves every width C (a multiple of 4) but the C <= 16
+// stages of at most 4 resblocks, which csrc/mrf_stack.cu serves (the
+// routing rule is ops/mrf.py:mrf_route). Two kernels: mrf_tc_kernel for
+// C > 96 (the design below), mrf_tc_narrow_kernel for C <= 96 (its own
+// section further down). Widths that are not a tile width run padded to
+// ops/mrf.py:padded_width(C): 32, 64 or 96 up to 96 (the narrow kernel),
+// 128 from 100 to 128, the next multiple of 64 above (C=160: 192). The
+// padded channels are exactly zero in every product (zero weights, zero
+// activations: loads and stores touch only the C real channels, whose
+// rows are 16-byte aligned since C % 4 == 0), so padding changes no real
+// output. csrc/mrf.cu's FMA kernel, which took these widths before, runs
+// only when asked for by name (chip_smoke.py's "before").
 //
 // Replaces the TPU kernels of radtts_tpu/ops/pallas_mrf.py: pallas_mrf_wide
 // (C=256, there with bf16 weight storage; here fp32-accurate), pallas_mrf
@@ -89,6 +96,11 @@
 //    per element for half the products (TN=64), or run one warpgroup per
 //    block, whose fragment preparation leaves the tensor cores idle
 //    (NWG=1), and both measured slower.
+//  - Padded widths (cp > C): the slab's padded channels are cp.async's
+//    zero fill (source size 0), the packed taps' padded rows and columns
+//    are zero, and the epilogue skips the padded output channels. These
+//    tests are compiled only into the PAD instances, which run the padded
+//    widths, so the widths that are their own tile width test no channel.
 //  - A wait on an mbarrier that does not complete within ~2 s traps, so a
 //    fault in the pipeline ends the launch with an error instead of a hang.
 
@@ -374,11 +386,87 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n192(float (&d)[96], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b) {
-  if constexpr (N == 128)
+  if constexpr (N == 192)
+    wgmma_ss_n192(d, desc_a, desc_b);
+  else if constexpr (N == 128)
     wgmma_ss_n128(d, desc_a, desc_b);
+  else if constexpr (N == 96)
+    wgmma_ss_n96(d, desc_a, desc_b);
   else if constexpr (N == 64)
     wgmma_ss_n64(d, desc_a, desc_b);
   else
@@ -390,42 +478,48 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Epilogue of a TM x C tile (the narrow kernel): y = frag + bias (+ res);
+// Epilogue of a TM x CP tile (the narrow kernel): y = frag + bias (+ res);
 // out = y, or acc += acc_scale * y. frag[4 jn + 2 h + e] is row r0 + 8 h of
-// the tile, channel 8 jn + 2 tig + e. The tile is staged row-major in
-// shared memory: the store warp fills it with the tile's rows of res (when
-// the launch has one) before the consumers get there and writes it out
-// with one bulk copy after them, so res and the output move by bulk copies
-// that overlap the products. acc_old, only in the launch that accumulates,
-// is read into registers (load_acc; rows at and past T read as 0).
-template <int C>
+// the tile, channel 8 jn + 2 tig + e. The tile's C real channels are staged
+// row-major (row stride C) in shared memory: the store warp fills it with
+// the tile's rows of res (when the launch has one) before the consumers
+// get there and writes it out with one bulk copy after them, so res and the
+// output move by bulk copies that overlap the products. PAD (C < CP): the
+// padded channels [C, CP) are neither staged nor stored (C % 4 == 0, so a
+// thread's pair of channels is both real or both padded); without it no
+// channel is tested. acc_old, only in the launch that accumulates, is read
+// into registers (load_acc; rows at and past T read as 0).
+template <int CP>
 struct AccInputs {
-  float2 v[C / 8][2];
+  float2 v[CP / 8][2];
 };
 
-template <int C>
-__device__ __forceinline__ void load_acc(AccInputs<C>& in, const float* acc,
-                                         int b, int T, int t0, int r0,
+template <int CP, bool PAD>
+__device__ __forceinline__ void load_acc(AccInputs<CP>& in, const float* acc,
+                                         int b, int T, int C, int t0, int r0,
                                          int tig) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int t = t0 + r0 + 8 * h;
 #pragma unroll
-    for (int jn = 0; jn < C / 8; ++jn) {
-      const size_t idx = ((size_t)b * T + t) * C + 8 * jn + 2 * tig;
-      in.v[jn][h] = t < T ? *reinterpret_cast<const float2*>(&acc[idx])
-                          : make_float2(0.f, 0.f);
+    for (int jn = 0; jn < CP / 8; ++jn) {
+      const int co = 8 * jn + 2 * tig;
+      const size_t idx = ((size_t)b * T + t) * C + co;
+      in.v[jn][h] = t < T && (!PAD || co < C)
+                        ? *reinterpret_cast<const float2*>(&acc[idx])
+                        : make_float2(0.f, 0.f);
     }
   }
 }
 
-template <int C>
+template <int CP, bool PAD>
 __device__ __forceinline__ void stage_tile(
-    const float (&frag)[C / 2], const AccInputs<C>& in,
-    const float* __restrict__ bias, float* staged, bool add_res,
+    const float (&frag)[CP / 2], const AccInputs<CP>& in,
+    const float* __restrict__ bias, float* staged, int C, bool add_res,
     bool accumulate, float acc_scale, int r0, int tig) {
 #pragma unroll
-  for (int jn = 0; jn < C / 8; ++jn) {
+  for (int jn = 0; jn < CP / 8; ++jn) {
+    if (PAD && 8 * jn + 2 * tig >= C) continue;
     const float2 bv = *reinterpret_cast<const float2*>(&bias[8 * jn + 2 * tig]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -446,12 +540,13 @@ __device__ __forceinline__ void stage_tile(
   }
 }
 
-template <int TN, int NWG>
+// PAD: C < cp, the padded channels tested (cp == C compiles no test)
+template <int TN, int NWG, bool PAD>
 __global__ void __launch_bounds__(Layout<TN, NWG>::kThreads)
 mrf_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
               const float* __restrict__ bias, const float* res, float* out,
-              float* acc, float acc_scale, int T, int C, int k, int d,
-              float slope) {
+              float* acc, float acc_scale, int T, int C, int cp, int k,
+              int d, float slope) {
   using L = Layout<TN, NWG>;
   constexpr int TM = L::TM;
   extern __shared__ __align__(128) float smem[];
@@ -467,7 +562,7 @@ mrf_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   const int n0 = blockIdx.y * TN;
   const int b = blockIdx.z;
   const int pad = (k - 1) / 2 * d;
-  const int n_chunks = C / kCK;
+  const int n_chunks = cp / kCK;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -496,7 +591,8 @@ mrf_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       for (int e = lane; e < rows * (kCK / 4); e += 32) {
         const int i = e / (kCK / 4), q = e % (kCK / 4);
         const int t = t0 - pad + i;
-        const bool in = t >= 0 && t < T;
+        // rows outside the item and the padded channels read as zero
+        const bool in = t >= 0 && t < T && (!PAD || c * kCK + 4 * q < C);
         cp_async_16(slab + i * kSlabStride + 4 * q,
                     in ? xb + (size_t)t * C + c * kCK + 4 * q : xb,
                     in ? 16 : 0);
@@ -580,6 +676,7 @@ mrf_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
 #pragma unroll
   for (int jn = 0; jn < TN / 8; ++jn) {
     const int co = n0 + 8 * jn + 2 * tig;
+    if (PAD && co >= C) continue;   // a padded channel (C % 4 == 0: both)
     const float2 bv = *reinterpret_cast<const float2*>(&bias[co]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -604,57 +701,67 @@ mrf_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   }
 }
 
-template <int TN, int NWG>
+template <int TN, int NWG, bool PAD>
 int launch(const float* x, const float* wp, const float* bias,
            const float* res, float* out, float* acc, float acc_scale, int B,
-           int T, int C, int k, int d, float slope, cudaStream_t stream) {
+           int T, int C, int cp, int k, int d, float slope,
+           cudaStream_t stream) {
   using L = Layout<TN, NWG>;
   // the attribute belongs to the current device: set at every launch (a
   // host-side call), so a launch on a second card never runs without it
   const cudaError_t e = cudaFuncSetAttribute(
-      mrf_tc_kernel<TN, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L::kBytes);
+      mrf_tc_kernel<TN, NWG, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((T + L::TM - 1) / L::TM, C / TN, B);
-  mrf_tc_kernel<TN, NWG><<<grid, L::kThreads, L::kBytes, stream>>>(
-      x, wp, bias, res, out, acc, acc_scale, T, C, k, d, slope);
+  const dim3 grid((T + L::TM - 1) / L::TM, cp / TN, B);
+  mrf_tc_kernel<TN, NWG, PAD><<<grid, L::kThreads, L::kBytes, stream>>>(
+      x, wp, bias, res, out, acc, acc_scale, T, C, cp, k, d, slope);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// The narrow stages, C=64 and C=32: mrf_tc_narrow_kernel.
+// The narrow stages, C <= 96: mrf_tc_narrow_kernel<CP, NWG>.
 //
-// The same implicit GEMM and 3xTF32 split, with N = TN = C (one block reads
-// its slab once for all output channels) and K = all of C_in resident at
-// once. What mrf_tc_kernel does per tap, this does once:
+// The same implicit GEMM and 3xTF32 split, with N = TN = CP (one block
+// reads its slab once for all output channels) and K = all of C_in
+// resident at once. CP is the padded width (ops/mrf.py:padded_width): 32,
+// 64 or 96, the width C rounded up to a multiple of 32 (C=64 and C=32, the
+// HiFi-GAN v1 stages, run unpadded; C=96 takes one warpgroup, NWG = 1,
+// since two planes of 179 rows by 96 channels and the raw slab do not fit
+// a block's shared memory beside the staged tile). The padded channels [C,
+// CP) are exactly zero in every product: their planes' groups are written
+// as zeros by the split, their weights are zero (the packed taps are
+// zero-padded), and their outputs are never staged or stored. What
+// mrf_tc_kernel does per tap, this does once:
 //  - Activations are split once per slab, not once per tap. A slab warp
-//    stages the tile's rows [t0 - pad, t0 + TM + pad) x C into a raw buffer:
-//    one bulk copy of the rows inside [0, T) of the item, and zeros for the
-//    rest (the conv's padding). The consumer threads then apply leaky ReLU
-//    and the hi/lo split to each element once and write two planes, hi and
-//    lo, in wgmma's no-swizzle K-major layout with all rows of a 4-channel
-//    group contiguous: the 16-byte unit (group g, slab row i) at (g*kR +
-//    i)*16 bytes. A core matrix is then any 8 consecutive rows, so tap j's
-//    operand, the slab shifted by j * d rows, is a descriptor whose start is
-//    16 * j * d bytes further (LBO = kR * 16 between channel groups, SBO =
-//    128 between 8-row groups), and A is read from shared memory by the
-//    tensor cores: no per-tap fragment loads, conversions or register
-//    hazards. kR is odd, so the split's 16-byte stores of 8 neighbouring
-//    groups hit 8 distinct bank quads.
+//    stages the tile's rows [t0 - pad, t0 + TM + pad) x C (the real
+//    channels, row stride C) into a raw buffer: one bulk copy of the rows
+//    inside [0, T) of the item, and zeros for the rest (the conv's
+//    padding). The consumer threads then apply leaky ReLU and the hi/lo
+//    split to each element once and write two planes, hi and lo, of CP / 4
+//    channel groups (zeros at and past C) in wgmma's no-swizzle K-major
+//    layout with all rows of a 4-channel group contiguous: the 16-byte unit
+//    (group g, slab row i) at (g*kR + i)*16 bytes. A core matrix is then
+//    any 8 consecutive rows, so tap j's operand, the slab shifted by j * d
+//    rows, is a descriptor whose start is 16 * j * d bytes further (LBO =
+//    kR * 16 between channel groups, SBO = 128 between 8-row groups), and A
+//    is read from shared memory by the tensor cores: no per-tap fragment
+//    loads, conversions or register hazards. kR is odd, so the split's
+//    16-byte stores of 8 neighbouring groups hit 8 distinct bank quads.
 //  - Weights: the k taps of the conv in (tap, chunk) units, fetched by a
-//    weight warp with bulk copies. A unit is one K-major operand of 2C rows,
-//    w's hi plane in rows [0, C) and its lo plane in [C, 2C)
-//    (ops/mrf.py:tc_pack_narrow). Per k-step one m64n(2C)k8 multiplies A's
-//    hi plane by both (hi*hi and hi*lo, in accumulator columns [0, C) and
-//    [C, 2C)), and one m64nCk8 multiplies A's lo plane by the first C rows
-//    (lo*hi, a second accumulator; wgmma orders accumulator chains only
-//    between instructions of one shape). Against three m64nCk8 that is one
-//    read of A's hi plane fewer per k-step: at C=32 the three products would
-//    read 9 KB of shared memory for 48 tensor-core cycles, 72 cycles at
-//    128 B per clock, and now read 7 KB. Where all of a conv's units fit
-//    (C=32: 11 x 8 KB; C=64 at k=3 with NWG=1) they are loaded once per
-//    block and stay; otherwise (C=64) they stream through a ring per tile,
-//    as above.
+//    weight warp with bulk copies. A unit is one K-major operand of 2CP
+//    rows, w's hi plane in rows [0, CP) and its lo plane in [CP, 2CP)
+//    (ops/mrf.py:tc_pack_narrow). Per k-step one m64n(2CP)k8 multiplies A's
+//    hi plane by both (hi*hi and hi*lo, in accumulator columns [0, CP) and
+//    [CP, 2CP)), and one m64nCPk8 multiplies A's lo plane by the first CP
+//    rows (lo*hi, a second accumulator; wgmma orders accumulator chains
+//    only between instructions of one shape). Against three m64nCPk8 that
+//    is one read of A's hi plane fewer per k-step: at C=32 the three
+//    products would read 9 KB of shared memory for 48 tensor-core cycles,
+//    72 cycles at 128 B per clock, and now read 7 KB. Where all of a conv's
+//    units fit (C=32: 11 x 8 KB; C=64 at k=3 with NWG=1) they are loaded
+//    once per block and stay; otherwise (C=64, C=96) they stream through a
+//    ring per tile, as above.
 //  - Persistent blocks: min(tiles, SMs x blocks per SM) blocks walk the
 //    (item, time tile) tiles, so resident weights are fetched once per
 //    block (at C=32 the 88 KB per conv, once per 1216-tile launch, would
@@ -674,18 +781,18 @@ int launch(const float* x, const float* wp, const float* bias,
 
 constexpr int kSmemLimit = 232448;      // per block, sm_90
 
-template <int C, int NWG>
+template <int CP, int NWG>
 struct NarrowLayout {
   static constexpr int TM = 64 * NWG;
   static constexpr int kConsumers = 128 * NWG;
   static constexpr int kThreads = kConsumers + 96;   // + slab, weight, store
-  static constexpr int kChunks = C / kCK;
+  static constexpr int kChunks = CP / kCK;
   static constexpr int kRawRows = TM + kMaxHalo;
   static constexpr int kR = TM + kMaxHalo + 1;       // plane rows (odd)
-  static constexpr int kRawFloats = kRawRows * C;
-  static constexpr int kPlaneFloats = kR * C;        // one of hi, lo
-  static constexpr int kOutFloats = TM * C;          // the staged tile
-  static constexpr int kUnitFloats = 2 * C * kCK;    // one (tap, chunk)
+  static constexpr int kRawFloats = kRawRows * CP;
+  static constexpr int kPlaneFloats = kR * CP;       // one of hi, lo
+  static constexpr int kOutFloats = TM * CP;         // the staged tile
+  static constexpr int kUnitFloats = 2 * CP * kCK;   // one (tap, chunk)
   static constexpr int kMaxUnits = kMaxTaps * kChunks;
   static constexpr int kBarBytes = 8 * (4 + 2 * kMaxUnits);
   static constexpr int kOtherFloats = kRawFloats + kOutFloats;
@@ -703,25 +810,29 @@ struct NarrowLayout {
                kOtherFloats) * 4 +
       sizeof(uint64_t) * (4 + 2 * kStages);
   static_assert(kStages >= 2, "the weight ring needs two stages");
+  static_assert(kBytes <= kSmemLimit, "shared memory per block");
 };
 
 __device__ __forceinline__ void consumer_sync(int n_threads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(n_threads) : "memory");
 }
 
-template <int C, int NWG>
-__global__ void __launch_bounds__(NarrowLayout<C, NWG>::kThreads, 1)
+// PAD: c_real < CP, the real width at run time; else C = CP at compile time
+template <int CP, int NWG, bool PAD>
+__global__ void __launch_bounds__(NarrowLayout<CP, NWG>::kThreads, 1)
 mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
                      const float* __restrict__ bias, const float* res,
                      float* out, float* acc, float acc_scale, int B, int T,
-                     int k, int d, float slope) {
-  using L = NarrowLayout<C, NWG>;
+                     int c_real, int k, int d, float slope) {
+  using L = NarrowLayout<CP, NWG>;
   constexpr int TM = L::TM;
-  constexpr int kGroups = C / 4;              // 16-byte units per slab row
+  constexpr int kGroupsP = CP / 4;            // plane groups (16 bytes)
+  const int C = PAD ? c_real : CP;
+  const int groups = C / 4;                   // real ones, in a slab row
   extern __shared__ __align__(128) float smem[];
   float* w_ring = smem;
   float* planes = w_ring + L::kStages * L::kUnitFloats;  // [buf][hi, lo]
-  float* raw = planes + 2 * L::kBufs * L::kPlaneFloats;
+  float* raw = planes + 2 * L::kBufs * L::kPlaneFloats;  // rows x C
   float* staged = raw + L::kRawFloats;                  // TM x C, row-major
   uint64_t* raw_full = reinterpret_cast<uint64_t*>(staged + L::kOutFloats);
   uint64_t* raw_empty = raw_full + 1;
@@ -765,8 +876,8 @@ mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       const int skip = lo_t - (t0 - pad);          // zero rows at the top
       const int n_in = hi_t - lo_t;
       mbar_wait(raw_empty, ph ^ 1);
-      for (int e = lane; e < (rows - n_in) * kGroups; e += 32) {
-        const int i = e / kGroups, g = e % kGroups;
+      for (int e = lane; e < (rows - n_in) * groups; e += 32) {
+        const int i = e / groups, g = e % groups;
         const int row = i < skip ? i : i + n_in;
         *reinterpret_cast<float4*>(raw + row * C + 4 * g) =
             make_float4(0.f, 0.f, 0.f, 0.f);
@@ -846,14 +957,18 @@ mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   const uint32_t w_s = smem_u32(w_ring);
   int ph = 0, s = 0, wph = 0, oph = 0;
 
-  // raw slab -> lrelu -> hi/lo planes of buffer buf, once per element
+  // raw slab -> lrelu -> hi/lo planes of buffer buf, once per element;
+  // the padded groups [C / 4, CP / 4) as zeros
   auto split = [&](int buf) {
     float* hi = planes + 2 * buf * L::kPlaneFloats;
     float* lo = hi + L::kPlaneFloats;
     mbar_wait(raw_full, ph);
-    for (int e = threadIdx.x; e < rows * kGroups; e += L::kConsumers) {
-      const int i = e / kGroups, g = e % kGroups;
-      const float4 v = *reinterpret_cast<const float4*>(raw + i * C + 4 * g);
+    for (int e = threadIdx.x; e < rows * kGroupsP; e += L::kConsumers) {
+      const int i = e / kGroupsP, g = e % kGroupsP;
+      const float4 v =
+          !PAD || g < groups
+              ? *reinterpret_cast<const float4*>(raw + i * C + 4 * g)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
       const float a[4] = {v.x >= 0.f ? v.x : slope * v.x,
                           v.y >= 0.f ? v.y : slope * v.y,
                           v.z >= 0.f ? v.z : slope * v.z,
@@ -887,19 +1002,23 @@ mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       split(0);
       consumer_sync(L::kConsumers);
     }
-    AccInputs<C> in;
-    if (acc != nullptr) load_acc<C>(in, acc, b, T, t0, r0, tig);
+    // acc's old values: before the products where the registers allow,
+    // else (CP = 96) after them
+    constexpr bool kAccEarly = CP <= 64;
+    AccInputs<CP> in;
+    if (kAccEarly && acc != nullptr)
+      load_acc<CP, PAD>(in, acc, b, T, C, t0, r0, tig);
 
     const uint32_t hi_s = smem_u32(planes + 2 * buf * L::kPlaneFloats);
     const uint32_t lo_s = hi_s + L::kPlaneFloats * 4;
-    // acc_w: columns [0, C) sum hi*hi, [C, 2C) hi*lo; acc_l: lo*hi (one
+    // acc_w: columns [0, CP) sum hi*hi, [CP, 2CP) hi*lo; acc_l: lo*hi (one
     // pass: acc_l sums hi*hi, acc_w is unused)
-    constexpr int kW = MRF_TC_PASSES == 3 ? C : 1;
-    float acc_w[kW], acc_l[C / 2];
+    constexpr int kW = MRF_TC_PASSES == 3 ? CP : 1;
+    float acc_w[kW], acc_l[CP / 2];
 #pragma unroll
     for (int i = 0; i < kW; ++i) acc_w[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < C / 2; ++i) acc_l[i] = 0.f;
+    for (int i = 0; i < CP / 2; ++i) acc_l[i] = 0.f;
     fence_operand(acc_w);
     fence_operand(acc_l);
     int prev = -1;
@@ -916,13 +1035,13 @@ mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
         const uint32_t a_off = (8 * c + 2 * q) * L::kR * 16 + a_row;
         const uint64_t da_hi = make_desc(hi_s + a_off, L::kR * 16, 128);
         const uint64_t da_lo = make_desc(lo_s + a_off, L::kR * 16, 128);
-        const uint64_t db = make_desc(b_s + q * C * 64, C * 32, 128);
+        const uint64_t db = make_desc(b_s + q * CP * 64, CP * 32, 128);
 #if MRF_TC_PASSES == 3
-        wgmma_ss<2 * C>(acc_w, da_hi, db);
-        wgmma_ss<C>(acc_l, da_lo, db);      // the first C rows: hi
+        wgmma_ss<2 * CP>(acc_w, da_hi, db);
+        wgmma_ss<CP>(acc_l, da_lo, db);     // the first CP rows: hi
 #else
         (void)da_lo;
-        wgmma_ss<C>(acc_l, da_hi, db);      // hi*hi alone, in acc_l
+        wgmma_ss<CP>(acc_l, da_hi, db);     // hi*hi alone, in acc_l
 #endif
       }
       wgmma_commit();
@@ -941,19 +1060,22 @@ mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     fence_operand(acc_w);
     fence_operand(acc_l);
     if (prev >= 0) mbar_arrive(&w_empty[prev]);
-    // acc_w[i + C / 2] is the same row and channel as acc_w[i] and acc_l[i]
-    float frag[C / 2];
+    if (!kAccEarly && acc != nullptr)
+      load_acc<CP, PAD>(in, acc, b, T, C, t0, r0, tig);
+    // acc_w[i + CP / 2] is the same row and channel as acc_w[i] and
+    // acc_l[i]
+    float frag[CP / 2];
 #pragma unroll
-    for (int i = 0; i < C / 2; ++i) {
+    for (int i = 0; i < CP / 2; ++i) {
 #if MRF_TC_PASSES == 3
-      frag[i] = acc_w[i] + (acc_w[i + C / 2] + acc_l[i]);
+      frag[i] = acc_w[i] + (acc_w[i + CP / 2] + acc_l[i]);
 #else
       frag[i] = acc_l[i];
 #endif
     }
     mbar_wait(out_ready, oph);    // the last tile's store has read it
-    stage_tile<C>(frag, in, bias, staged, res != nullptr, acc != nullptr,
-                  acc_scale, r0, tig);
+    stage_tile<CP, PAD>(frag, in, bias, staged, C, res != nullptr,
+                        acc != nullptr, acc_scale, r0, tig);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_arrive(out_full);
     oph ^= 1;
@@ -966,17 +1088,17 @@ mrf_tc_narrow_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   }
 }
 
-template <int C, int NWG>
+template <int CP, int NWG, bool PAD>
 int launch_narrow(const float* x, const float* wp, const float* bias,
                   const float* res, float* out, float* acc, float acc_scale,
-                  int B, int T, int k, int d, float slope,
+                  int B, int T, int C, int k, int d, float slope,
                   cudaStream_t stream) {
-  using L = NarrowLayout<C, NWG>;
+  using L = NarrowLayout<CP, NWG>;
   // the attribute at every launch (it belongs to the current device); the
   // grid cap, SMs x resident blocks per SM, cached per device
   static int max_blocks[kMaxDevices] = {};
   cudaError_t e = cudaFuncSetAttribute(
-      mrf_tc_narrow_kernel<C, NWG>,
+      mrf_tc_narrow_kernel<CP, NWG, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (e != cudaSuccess) return (int)e;
   int dev = 0;
@@ -987,79 +1109,101 @@ int launch_narrow(const float* x, const float* wp, const float* bias,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mrf_tc_narrow_kernel<C, NWG>, L::kThreads, L::kBytes);
+        &per_sm, mrf_tc_narrow_kernel<CP, NWG, PAD>, L::kThreads,
+        L::kBytes);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     max_blocks[dev] = sms * per_sm;
   }
   const long long tiles = (long long)B * ((T + L::TM - 1) / L::TM);
   const int grid = (int)(tiles < max_blocks[dev] ? tiles : max_blocks[dev]);
-  mrf_tc_narrow_kernel<C, NWG><<<grid, L::kThreads, L::kBytes, stream>>>(
-      x, wp, bias, res, out, acc, acc_scale, B, T, k, d, slope);
+  mrf_tc_narrow_kernel<CP, NWG, PAD>
+      <<<grid, L::kThreads, L::kBytes, stream>>>(
+          x, wp, bias, res, out, acc, acc_scale, B, T, C, k, d, slope);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). Shapes: x, res,
-// out, acc (B, T, C) contiguous; wp the k packed taps of one conv
-// (ops/mrf.py:tc_pack_narrow for the narrow kernel, else tc_pack with the
-// same tn); bias (C,). Requires either tn == C in {32, 64} with exactly one
-// of out and acc (mrf_tc_narrow_kernel), or tn in {64, 128} with C % tn ==
-// 0 and C >= 128 (mrf_tc_kernel); nwg in {1, 2}, k odd and <= 11, (k - 1) *
-// d <= 50, and 16-byte aligned x, wp, bias, res, out and acc.
+// out, acc (B, T, C) contiguous with C % 4 == 0; wp the k packed taps of
+// one conv at the padded width cp (ops/mrf.py:tc_pack_narrow for the narrow
+// kernel, else tc_pack with the same tn), zero in the padded rows and
+// columns; bias (cp,), zero past C. Requires either tn == cp in {32, 64}
+// (nwg 1 or 2) or {96} (nwg 1) with exactly one of out and acc
+// (mrf_tc_narrow_kernel), or tn in {64, 128} with cp % tn == 0 and cp >=
+// 128 (mrf_tc_kernel); C <= cp < C + 64, nwg in {1, 2}, k odd and <= 11,
+// (k - 1) * d <= 50, and 16-byte aligned x, wp, bias, res, out and acc.
 extern "C" int radtts_mrf_tc_conv(const float* x, const float* wp,
                                   const float* bias, const float* res,
                                   float* out, float* acc, float acc_scale,
-                                  int B, int T, int C, int k, int d,
+                                  int B, int T, int C, int cp, int k, int d,
                                   float slope, int tn, int nwg,
                                   void* stream) {
-  const bool narrow = tn == C && (C == 32 || C == 64) &&
-                      (out != nullptr) != (acc != nullptr);
-  if (B <= 0 || T <= 0 || C <= 0 ||
-      !(narrow || ((tn == 64 || tn == 128) && C % tn == 0 && C >= 128)) ||
+  const bool one_out = (out != nullptr) != (acc != nullptr);
+  const bool narrow = tn == cp && one_out &&
+                      (((cp == 32 || cp == 64) && (nwg == 1 || nwg == 2)) ||
+                       (cp == 96 && nwg == 1));
+  if (B <= 0 || T <= 0 || C <= 0 || C % 4 != 0 || cp < C || cp >= C + 64 ||
+      !(narrow || ((tn == 64 || tn == 128) && cp % tn == 0 && cp >= 128)) ||
       (nwg != 1 && nwg != 2) || k <= 0 || k % 2 == 0 || k > kMaxTaps ||
       d <= 0 || (k - 1) * d > kMaxHalo || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // a padded width tests its channels; the others compile no test
+  const bool pad = C != cp;
   if (narrow) {
-    if (C == 64)
-      return nwg == 2 ? launch_narrow<64, 2>(x, wp, bias, res, out, acc,
-                                             acc_scale, B, T, k, d, slope, s)
-                      : launch_narrow<64, 1>(x, wp, bias, res, out, acc,
-                                             acc_scale, B, T, k, d, slope, s);
-    return nwg == 2 ? launch_narrow<32, 2>(x, wp, bias, res, out, acc,
-                                           acc_scale, B, T, k, d, slope, s)
-                    : launch_narrow<32, 1>(x, wp, bias, res, out, acc,
-                                           acc_scale, B, T, k, d, slope, s);
+#define MRF_TC_NARROW(CP_, NWG_)                                           \
+  if (cp == CP_ && nwg == NWG_)                                            \
+    return pad ? launch_narrow<CP_, NWG_, true>(x, wp, bias, res, out, acc, \
+                                                acc_scale, B, T, C, k, d,  \
+                                                slope, s)                  \
+               : launch_narrow<CP_, NWG_, false>(x, wp, bias, res, out,    \
+                                                 acc, acc_scale, B, T, C,  \
+                                                 k, d, slope, s);
+    MRF_TC_NARROW(96, 1)
+    MRF_TC_NARROW(64, 2)
+    MRF_TC_NARROW(64, 1)
+    MRF_TC_NARROW(32, 2)
+    MRF_TC_NARROW(32, 1)
+#undef MRF_TC_NARROW
+    return (int)cudaErrorInvalidValue;
   }
-  if (tn == 128 && nwg == 2)
-    return launch<128, 2>(x, wp, bias, res, out, acc, acc_scale, B, T, C, k,
-                          d, slope, s);
-  if (tn == 128)
-    return launch<128, 1>(x, wp, bias, res, out, acc, acc_scale, B, T, C, k,
-                          d, slope, s);
-  if (nwg == 2)
-    return launch<64, 2>(x, wp, bias, res, out, acc, acc_scale, B, T, C, k,
-                         d, slope, s);
-  return launch<64, 1>(x, wp, bias, res, out, acc, acc_scale, B, T, C, k, d,
-                       slope, s);
+#define MRF_TC_WIDE(TN_, NWG_)                                               \
+  if (tn == TN_ && nwg == NWG_)                                              \
+    return pad ? launch<TN_, NWG_, true>(x, wp, bias, res, out, acc,         \
+                                         acc_scale, B, T, C, cp, k, d, slope, \
+                                         s)                                  \
+               : launch<TN_, NWG_, false>(x, wp, bias, res, out, acc,        \
+                                          acc_scale, B, T, C, cp, k, d,      \
+                                          slope, s);
+  MRF_TC_WIDE(128, 2)
+  MRF_TC_WIDE(128, 1)
+  MRF_TC_WIDE(64, 2)
+  MRF_TC_WIDE(64, 1)
+#undef MRF_TC_WIDE
+  return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one block at width C and tile (tn, nwg), in
-// bytes, and the narrow kernel's weight stages (for the build report).
-extern "C" int radtts_mrf_tc_smem_bytes(int C, int tn, int nwg) {
-  if (tn == C && C == 64) return nwg == 2 ? (int)NarrowLayout<64, 2>::kBytes
-                                          : (int)NarrowLayout<64, 1>::kBytes;
-  if (tn == C && C == 32) return nwg == 2 ? (int)NarrowLayout<32, 2>::kBytes
-                                          : (int)NarrowLayout<32, 1>::kBytes;
+// Dynamic shared memory of one block at padded width cp and tile (tn, nwg),
+// in bytes, and the narrow kernel's weight stages (for the build report);
+// 0 for a narrow tile the kernel does not take.
+extern "C" int radtts_mrf_tc_smem_bytes(int cp, int tn, int nwg) {
+  if (tn == cp) {
+    if (cp == 96) return nwg == 1 ? (int)NarrowLayout<96, 1>::kBytes : 0;
+    if (cp == 64) return nwg == 2 ? (int)NarrowLayout<64, 2>::kBytes
+                                  : (int)NarrowLayout<64, 1>::kBytes;
+    if (cp == 32) return nwg == 2 ? (int)NarrowLayout<32, 2>::kBytes
+                                  : (int)NarrowLayout<32, 1>::kBytes;
+  }
   if (tn == 128) return nwg == 2 ? (int)Layout<128, 2>::kBytes
                                  : (int)Layout<128, 1>::kBytes;
   return nwg == 2 ? (int)Layout<64, 2>::kBytes : (int)Layout<64, 1>::kBytes;
 }
 
-extern "C" int radtts_mrf_tc_weight_stages(int C, int nwg) {
-  if (C == 64) return nwg == 2 ? NarrowLayout<64, 2>::kStages
-                               : NarrowLayout<64, 1>::kStages;
+extern "C" int radtts_mrf_tc_weight_stages(int cp, int nwg) {
+  if (cp == 96) return nwg == 1 ? NarrowLayout<96, 1>::kStages : 0;
+  if (cp == 64) return nwg == 2 ? NarrowLayout<64, 2>::kStages
+                                : NarrowLayout<64, 1>::kStages;
   return nwg == 2 ? NarrowLayout<32, 2>::kStages : NarrowLayout<32, 1>::kStages;
 }

@@ -1,9 +1,17 @@
 // One convolution of the HiFi-GAN multi-receptive-field (MRF) resblock
 // chain in ONE TF32 pass on Hopper's tensor cores, channels-last, for
 // sm_90a: the route of --matmul_precision default (ops/precision.py) at
-// C=256, 128, 64 and 32 (ops/mrf.py:mrf_route(C, passes=1)), in place of
-// csrc/mrf_tc.cu's one-pass build. The 3xTF32 kernels of csrc/mrf_tc.cu
-// serve the other precisions.
+// every width but the C <= 16 stages of at most 4 resblocks
+// (ops/mrf.py:mrf_route(C, passes=1)), in place of csrc/mrf_tc.cu's
+// one-pass build. The 3xTF32 kernels of csrc/mrf_tc.cu serve the other
+// precisions. A width that is not a multiple of 32 runs padded to
+// ops/mrf.py:padded_width(C) (C=24: 32; C=48: 64; C=96 as it is, one
+// 96-wide tile; C=160: 192): the slab warp fetches only the C real
+// channels, the split writes the padded groups as zeros, the packed taps
+// are zero in the padded rows and columns, and the store warps write only
+// the real channels, so padding changes no real output. Those channel
+// tests are compiled only into the PAD instances, which run the padded
+// widths, so C=256, 128, 64 and 32 test no channel.
 //
 // Replaces, at the JAX package's default matmul precision (a single
 // one-pass dot, radtts_tpu/ops/pallas_mrf.py:54-63), the TPU kernels of
@@ -138,10 +146,10 @@ struct Layout {
   static constexpr int kOutFloats = TM * kOutStride;
   static constexpr int kUnitFloats = TN * kCK;       // one (tap, chunk)
   // raw slabs and staged tiles in flight: as many as leave the weight ring
-  // its stages (TN = 32: every unit of a conv; TN = 64: k <= 3; TN = 128:
-  // four)
+  // its stages (TN = 32: every unit of a conv; TN = 64: k <= 3; TN = 96:
+  // seven; TN = 128: four)
   static constexpr int kRawBufs = TN == 32 ? 3 : 2;
-  static constexpr int kOutBufs = TN == 128 ? 1 : 2;
+  static constexpr int kOutBufs = TN >= 96 ? 1 : 2;
   static constexpr int kBars = 4 + 2 * kRawBufs + 2 * kOutBufs;  // + stages
   static constexpr int kFixedFloats =
       2 * kPlaneFloats + kRawBufs * kRawFloats + kOutBufs * kOutFloats;
@@ -349,11 +357,40 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b) {
   if constexpr (N == 128)
     wgmma_ss_n128(d, desc_a, desc_b);
+  else if constexpr (N == 96)
+    wgmma_ss_n96(d, desc_a, desc_b);
   else if constexpr (N == 64)
     wgmma_ss_n64(d, desc_a, desc_b);
   else
@@ -379,12 +416,13 @@ struct Tiles {
   }
 };
 
-template <int TN, int NWG>
+// PAD: C < cp, the padded channels tested (cp == C compiles no test)
+template <int TN, int NWG, bool PAD>
 __global__ void __launch_bounds__(Layout<TN, NWG>::kThreads, 1)
 mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
                 const float* __restrict__ bias, const float* res, float* out,
-                float* acc, float acc_scale, int B, int T, int C, int k,
-                int d, float slope) {
+                float* acc, float acc_scale, int B, int T, int C, int cp,
+                int k, int d, float slope) {
   using L = Layout<TN, NWG>;
   constexpr int TM = L::TM;
   constexpr uint32_t kUnitBytes = L::kUnitFloats * 4;
@@ -409,7 +447,7 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
 
   const int pad = (k - 1) / 2 * d;
   const int rows = TM + 2 * pad;
-  const Tiles tiles{(T + TM - 1) / TM, C / TN, C / kCK, TM};
+  const Tiles tiles{(T + TM - 1) / TM, cp / TN, cp / kCK, TM};
   const int n_tiles = B * tiles.n_tt * tiles.n_nt;
   const int my_tiles =
       (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1
@@ -446,9 +484,10 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     // buffer s & 1 is free (the consumers' groups of step s - 2 complete),
     // lrelu and cvt.rna once per element of the slab into the plane:
     // element e = (row e / kGroups, channel group e % kGroups), the 16-byte
-    // unit (g, i) of the plane at (g * kR + i) * 16 bytes. Loads of a batch
-    // are issued together, so a batch pays one shared-memory latency. The
-    // generic-proxy stores are fenced for the tensor cores before the
+    // unit (g, i) of the plane at (g * kR + i) * 16 bytes; rows outside the
+    // item and the padded channels (at and past C) as zeros. Loads of a
+    // batch are issued together, so a batch pays one shared-memory latency.
+    // The generic-proxy stores are fenced for the tensor cores before the
     // plane is handed over.
     regs_dec<L::kRegsSplit>();
     constexpr int kBatch = 4;
@@ -459,6 +498,7 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       tiles.at(s, b, t0, nt, c);
       const int first = max(pad - t0, 0);          // rows before t = 0
       const int last = min(T - t0 + pad, rows);    // rows from t = T on
+      const int real = (C - c * kCK) / 4;          // groups below C
       const int rb = s % L::kRawBufs;
       const float* slab = raw + rb * L::kRawFloats;
       float* plane = planes + (s & 1) * L::kPlaneFloats;
@@ -471,7 +511,7 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
           const int e = e0 + 128 * m;
           const int i = e / kGroups, g = e % kGroups;
           v[m] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (e < n_elems && i >= first && i < last)
+          if (e < n_elems && i >= first && i < last && (!PAD || g < real))
             v[m] = *reinterpret_cast<const float4*>(slab + i * kCK + 4 * g);
         }
 #pragma unroll
@@ -497,8 +537,8 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     // Slab warp: per step the rows of its chunk inside [0, T) of the item
     // into raw buffer s % kRawBufs, up to kRawBufs steps ahead of the
     // split: at C=32 one bulk copy (the rows are contiguous), else 16-byte
-    // cp.async by the lanes. Waits on "empty" start at parity 1, which
-    // passes.
+    // cp.async by the lanes, of the chunk's groups below C. Waits on
+    // "empty" start at parity 1, which passes.
     for (int s = 0; s < n_steps; ++s) {
       int b, t0, nt, c;
       tiles.at(s, b, t0, nt, c);
@@ -509,8 +549,9 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       const int rb = s % L::kRawBufs;
       float* dst = raw + rb * L::kRawFloats + skip * kCK;
       uint64_t* full = &raw_full[rb];
+      const int real = min(kGroups, (C - c * kCK) / 4);
       mbar_wait(&raw_empty[rb], ((s / L::kRawBufs) & 1) ^ 1);
-      if (C == kCK) {
+      if (C == kCK && cp == kCK) {
         if (lane == 0) {
           const uint32_t bytes = (uint32_t)n_in * kCK * 4;
           mbar_expect_tx(full, bytes);
@@ -520,8 +561,9 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
         }
       } else {
         for (int e = lane; e < n_in * kGroups; e += 32)
-          cp_async_16(dst + e * 4,
-                      src + (size_t)(e / kGroups) * C + 4 * (e % kGroups));
+          if (!PAD || e % kGroups < real)
+            cp_async_16(dst + e * 4,
+                        src + (size_t)(e / kGroups) * C + 4 * (e % kGroups));
         cp_async_mbar_arrive(full);
       }
     }
@@ -567,8 +609,8 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     // buffer), kOutBufs tiles ahead; once the consumers have staged tile
     // i's result there, the tile to out or acc by coalesced 16-byte stores.
     // The staged rows are padded (kOutStride), so the consumers'
-    // fragment-order accesses hit distinct banks. Rows at and past T are
-    // neither read nor written.
+    // fragment-order accesses hit distinct banks. Rows at and past T, and
+    // the padded channels at and past C, are neither read nor written.
     float* dst = out != nullptr ? out : acc;
     constexpr int kQ = TN / 4;                 // 16-byte units per row
     const int sl = threadIdx.x - (L::kConsumers + 64);   // 0..63
@@ -579,9 +621,11 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       uint64_t* ready = &out_ready[i % L::kOutBufs];
       if (res != nullptr) {
         const float* src = res + ((size_t)b * T + t0) * C + nt * TN;
+        const int q_real = min(kQ, (C - nt * TN) / 4);
         for (int e = sl; e < min(TM, T - t0) * kQ; e += 64)
-          cp_async_16(buf + (e / kQ) * L::kOutStride + 4 * (e % kQ),
-                      src + (size_t)(e / kQ) * C + 4 * (e % kQ));
+          if (!PAD || e % kQ < q_real)
+            cp_async_16(buf + (e / kQ) * L::kOutStride + 4 * (e % kQ),
+                        src + (size_t)(e / kQ) * C + 4 * (e % kQ));
         cp_async_mbar_arrive(ready);
       } else {
         mbar_arrive(ready);
@@ -592,15 +636,17 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       int b, t0, nt, c;
       tiles.at(i * tiles.n_chunks, b, t0, nt, c);
       const int n_units = min(TM, T - t0) * kQ;
+      const int q_real = min(kQ, (C - nt * TN) / 4);
       float* out_t = dst + ((size_t)b * T + t0) * C + nt * TN;
       const float* buf = staged + (i % L::kOutBufs) * L::kOutFloats;
       mbar_wait(&out_full[i % L::kOutBufs], (i / L::kOutBufs) & 1);
 #pragma unroll 4
       for (int e = sl; e < n_units; e += 64)
-        *reinterpret_cast<float4*>(&out_t[(size_t)(e / kQ) * C +
-                                          4 * (e % kQ)]) =
-            *reinterpret_cast<const float4*>(
-                &buf[(e / kQ) * L::kOutStride + 4 * (e % kQ)]);
+        if (!PAD || e % kQ < q_real)
+          *reinterpret_cast<float4*>(&out_t[(size_t)(e / kQ) * C +
+                                            4 * (e % kQ)]) =
+              *reinterpret_cast<const float4*>(
+                  &buf[(e / kQ) * L::kOutStride + 4 * (e % kQ)]);
       __syncwarp();
       if (i + L::kOutBufs < my_tiles) fetch(i + L::kOutBufs);
     }
@@ -650,7 +696,7 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   regs_inc<L::kRegsConsumer>();
   int pending = -1;   // the step whose plane awaits release
   // acc's old values of this block's tile i, frag's layout (rows at and
-  // past T read as 0)
+  // past T and the padded channels read as 0)
   auto load_acc = [&](float2 (&v)[TN / 8][2], int i) {
     int b, t0, nt, c;
     tiles.at(i * tiles.n_chunks, b, t0, nt, c);
@@ -658,11 +704,13 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     for (int h = 0; h < 2; ++h) {
       const int t = t0 + r0 + 8 * h;
 #pragma unroll
-      for (int jn = 0; jn < TN / 8; ++jn)
-        v[jn][h] = t < T ? *reinterpret_cast<const float2*>(
-                               &acc[((size_t)b * T + t) * C + nt * TN +
-                                    8 * jn + 2 * tig])
-                         : make_float2(0.f, 0.f);
+      for (int jn = 0; jn < TN / 8; ++jn) {
+        const int co = nt * TN + 8 * jn + 2 * tig;
+        v[jn][h] = t < T && (!PAD || co < C)
+                       ? *reinterpret_cast<const float2*>(
+                             &acc[((size_t)b * T + t) * C + co])
+                       : make_float2(0.f, 0.f);
+      }
     }
   };
   // at TN <= 64 a tile ahead, so they arrive during the tile before; at
@@ -761,17 +809,18 @@ mrf_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   }
 }
 
-template <int TN, int NWG>
+template <int TN, int NWG, bool PAD>
 int launch(const float* x, const float* wp, const float* bias,
            const float* res, float* out, float* acc, float acc_scale, int B,
-           int T, int C, int k, int d, float slope, cudaStream_t stream) {
+           int T, int C, int cp, int k, int d, float slope,
+           cudaStream_t stream) {
   using L = Layout<TN, NWG>;
   // the attribute at every launch (it belongs to the current device); the
   // grid cap, SMs x resident blocks per SM, cached per device
   static int max_blocks[kMaxDevices] = {};
   cudaError_t e = cudaFuncSetAttribute(
-      mrf_tf32_kernel<TN, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L::kBytes);
+      mrf_tf32_kernel<TN, NWG, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (e != cudaSuccess) return (int)e;
   int dev = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -781,46 +830,56 @@ int launch(const float* x, const float* wp, const float* bias,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mrf_tf32_kernel<TN, NWG>, L::kThreads, L::kBytes);
+        &per_sm, mrf_tf32_kernel<TN, NWG, PAD>, L::kThreads, L::kBytes);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     max_blocks[dev] = sms * per_sm;
   }
   const long long tiles =
-      (long long)B * ((T + L::TM - 1) / L::TM) * (C / TN);
+      (long long)B * ((T + L::TM - 1) / L::TM) * (cp / TN);
   const int grid = (int)(tiles < max_blocks[dev] ? tiles : max_blocks[dev]);
-  mrf_tf32_kernel<TN, NWG><<<grid, L::kThreads, L::kBytes, stream>>>(
-      x, wp, bias, res, out, acc, acc_scale, B, T, C, k, d, slope);
+  mrf_tf32_kernel<TN, NWG, PAD><<<grid, L::kThreads, L::kBytes, stream>>>(
+      x, wp, bias, res, out, acc, acc_scale, B, T, C, cp, k, d, slope);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). Shapes: x, res,
-// out, acc (B, T, C) contiguous; wp the k packed taps of one conv
-// (ops/mrf.py:tf32_pack with the same tn); bias (C,). Requires C % 32 ==
-// 0, tn in {32, 64, 128} dividing C, nwg in {1, 2}, exactly one of out and
-// acc, k odd and <= 11, (k - 1) * d <= 50, and 16-byte aligned x, wp, bias,
-// res, out and acc.
+// out, acc (B, T, C) contiguous with C % 4 == 0; wp the k packed taps of
+// one conv at the padded width cp (ops/mrf.py:tf32_pack with the same tn),
+// zero in the padded rows and columns; bias (cp,), zero past C. Requires
+// cp % 32 == 0, C <= cp < C + 64, tn in {32, 64, 96, 128} dividing cp, nwg
+// in {1, 2}, exactly one of out and acc, k odd and <= 11, (k - 1) * d <=
+// 50, and 16-byte aligned x, wp, bias, res, out and acc.
 extern "C" int radtts_mrf_tf32_conv(const float* x, const float* wp,
                                     const float* bias, const float* res,
                                     float* out, float* acc, float acc_scale,
-                                    int B, int T, int C, int k, int d,
+                                    int B, int T, int C, int cp, int k, int d,
                                     float slope, int tn, int nwg,
                                     void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || C % kCK != 0 ||
-      !(tn == 32 || tn == 64 || tn == 128) || C % tn != 0 ||
+  if (B <= 0 || T <= 0 || C <= 0 || C % 4 != 0 || cp % kCK != 0 ||
+      cp < C || cp >= C + 64 ||
+      !(tn == 32 || tn == 64 || tn == 96 || tn == 128) || cp % tn != 0 ||
       (nwg != 1 && nwg != 2) || (out != nullptr) == (acc != nullptr) ||
       k <= 0 || k % 2 == 0 || k > kMaxTaps || d <= 0 ||
       (k - 1) * d > kMaxHalo)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MRF_TF32_LAUNCH(TN_, NWG_)                                          \
-  if (tn == TN_ && nwg == NWG_)                                             \
-    return launch<TN_, NWG_>(x, wp, bias, res, out, acc, acc_scale, B, T, C, \
-                             k, d, slope, s);
+  // a padded width tests its channels; the others compile no test
+  const bool pad = C != cp;
+#define MRF_TF32_LAUNCH(TN_, NWG_)                                           \
+  if (tn == TN_ && nwg == NWG_)                                              \
+    return pad ? launch<TN_, NWG_, true>(x, wp, bias, res, out, acc,         \
+                                         acc_scale, B, T, C, cp, k, d, slope, \
+                                         s)                                  \
+               : launch<TN_, NWG_, false>(x, wp, bias, res, out, acc,        \
+                                          acc_scale, B, T, C, cp, k, d,      \
+                                          slope, s);
   MRF_TF32_LAUNCH(128, 2)
   MRF_TF32_LAUNCH(128, 1)
+  MRF_TF32_LAUNCH(96, 2)
+  MRF_TF32_LAUNCH(96, 1)
   MRF_TF32_LAUNCH(64, 2)
   MRF_TF32_LAUNCH(64, 1)
   MRF_TF32_LAUNCH(32, 2)
@@ -834,8 +893,8 @@ extern "C" int radtts_mrf_tf32_conv(const float* x, const float* wp,
 extern "C" int radtts_mrf_tf32_smem_bytes(int tn, int nwg) {
 #define MRF_TF32_Q(TN_, NWG_) \
   if (tn == TN_ && nwg == NWG_) return (int)Layout<TN_, NWG_>::kBytes;
-  MRF_TF32_Q(128, 2) MRF_TF32_Q(128, 1) MRF_TF32_Q(64, 2)
-  MRF_TF32_Q(64, 1) MRF_TF32_Q(32, 2) MRF_TF32_Q(32, 1)
+  MRF_TF32_Q(128, 2) MRF_TF32_Q(128, 1) MRF_TF32_Q(96, 2) MRF_TF32_Q(96, 1)
+  MRF_TF32_Q(64, 2) MRF_TF32_Q(64, 1) MRF_TF32_Q(32, 2) MRF_TF32_Q(32, 1)
 #undef MRF_TF32_Q
   return 0;
 }
@@ -843,8 +902,8 @@ extern "C" int radtts_mrf_tf32_smem_bytes(int tn, int nwg) {
 extern "C" int radtts_mrf_tf32_weight_stages(int tn, int nwg) {
 #define MRF_TF32_Q(TN_, NWG_) \
   if (tn == TN_ && nwg == NWG_) return Layout<TN_, NWG_>::kStages;
-  MRF_TF32_Q(128, 2) MRF_TF32_Q(128, 1) MRF_TF32_Q(64, 2)
-  MRF_TF32_Q(64, 1) MRF_TF32_Q(32, 2) MRF_TF32_Q(32, 1)
+  MRF_TF32_Q(128, 2) MRF_TF32_Q(128, 1) MRF_TF32_Q(96, 2) MRF_TF32_Q(96, 1)
+  MRF_TF32_Q(64, 2) MRF_TF32_Q(64, 1) MRF_TF32_Q(32, 2) MRF_TF32_Q(32, 1)
 #undef MRF_TF32_Q
   return 0;
 }

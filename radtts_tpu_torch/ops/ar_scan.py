@@ -5,12 +5,17 @@ stacked layer's (h, c)) carried from frame to frame.
 Port of radtts_tpu/models/attributes.py:ar_step_infer, which the JAX
 package compiles as one lax.scan over frames (not a Pallas kernel). On the
 card `ar_scan_multi` runs one or more steps ("problems": f0's and energy's
-flows) in the launches `ar_scan_plan` names: by default one cooperative
-launch of csrc/ar_scan.cu's resident kernel, every block holding its slice
-of the weights in shared memory, the blocks split between the problems by
-their weight bytes; a problem whose weights and state do not fit the
-blocks' shared memory runs csrc/ar_scan.cu's barrier kernel (`ar_scan_cuda`),
-a choice by shape. See the kernel's header for both designs.
+flows) in the launches `ar_scan_plan` names, each a cooperative launch of
+csrc/ar_scan.cu's resident kernel: by default one, every block holding its
+slice of the weights in shared memory, the blocks split between the
+problems by their weight bytes; a problem whose weights do not fit the
+blocks' shared memory runs split (route "split"): each block keeps the rows
+that fit and reads the others from its overflow image in global memory
+(L2) every frame; H and head widths that are not multiples of 4 are
+zero-padded (`pad_widths`). The
+choice is by shape. csrc/ar_scan.cu's barrier kernel (`ar_scan_cuda`),
+which took the steps that did not fit before, runs only when called by
+name. See the kernel's header for the designs.
 `ar_scan_plain` is the same loop over frames in plain PyTorch, which the
 CPU path and the tests use. All take the step's weights as
 `ARStep.scan_params()` gives them and the context half of the stacked
@@ -19,7 +24,9 @@ LSTM's first input projection precomputed for every frame
 another order.
 """
 
+import collections
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -43,14 +50,18 @@ N_SCALARS = 10        # kNumScalars
 # the resident kernel (csrc/ar_scan.cu ar_scan_resident_kernel)
 MAX_PROBLEMS = 4      # kMaxProblems
 MAX_SEGS = 2 + MAX_LAYERS + MAX_HEAD   # kMaxSegs
-SEG_INTS = 4          # kSegInts
+SEG_INTS = 6          # kSegInts
 MAX_PHASES = MAX_LAYERS + MAX_HEAD     # kMaxPhases
-RES_SCALARS = 22      # rNumScalars
+RES_SCALARS = 23      # rNumScalars
 RES_INTS = RES_SCALARS + MAX_SEGS + 4 * MAX_HEAD + MAX_PHASES  # kResInts
 # a block's dynamic shared memory: the card's 232448 bytes less the
 # kernel's static slice table and problem
 SMEM_CAP = 232448 - 1024
+PLAN_CACHE_SIZE = 32  # ar_scan_plan's results kept, by shape
+PADDED_CACHE_SIZE = 8  # kernel_params' results kept, by weight version
 _lib = None
+_plans = collections.OrderedDict()
+_padded = collections.OrderedDict()
 
 
 def _bias(b):
@@ -265,9 +276,10 @@ def _act_codes(params):
 
 def ar_scan_cuda(params, residual, context_proj, blocks=None):
     """csrc/ar_scan.cu's barrier kernel (the grid barrier, weights read from
-    L2) on the card: the route of a problem that does not fit the resident
-    kernel; `blocks` overrides the block count (by default one per SM, as
-    many as can be resident)."""
+    L2) on the card, which no route names (the split resident launch took
+    its shapes): called by name, as chip_smoke.py's "before"; `blocks`
+    overrides the block count (by default one per SM, as many as can be
+    resident)."""
     params = widened(params)
     B, T, C = residual.shape
     H = params["attr"][1].shape[1]
@@ -357,51 +369,88 @@ def _split(units, blocks):
     return edges[:-1], np.diff(edges)
 
 
-def problem_plan(params, B, blocks):
+def problem_plan(params, B, blocks, smem_cap=SMEM_CAP):
     """One problem's layout on `blocks` blocks of the resident kernel: each
-    block's slice of every segment and where it sits in the block's shared
-    memory (`table`, (blocks, MAX_SEGS, 4): first unit or row, count,
-    weight and bias offsets in floats), the activation offsets, the bytes
-    a block, and each phase's producers (the blocks that own rows of it)."""
+    block's slice of every segment and where it sits (`table`, (blocks,
+    MAX_SEGS, SEG_INTS): first unit or row, count, weight and bias offsets
+    in floats in shared memory, then the split: units kept in shared memory
+    and the others' offset in the block's overflow image), the activation
+    offsets, the bytes a block, and each phase's producers (the blocks that
+    own rows of it).
+
+    Where every block's slices fit `smem_cap` bytes beside its state, all
+    are kept ("split": False). Else ("split": True) each block keeps, in
+    segment order, as many whole units (an LSTM unit's four gate rows, a
+    head row) as fit beside its state, its common part (W_ih_attr and the
+    attribute bias) and every bias; its other units go to its overflow image
+    in global memory, read through L2 every frame. `streamed` lists the
+    overflow units as (block, segment, first unit, count); raises where a
+    block's state alone does not fit."""
     C, H = params["attr"][0].shape[1], params["attr"][1].shape[1]
     L, head = len(params["lstm"]), params["head"]
     segs = _segments(params)
+    n_segs = len(segs)
     split = [_split(units, blocks) for units, _, _, _ in segs]
+    lds = [_pad4(K) for _, _, K, _ in segs]
+    unit_floats = np.array([r * ld for (_, r, _, _), ld in zip(segs, lds)])
+    counts = np.stack([c for _, c in split], 1)          # (blocks, n_segs)
+    rows = np.array([r for _, r, _, _ in segs])
+    biased = np.array([b for _, _, _, b in segs])
+    bias_floats = np.where(biased, (counts * rows + 3) // 4 * 4, 0)
     n_common = _pad4(4 * H * C) + _pad4(4 * H)
-    cmax = int(max(counts.max() for _, counts in split[1:1 + L]))
+    cmax = int(max(c.max() for _, c in split[1:1 + L]))
     nq = head[-1][0].shape[0]
     xmax = max([4 * H] + [w.shape[1] for w, _, _ in head[1:]])
-    off, sizes = {}, [("hs", (L + 1) * B * H), ("cattr", B * H),
-                      ("cown", L * cmax * B), ("xs", B * xmax),
-                      ("qs", B * nq), ("prev", B * C),
-                      ("ctx", 2 * cmax * 4 * B), ("res", 2 * B * C)]
-    o = 0
+    sizes = [("hs", (L + 1) * B * H), ("cattr", B * H),
+             ("cown", L * cmax * B), ("xs", B * xmax), ("qs", B * nq),
+             ("prev", B * C), ("ctx", 2 * cmax * 4 * B), ("res", 2 * B * C)]
+    state = sum(_pad4(n) for _, n in sizes)
+    full = n_common + bias_floats.sum(1) + (counts * unit_floats).sum(1)
+    cap = smem_cap // 4
+    n_split = state + _pad4(int(full.max())) > cap
+    n_res = counts.copy()
+    if n_split:
+        room = cap - state - n_common - bias_floats.sum(1)
+        if (room < 0).any():
+            raise ValueError(
+                f"ar_scan: B={B} at H={H} needs {4 * (cap - room.min())} "
+                f"bytes of state, common weights and biases a block, more "
+                f"than the {smem_cap} a block can take")
+        rem = room // 4 * 4
+        for s in range(n_segs):           # every block at once
+            n_res[:, s] = np.minimum(counts[:, s], rem // unit_floats[s])
+            rem = rem - n_res[:, s] * unit_floats[s]
+    n_ovf = counts - n_res
+    off, o = {}, 0
     for name, n in sizes:
         off[name] = o
         o += _pad4(n)
     off["img"] = o
     table = np.zeros((blocks, MAX_SEGS, SEG_INTS), np.int32)
-    table[:, 0] = (0, 0, o, o + _pad4(4 * H * C))
+    table[:, 0, :4] = (0, 0, o, o + _pad4(4 * H * C))
     img = np.full(blocks, n_common)
-    for s, ((_, rows, K, biased), (starts, counts)) in enumerate(
-            zip(segs, split)):
-        n = counts * rows
-        table[:, s + 1, 0] = starts
-        table[:, s + 1, 1] = counts
-        table[:, s + 1, 2] = o + img
-        img = img + n * _pad4(K)
-        table[:, s + 1, 3] = np.where(biased, o + img, 0)
-        if biased:
-            img = img + (n + 3) // 4 * 4
+    ovf = np.zeros(blocks, np.int64)
+    for s in range(n_segs):
+        t = table[:, s + 1]
+        t[:, 0], t[:, 1] = split[s][0], counts[:, s]
+        t[:, 2] = o + img
+        img = img + n_res[:, s] * unit_floats[s]
+        t[:, 3] = np.where(biased[s], o + img, 0)
+        img = img + bias_floats[:, s]
+        t[:, 4], t[:, 5] = n_res[:, s], ovf
+        ovf = ovf + n_ovf[:, s] * unit_floats[s]
     stride = int(_pad4(img.max()))
     producers = [int(((split[0][1] if li == 0 else 0) + split[1 + li][1]
                       > 0).sum()) for li in range(L)]
-    producers += [int((counts > 0).sum()) for _, counts in split[1 + L:]]
+    producers += [int((c > 0).sum()) for _, c in split[1 + L:]]
+    streamed = [(int(i), int(s), int(split[s][0][i] + n_res[i, s]),
+                 int(n_ovf[i, s])) for i, s in zip(*np.nonzero(n_ovf))]
     return {"blocks": blocks, "B": B, "C": C, "H": H, "L": L,
             "segments": segs, "table": table, "offsets": off, "cmax": cmax,
             "xmax": xmax, "img_floats": img, "img_stride": stride,
-            "smem": 4 * (o + stride), "producers": producers,
-            "ld": [_pad4(K) for _, _, K, _ in segs]}
+            "smem": 4 * (o + stride), "producers": producers, "ld": lds,
+            "split": bool(n_split), "ovf_floats": ovf,
+            "ovf_stride": int(_pad4(ovf.max())), "streamed": streamed}
 
 
 def item_group(B):
@@ -412,10 +461,104 @@ def item_group(B):
 
 def resident_widths_ok(params):
     """The resident kernel reads every activation in float4s: H and every
-    head layer's input width must be multiples of 4."""
+    head layer's input width must be multiples of 4 (else `pad_widths`
+    pads them)."""
     H = params["attr"][1].shape[1]
     return H % 4 == 0 and all(w.shape[1] % 4 == 0
                               for w, _, _ in params["head"])
+
+
+def _pad_gates(t, H, Hp, cols=None):
+    """t (4H, ...) -> (4Hp, ...), each gate's rows [q H, q H + H) at q Hp,
+    zeros between; with `cols`, its last dimension's first H columns
+    spread to Hp as well (cols = (offset, H, Hp): the columns [offset,
+    offset + H) become [offset, offset + Hp))."""
+    t = t.reshape(4, H, *t.shape[1:])
+    t = torch.cat([t, t.new_zeros(4, Hp - H, *t.shape[2:])], 1)
+    t = t.reshape(4 * Hp, *t.shape[2:])
+    if cols is not None:
+        t = _pad_cols(t, *cols)
+    return t
+
+
+def _pad_cols(t, offset, n, n_padded):
+    """t's last dimension's columns [offset, offset + n) widened to
+    n_padded, zeros after them."""
+    return torch.cat([t[..., :offset + n],
+                      t.new_zeros(*t.shape[:-1], n_padded - n),
+                      t[..., offset + n:]], -1)
+
+
+def pad_widths(params, context_proj=None):
+    """(params, context_proj) with H and every head layer's width but the
+    last padded to multiples of 4 by zero rows and columns (the resident
+    kernel reads activations in float4s), or as they are where they are
+    multiples already. The padded LSTM units have zero weights and biases,
+    so their cells stay at h = c = 0 (i = f = o = 1/2, g = 0 from c = 0),
+    and the padded head rows give act(0) = 0; the padded columns meet only
+    those zeros: every real output is unchanged. context_proj (B, T, 4H) is
+    padded per gate as the gate rows are."""
+    if resident_widths_ok(params):
+        return params, context_proj
+    H = params["attr"][1].shape[1]
+    Hp = _pad4(H)
+
+    def bias(b):
+        return None if b is None else tuple(_pad_gates(v, H, Hp) for v in b)
+
+    w_ih_a, w_hh_a, b_a = params["attr"]
+    out = dict(params)
+    out["attr"] = (_pad_gates(w_ih_a, H, Hp),
+                   _pad_gates(w_hh_a, H, Hp, (0, H, Hp)), bias(b_a))
+    out["lstm"] = [(_pad_gates(w_ih, H, Hp, (0, H, Hp)),
+                    _pad_gates(w_hh, H, Hp, (0, H, Hp)), bias(b))
+                   for w_ih, w_hh, b in params["lstm"]]
+    head, n_in = [], Hp
+    for k, (w, b, act) in enumerate(params["head"]):
+        n_out = w.shape[0] if k + 1 == len(params["head"]) else _pad4(
+            w.shape[0])
+        w = _pad_cols(w, 0, w.shape[1], n_in)
+        head.append((torch.cat([w, w.new_zeros(n_out - w.shape[0], n_in)]),
+                     torch.cat([b, b.new_zeros(n_out - b.shape[0])]), act))
+        n_in = n_out
+    out["head"] = head
+    return out, _pad_context(context_proj, H, Hp)
+
+
+def _pad_context(context_proj, H, Hp):
+    """context_proj (B, T, 4H) -> (B, T, 4Hp), padded per gate as
+    pad_widths pads the gate rows (None stays None)."""
+    if context_proj is None or H == Hp:
+        return context_proj
+    B, T, _ = context_proj.shape
+    return _pad_cols(context_proj.reshape(B, T, 4, H), 0, H,
+                     Hp).reshape(B, T, 4 * Hp)
+
+
+def kernel_params(params):
+    """pad_widths(widened(params))[0], kept per weight version where it
+    pads (at H = 1022 it copies ~55 MB): the key is each weight tensor's
+    identity (a weak reference, so a freed tensor whose id is reused cannot
+    hit), its _version, which in-place updates advance, and its data
+    pointer, as ops/mrf.py keeps its packs."""
+    wide = widened(params)
+    if resident_widths_ok(wide):
+        return wide
+    ts = _weights(params)
+    if any(t.is_inference() for t in ts):    # no version counter
+        return pad_widths(wide)[0]
+    key = tuple(id(t) for t in ts)
+    versions = tuple((t._version, t.data_ptr()) for t in ts)
+    hit = _padded.get(key)
+    if hit is not None and hit[1] == versions and all(
+            ref() is t for ref, t in zip(hit[0], ts)):
+        _padded.move_to_end(key)
+        return hit[2]
+    padded = pad_widths(wide)[0]
+    _padded[key] = (tuple(weakref.ref(t) for t in ts), versions, padded)
+    while len(_padded) > PADDED_CACHE_SIZE:
+        _padded.popitem(last=False)
+    return padded
 
 
 def _max_rows(params):
@@ -437,41 +580,77 @@ def _split_blocks(params_list, total):
 
 def ar_scan_plan(params_list, B, sms, smem_cap=SMEM_CAP, blocks=None):
     """The launches that run these problems (each an AR step's
-    scan_params; B an int or one per problem) on a card of `sms` SMs, a
-    block at most `smem_cap` bytes of dynamic shared memory. Chosen by
-    shape alone:
-      1. all problems in one resident launch, `blocks` (default `sms`)
-         split between them by weight bytes;
-      2. else each problem in a resident launch of its own on every block;
-      3. a problem that does not fit alone, or whose widths are not
-         multiples of 4 (resident_widths_ok): the barrier kernel ("barrier").
-    Returns a list of {"route", "problems": [indices], "plans", "blocks",
-    "smem"} in the order they run."""
+    scan_params, its widths padded by `pad_widths`; B an int or one per
+    problem) on a card of `sms` SMs, a block at most `smem_cap` bytes of
+    dynamic shared memory. Chosen by shape alone, each a cooperative
+    launch of the resident kernel:
+      1. all problems in one launch ("resident"), `blocks` (default `sms`)
+         split between them by weight bytes, every weight in shared
+         memory;
+      2. else each problem in a launch of its own on every block, its
+         weights in shared memory ("resident") or, where they do not fit,
+         split ("split"): the rows that do not fit read from the blocks'
+         overflow images in global memory every frame (problem_plan); where
+         even a block's state does not fit
+         (B = 32 at the published width), in launches over slices of its
+         items (independent sequences), halved until one fits.
+    Returns a list of {"route", "problems": [indices], "items": [(first,
+    stop)] per problem, "plans", "blocks", "smem"} in the order they
+    run, kept per shape (the same object for the same shapes: do not
+    change it)."""
     n = len(params_list)
     Bs = [B] * n if isinstance(B, int) else list(B)
-    total = blocks or sms
+    key = (tuple(_signature(p) for p in params_list), tuple(Bs), sms,
+           smem_cap, blocks)
+    hit = _plans.get(key)
+    if hit is not None:
+        _plans.move_to_end(key)
+        return hit
+    launches = _plan(params_list, Bs, sms, smem_cap, blocks)
+    _plans[key] = launches
+    while len(_plans) > PLAN_CACHE_SIZE:
+        _plans.popitem(last=False)
+    return launches
 
-    def resident(idx, counts):
-        if not all(resident_widths_ok(params_list[i]) for i in idx):
-            return None
-        plans = [problem_plan(params_list[i], Bs[i], k)
-                 for i, k in zip(idx, counts)]
-        smem = max(p["smem"] for p in plans)
-        if smem > smem_cap or n > MAX_PROBLEMS:
-            return None
-        return {"route": "resident", "problems": list(idx), "plans": plans,
-                "blocks": sum(counts), "smem": smem}
+
+def _plan(params_list, Bs, sms, smem_cap, blocks):
+    """ar_scan_plan, uncached."""
+    params_list = [pad_widths(p)[0] for p in params_list]
+    n = len(params_list)
+    total = blocks or sms
+    if n > MAX_PROBLEMS:
+        raise ValueError(f"ar_scan: {n} problems, at most {MAX_PROBLEMS} "
+                         "a launch")
+
+    def launch(idx, counts, items):
+        plans = [problem_plan(params_list[i], hi - lo, k, smem_cap)
+                 for i, k, (lo, hi) in zip(idx, counts, items)]
+        return {"route": "split" if any(p["split"] for p in plans)
+                else "resident", "problems": list(idx), "items": items,
+                "plans": plans, "blocks": sum(counts),
+                "smem": max(p["smem"] for p in plans)}
 
     if n > 1:
-        one = resident(range(n), _split_blocks(params_list, total))
-        if one is not None:
+        try:
+            one = launch(range(n), _split_blocks(params_list, total),
+                         [(0, b) for b in Bs])
+        except ValueError:
+            one = None
+        if one is not None and one["route"] == "resident":
             return [one]
     launches = []
     for i, p in enumerate(params_list):
-        alone = resident([i], [min(total, _max_rows(p))])
-        launches.append(alone or {"route": "barrier", "problems": [i],
-                                  "plans": None, "blocks": None,
-                                  "smem": None})
+        counts, chunk = [min(total, _max_rows(p))], Bs[i]
+        while True:
+            try:
+                launch([i], counts, [(0, chunk)])
+                break
+            except ValueError:
+                if chunk == 1:
+                    raise
+                chunk = (chunk + 1) // 2
+        launches += [launch([i], counts, [(lo, min(lo + chunk, Bs[i]))])
+                     for lo in range(0, Bs[i], chunk)]
     return launches
 
 
@@ -491,9 +670,10 @@ def _mats(params):
 
 
 def image_index(plan):
-    """(blocks, img_stride) int64 indices into the flat concatenation of
-    _mats (weights, then the biases of the biased segments, then one
-    zero): each block's shared-memory image. Depends on shapes alone."""
+    """(resident, overflow): (blocks, img_stride) and (blocks, ovf_stride)
+    int64 indices into the flat concatenation of _mats (weights, then the
+    biases of the biased segments, then one zero): each block's
+    shared-memory image and its overflow image. Depends on shapes alone."""
     segs, table, H = plan["segments"], plan["table"], plan["H"]
     C = plan["C"]
     sizes = [4 * H * C, 4 * H] + [u * r * K for u, r, K, _ in segs]
@@ -504,31 +684,41 @@ def image_index(plan):
     bias_at = [next(bias_base) if b else None for _, _, _, b in segs]
     off_img = plan["offsets"]["img"]
     idx = np.full((plan["blocks"], plan["img_stride"]), zero, np.int64)
+    ovf = np.full((plan["blocks"], plan["ovf_stride"]), zero, np.int64)
+
+    def rows_of(s, units, first, n):
+        """The source indices of units [first, first + n) of segment s, as
+        (rows, K)."""
+        u = first + np.arange(n)
+        if segs[s][1] == 4:     # unit u's gate rows q * H + u, q = 0..3
+            src = (np.arange(4)[None, :] * units + u[:, None]).reshape(-1)
+        else:
+            src = u
+        K = segs[s][2]
+        return src, base[2 + s] + src[:, None] * K + np.arange(K)
+
     for i in range(plan["blocks"]):
         row = idx[i]
         row[:4 * H * C] = np.arange(4 * H * C)
         o = int(table[i, 0, 3]) - off_img
         row[o:o + 4 * H] = base[1] + np.arange(4 * H)
         for s, (units, rows, K, biased) in enumerate(segs):
-            start, count, w_off, b_off = (int(v) for v in table[i, s + 1])
+            start, count, w_off, b_off, n_res, ovf_off = (
+                int(v) for v in table[i, s + 1, :6])
             if count == 0:
                 continue
-            u = start + np.arange(count)
-            if rows == 4:        # unit u's gate rows q * H + u, q = 0..3
-                src = (np.arange(4)[None, :] * units + u[:, None]).reshape(-1)
-            else:
-                src = u
             ld = _pad4(K)
+            src, w = rows_of(s, units, start, n_res)
             o = w_off - off_img
-            block = row[o:o + len(src) * ld].reshape(len(src), ld)
-            block[:, :K] = base[2 + s] + src[:, None] * K + np.arange(K)
+            row[o:o + len(src) * ld].reshape(len(src), ld)[:, :K] = w
+            src_o, w = rows_of(s, units, start + n_res, count - n_res)
+            ovf[i, ovf_off:ovf_off + len(src_o) * ld].reshape(
+                len(src_o), ld)[:, :K] = w
             if biased:
+                src, _ = rows_of(s, units, start, count)
                 o = b_off - off_img
                 row[o:o + len(src)] = bias_at[s] + src
-    return idx
-
-
-_index_cache = {}
+    return idx, ovf
 
 
 def _signature(params):
@@ -538,21 +728,33 @@ def _signature(params):
             tuple(tuple(w.shape) for w, _, _ in params["head"]))
 
 
+def _on_device(plan, device):
+    """(resident index, overflow index, table) of `plan` on `device`: the
+    gather's int32 indices (image_index) and the slice table, made once per
+    plan and device (plans depend on shapes alone and are cached by
+    them)."""
+    cache = plan.setdefault("on_device", {})
+    hit = cache.get(str(device))
+    if hit is None:
+        hit = tuple(torch.from_numpy(a).to(device) for a in (
+            *(i.astype(np.int32) for i in image_index(plan)), plan["table"]))
+        cache[str(device)] = hit
+    return hit
+
+
 def resident_pack(params, plan, device):
-    """The blocks' weight images, (blocks, img_stride) fp32 on `device`,
-    gathered anew from the weights at every launch (the gather's indices
-    depend on shapes alone and are cached by them)."""
-    key = (_signature(params), plan["blocks"], str(device))
-    idx = _index_cache.get(key)
-    if idx is None:
-        idx = torch.from_numpy(image_index(plan)).to(device)
-        _index_cache[key] = idx
+    """The blocks' weight images, (blocks, img_stride), and their overflow
+    images, (blocks, ovf_stride) (0 wide unless the plan splits), fp32 on
+    `device`, gathered anew from the weights at every launch (the gather's
+    indices depend on shapes alone and are kept with the plan)."""
+    img_idx, ovf_idx, _ = _on_device(plan, device)
     mats, biases = _mats(params)
     flat = torch.cat([m.detach().float().reshape(-1) for m in mats]
                      + [b.detach().float().reshape(-1) for b in biases
                         if b is not None]
                      + [mats[0].new_zeros(1)])
-    return flat[idx]
+    return tuple(flat.index_select(0, i.reshape(-1)).reshape(i.shape)
+                 for i in (img_idx, ovf_idx))
 
 
 def resident_config(params, plan, T, block0):
@@ -571,7 +773,7 @@ def resident_config(params, plan, T, block0):
             params.get("n_bins") or 0, len(head), block0, plan["blocks"],
             plan["img_stride"], off["hs"], off["cattr"], off["cown"],
             off["xs"], off["qs"], off["prev"], off["ctx"], off["res"],
-            off["img"], plan["cmax"]]
+            off["img"], plan["cmax"], plan["ovf_stride"]]
     assert len(icfg) == RES_SCALARS
     icfg += [0] + plan["ld"] + [0] * (MAX_SEGS - 1 - len(plan["ld"]))
     icfg += [w.shape[1] for w, _, _ in head] + pad
@@ -597,8 +799,8 @@ def trace_buffer(device):
 
 def _launch_resident(launch, problems, trace=None):
     """One cooperative launch of the resident kernel over `problems`
-    (params, residual, context_proj) as `launch` plans them; `trace` from
-    trace_buffer, or None."""
+    (params, residual, context_proj; widths padded) as `launch` plans them;
+    `trace` from trace_buffer, or None."""
     dev = problems[0][1].device
     icfg, fcfg, ptrs, keep, outs = [], [], [], [], []
     block0 = 0
@@ -609,8 +811,8 @@ def _launch_resident(launch, problems, trace=None):
         block0 += plan["blocks"]
         res, cproj = res.contiguous(), cproj.contiguous()
         out = torch.empty_like(res)
-        tensors = [res, cproj, out, resident_pack(params, plan, dev),
-                   torch.from_numpy(plan["table"]).to(dev),
+        img, ovf = resident_pack(params, plan, dev)
+        tensors = [res, cproj, out, img, ovf, _on_device(plan, dev)[2],
                    torch.empty(L * 2 * B * H, device=dev),
                    torch.empty(2 * B * 4 * H, device=dev),
                    torch.empty(n_act, device=dev),
@@ -618,7 +820,7 @@ def _launch_resident(launch, problems, trace=None):
                                device=dev)]
         icfg += ic
         fcfg += fc
-        ptrs += [t.data_ptr() for t in tensors]
+        ptrs += [t.data_ptr() if t.numel() else None for t in tensors]
         keep += tensors
         outs.append(out)
     icfg_c = (ctypes.c_int * len(icfg))(*icfg)
@@ -635,7 +837,7 @@ def _launch_resident(launch, problems, trace=None):
         raise RuntimeError(
             f"ar_scan: resident kernel launch failed with cudaError {err} "
             f"({len(problems)} problems, blocks={launch['blocks']}, "
-            f"smem={launch['smem']})")
+            f"smem={launch['smem']}, route={launch['route']})")
     ar_scan.launches += 1
     return outs
 
@@ -665,6 +867,7 @@ def ar_scan_multi(problems, blocks=None, trace=None):
     tensors run the launches ar_scan_plan names (`blocks`: its block
     count), or raise: no failure falls back to another route. `trace`
     (trace_buffer) records the first resident launch's block 0."""
+    given = [params for params, _, _ in problems]
     problems = [(widened(params), res, cproj)
                 for params, res, cproj in problems]
     dev = problems[0][1].device
@@ -683,11 +886,15 @@ def ar_scan_multi(problems, blocks=None, trace=None):
         if res.device != dev:
             raise ValueError("ar_scan: problems on different devices")
         _check_inputs(params, res, cproj)
-    outs = [None] * len(problems)
+    padded = []
+    for p, (params, res, cproj) in zip(given, problems):
+        H = params["attr"][1].shape[1]
+        padded.append((kernel_params(p), res,
+                       _pad_context(cproj, H, _pad4(H))))
+    problems = padded
+    outs = [res.new_zeros(res.shape) for _, res, _ in problems]
     live = [i for i, (_, res, _) in enumerate(problems)
             if res.shape[0] and res.shape[1]]
-    for i in set(range(len(problems))) - set(live):
-        outs[i] = problems[i][1].new_zeros(problems[i][1].shape)
     if not live:
         return outs
     if _lib is None:
@@ -698,13 +905,13 @@ def ar_scan_multi(problems, blocks=None, trace=None):
                         blocks=blocks)
     for launch in plan:
         idx = [live[k] for k in launch["problems"]]
-        if launch["route"] == "barrier":
-            outs[idx[0]] = ar_scan_cuda(*problems[idx[0]])
-        else:
-            for i, o in zip(idx, _launch_resident(
-                    launch, [problems[i] for i in idx], trace)):
-                outs[i] = o
-            trace = None
+        items = launch["items"]
+        for i, (lo, hi), o in zip(idx, items, _launch_resident(
+                launch, [(problems[i][0], problems[i][1][lo:hi],
+                          problems[i][2][lo:hi])
+                         for i, (lo, hi) in zip(idx, items)], trace)):
+            outs[i][lo:hi] = o
+        trace = None
     return [_checked(params, o) for (params, _, _), o in zip(problems, outs)]
 
 

@@ -7,11 +7,11 @@ lrelu slope 0.1, every conv zero-padded at 0 and T.
 
 Port of the TPU kernels in radtts_tpu/ops/pallas_mrf.py (pallas_mrf,
 pallas_mrf_wide, pallas_mrf_folded: one function at every width). On the
-card `mrf` runs one of four hand-written kernels, by `mrf_route` (see
+card `mrf` runs one of three hand-written kernels, by `mrf_route` (see
 their headers for the design and what bounds them):
   "tc"    csrc/mrf_tc.cu, a 3xTF32 implicit GEMM on the tensor cores, 18
-          launches per stage, at C=256, 128, 64 and 32 (every HiFi-GAN v1
-          stage), counted by mrf.tc_launches;
+          launches per stage, at every width but the stack's (every
+          HiFi-GAN v1 stage), counted by mrf.tc_launches;
   "tf32"  csrc/mrf_tf32.cu, the same widths in one TF32 pass, at
           --matmul_precision default (ops/precision.py), counted by
           mrf.tf32_launches. csrc/mrf_tc.cu's own one-pass build, which it
@@ -21,10 +21,15 @@ their headers for the design and what bounds them):
   "stack" csrc/mrf_stack.cu, the whole stack in one launch with every
           intermediate in shared memory, fp32 FMA, at C <= 16 with at most
           4 resblocks (HiFi-GAN V2's C=16 and C=8 stages), counted by
-          mrf.stack_launches;
-  "conv"  csrc/mrf.cu, one fp32-FMA conv per launch, 18 per stage, at the
-          widths nothing else takes (e.g. C=48, 96), counted by
-          mrf.launches.
+          mrf.stack_launches.
+The tensor-core kernels run a width that is not one of their tile widths
+padded to `padded_width(C)` (C=24: 32, C=48: 64, C=96 as it is, C=160:
+192), the packed taps and biases zero-padded (`stage_pack`,
+`tf32_stage_pack`, `bias_pack`): the padded channels are exactly zero in
+every product, and the kernels load and store only the C real channels.
+csrc/mrf.cu, one fp32-FMA conv per launch, which took those widths before,
+runs only when asked for by name (mrf_cuda(..., route="conv"), counted by
+mrf.launches), as their "before" on the card.
 `mrf_plain` is the same function in plain PyTorch, which the CPU path,
 the tests and every pass that needs gradients use (at every precision:
 the CPU computes fp32); `mrf_plain(..., passes=1)` is the one-pass
@@ -120,7 +125,7 @@ def build_tc(passes=3):
         "mrf_tc", () if passes == 3 else ("MRF_TC_PASSES=1",))
     fn = lib.radtts_mrf_tc_conv
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
-                   + [ctypes.c_int] * 5 + [ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     for name, n_args in (("radtts_mrf_tc_smem_bytes", 3),
@@ -138,7 +143,7 @@ def build_tf32():
     lib, log, seconds = build_library("mrf_tf32")
     fn = lib.radtts_mrf_tf32_conv
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
-                   + [ctypes.c_int] * 5 + [ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     for name in ("radtts_mrf_tf32_smem_bytes",
@@ -165,18 +170,28 @@ def build_stack():
 
 
 def mrf_route(C, n_resblocks=3, passes=3):
-    """The routing rule, the kernel a stage of width C with n_resblocks
-    resblocks runs on the card with `passes` TF32 passes: "tc"
-    (csrc/mrf_tc.cu, 3xTF32) or, at passes=1, "tf32" (csrc/mrf_tf32.cu)
-    at C=32, 64 and multiples of 64 from 128; "stack"
-    (csrc/mrf_stack.cu) at C=4, 8, 12, 16 with at most STACK_MAX_RESBLOCKS
-    resblocks; "conv" (csrc/mrf.cu) at the other multiples of 4. The last
-    two are fp32 FMA at either passes."""
-    if C in (32, 64) or (C >= 128 and C % 64 == 0):
-        return "tf32" if passes == 1 else "tc"
+    """The routing rule, the kernel a stage of width C (a multiple of 4)
+    with n_resblocks resblocks runs on the card with `passes` TF32 passes:
+    "stack" (csrc/mrf_stack.cu, fp32 FMA at either passes) at C=4, 8, 12,
+    16 with at most STACK_MAX_RESBLOCKS resblocks; else "tc"
+    (csrc/mrf_tc.cu, 3xTF32) or, at passes=1, "tf32" (csrc/mrf_tf32.cu),
+    at padded_width(C). No width routes to csrc/mrf.cu."""
     if C in STACK_WIDTHS and n_resblocks <= STACK_MAX_RESBLOCKS:
         return "stack"
-    return "conv"
+    return "tf32" if passes == 1 else "tc"
+
+
+def padded_width(C):
+    """The width the tensor-core kernels run a stage of width C at: the
+    next multiple of 32 up to 64 (C=24: 32, C=48: 64), 96 from 68 to 96
+    (the narrow kernel's widest tile), 128 from 100 to 128, the next
+    multiple of 64 above (C=160: 192, C=224: 256). Every v1 width is its
+    own."""
+    if C <= 64:
+        return -(-C // 32) * 32
+    if C <= 128:
+        return 96 if C <= 96 else 128
+    return -(-C // 64) * 64
 
 
 def stack_tile(T, B=1, sms=None, max_rows=STACK_MAX_TILE):
@@ -203,33 +218,43 @@ def _sm_count(device):
 
 
 def tc_tile(C):
-    """(TN, NWG) of csrc/mrf_tc.cu for width C: TN output channels and NWG
-    consumer warpgroups (64 NWG time rows) per tile. The fastest on the
-    H100 (chip_smoke.py's mrf_tc_tiles phase): 128 x 128 tiles at C=256
-    (each weight stage feeds 128 rows; 76 blocks at 4864 frames beat 152
-    smaller ones), 128 x 64 at C=128, and TN = C at C=64 and C=32 (the
-    narrow kernel: every output channel in one tile)."""
-    if C <= 64:
-        return (C, 2)
-    return (128, 2) if C >= 256 and C % 128 == 0 else (64, 2)
+    """(TN, NWG) of csrc/mrf_tc.cu for width C (run at CP =
+    padded_width(C)): TN output channels and NWG consumer warpgroups (64
+    NWG time rows) per tile. The fastest on the H100 (chip_smoke.py's
+    mrf_tc_tiles phase): 128 x 128 tiles at C=256 (each weight stage feeds
+    128 rows; 76 blocks at 4864 frames beat 152 smaller ones), 128 x 64 at
+    C=128, and TN = CP at CP=64 and CP=32 (the narrow kernel: every output
+    channel in one tile); at CP=96 the narrow kernel with one warpgroup,
+    the only one whose planes fit."""
+    cp = padded_width(C)
+    if cp <= 64:
+        return (cp, 2)
+    if cp == 96:
+        return (96, 1)
+    return (128, 2) if cp >= 256 and cp % 128 == 0 else (64, 2)
 
 
 def tc_grid(B, T, C, tile=None):
-    """The tiles of csrc/mrf_tc.cu: (time tiles, C_out tiles, B). At C=256
-    and C=128 this is the launch grid; at C=64 and C=32 the narrow kernel
-    walks these tiles with min(tiles, SMs) persistent blocks."""
+    """The tiles of csrc/mrf_tc.cu: (time tiles, C_out tiles, B), over
+    padded_width(C) channels. Past 96 this is the launch grid; up to 96 the
+    narrow kernel walks these tiles with min(tiles, SMs) persistent
+    blocks."""
     tn, nwg = tile or tc_tile(C)
-    return (-(-T // (64 * nwg)), C // tn, B)
+    return (-(-T // (64 * nwg)), padded_width(C) // tn, B)
 
 
 def tf32_tile(C):
-    """(TN, NWG) of csrc/mrf_tf32.cu for width C: TN output channels and
-    NWG consumer warpgroups (64 NWG time rows) per tile. The fastest on
-    the H100 (chip_smoke.py's mrf_tf32_tiles): 128 x 128 tiles at C=256
-    and C=128 (every multiple of 128), TN = C with two warpgroups at C=64
-    and C=32, and 64 at the other multiples of 64 (C=192), which 128 does
-    not divide."""
-    return (128, 2) if C % 128 == 0 else (min(C, 64), 2)
+    """(TN, NWG) of csrc/mrf_tf32.cu for width C (run at CP =
+    padded_width(C)): TN output channels and NWG consumer warpgroups (64
+    NWG time rows) per tile. The fastest on the H100 (chip_smoke.py's
+    mrf_tf32_tiles): 128 x 128 tiles at C=256 and C=128 (every multiple of
+    128), TN = CP with two warpgroups at CP=96, 64 and 32 (one tile reads
+    the plane for every output channel), and 64 at the other multiples of
+    64 (CP=192), which 128 does not divide."""
+    cp = padded_width(C)
+    if cp % 128 == 0:
+        return (128, 2)
+    return (cp, 2) if cp <= 96 else (64, 2)
 
 
 def tf32_plane_rows(nwg):
@@ -300,7 +325,16 @@ def tf32_pack(w, tn):
 
 def narrow(C, tn):
     """Whether tile width tn at width C runs the narrow kernel."""
-    return tn == C and C in (32, 64)
+    cp = padded_width(C)
+    return tn == cp and cp in (32, 64, 96)
+
+
+def _padded_taps(ts, cp):
+    """The taps of ts (each (..., C, C)) as one (n, cp, cp) tensor, zero in
+    the padded rows and columns."""
+    C = ts[0].shape[-1]
+    taps = torch.cat([t.reshape(-1, C, C) for t in ts])
+    return F.pad(taps, (0, cp - C, 0, cp - C)) if cp != C else taps
 
 
 def _cached_pack(ts, tag, pack):
@@ -330,14 +364,14 @@ def _cached_pack(ts, tag, pack):
 
 def stage_pack(weights, tn):
     """The packed taps of a stage for csrc/mrf_tc.cu (w1 then w2 of each
-    resblock; tc_pack, or tc_pack_narrow where narrow(C, tn)), kept per
-    weight version (_cached_pack)."""
+    resblock, zero-padded to padded_width(C); tc_pack, or tc_pack_narrow
+    where narrow(C, tn)), kept per weight version (_cached_pack)."""
     ts = [wd[key] for wd in weights for key in ("w1", "w2")]
     C = ts[0].shape[-1]
 
     def pack():
         with torch.no_grad():
-            taps = torch.cat([t.reshape(-1, C, C) for t in ts])
+            taps = _padded_taps(ts, padded_width(C))
             return (tc_pack_narrow(taps) if narrow(C, tn)
                     else tc_pack(taps, tn))
     return _cached_pack(ts, tn, pack)
@@ -345,15 +379,32 @@ def stage_pack(weights, tn):
 
 def tf32_stage_pack(weights, tn):
     """The packed taps of a stage for csrc/mrf_tf32.cu (w1 then w2 of each
-    resblock, tf32_pack), kept per weight version (_cached_pack)."""
+    resblock, zero-padded to padded_width(C), tf32_pack), kept per weight
+    version (_cached_pack)."""
     ts = [wd[key] for wd in weights for key in ("w1", "w2")]
     C = ts[0].shape[-1]
 
     def pack():
         with torch.no_grad():
-            return tf32_pack(torch.cat([t.reshape(-1, C, C) for t in ts]),
-                             tn)
+            return tf32_pack(_padded_taps(ts, padded_width(C)), tn)
     return _cached_pack(ts, ("tf32", tn), pack)
+
+
+def bias_pack(weights):
+    """A stage's biases for the tensor-core kernels: per resblock {b1, b2}
+    (3, padded_width(C)), zero past C; the weights' own tensors where C is
+    its own padded width, else kept per weight version (_cached_pack)."""
+    ts = [wd[key] for wd in weights for key in ("b1", "b2")]
+    C = ts[0].shape[-1]
+    cp = padded_width(C)
+    if cp == C:
+        return [{"b1": wd["b1"], "b2": wd["b2"]} for wd in weights]
+
+    def pack():
+        with torch.no_grad():
+            return [{key: F.pad(wd[key], (0, cp - C)).contiguous()
+                     for key in ("b1", "b2")} for wd in weights]
+    return _cached_pack(ts, "bias", pack)
 
 
 def stack_pack(weights):
@@ -403,20 +454,6 @@ def _conv_launch(x, w, b, d, res, out, acc, acc_scale):
     if err != 0:
         _raise(err, x, w.shape[0], d)
     mrf.launches += 1
-
-
-def _tc_conv_launch(fn, count, x, wp, k, b, d, res, out, acc, acc_scale,
-                    tile):
-    """One conv on a tensor-core kernel: fn, csrc/mrf_tc.cu's or
-    csrc/mrf_tf32.cu's entry (the same arguments), counted in mrf.<count>."""
-    B, T, C = x.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(_ptr(x), _ptr(wp), _ptr(b), _ptr(res), _ptr(out), _ptr(acc),
-                 acc_scale, B, T, C, k, d, LRELU_SLOPE, *tile, stream)
-    if err != 0:
-        _raise(err, x, k, d)
-    setattr(mrf, count, getattr(mrf, count) + 1)
 
 
 def _stack_launch(x, packed, ks, out, tile):
@@ -472,7 +509,8 @@ def mrf_cuda(x, weights, tile=None, route=None, passes=3):
     tc_tile(C) or tf32_tile(C) ((TN, NWG), routes "tc" and "tf32") or
     stack_tile(T) (rows, route "stack"). Route "tc" at passes=1 is
     csrc/mrf_tc.cu's one-pass build, which "tf32" replaced; "tf32" takes
-    passes=1 only; the other routes are fp32 FMA at either."""
+    passes=1 only; "conv" (csrc/mrf.cu, which no width routes to) and
+    "stack" are fp32 FMA at either."""
     B, T, C = x.shape
     _check("x", x, (B, T, C), x.device)
     if C % 4:
@@ -507,10 +545,9 @@ def mrf_cuda(x, weights, tile=None, route=None, passes=3):
                       tile or stack_tile(T, B, _sm_count(x.device)))
         return out
     if route == "tf32":
-        if passes != 1 or C % TC_CK:
-            raise ValueError(f"mrf: the one-pass TF32 kernel takes passes=1 "
-                             f"and C a multiple of {TC_CK}, got passes="
-                             f"{passes}, C={C}")
+        if passes != 1:
+            raise ValueError(f"mrf: the one-pass TF32 kernel takes passes=1, "
+                             f"got passes={passes}")
         if _tf32_lib is None:
             build_tf32()
         fn, count = _tf32_lib.radtts_mrf_tf32_conv, "tf32_launches"
@@ -523,40 +560,57 @@ def mrf_cuda(x, weights, tile=None, route=None, passes=3):
         tile = tile or tc_tile(C)
         packed = stage_pack(weights, tile[0])
     if route in ("tc", "tf32"):
+        # one conv on a tensor-core kernel: fn, csrc/mrf_tc.cu's or
+        # csrc/mrf_tf32.cu's entry (the same arguments), at the padded
+        # width, counted in mrf.<count>; the taps' and biases' addresses
+        # by offset (a launch on a kernel this fast is near the host's
+        # rate, so it makes no tensor views)
         first, n = {}, 0    # each conv's first tap in the packed stage
         for m, wd in enumerate(weights):
             for key in ("w1", "w2"):
                 first[m, key] = n
                 n += wd[key].shape[0] * wd[key].shape[1]
+        biases = bias_pack(weights)
+        cp = padded_width(C)
+        taps, tap_bytes = packed.data_ptr(), 4 * packed.stride(0)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
 
-        def conv(m, key, i, src, b, d, res, dst, acc, scale):
+        def conv(m, key, i, src, d, res, dst, acc, scale):
             k = weights[m][key].shape[1]
-            j = first[m, key] + i * k
-            _tc_conv_launch(fn, count, src, packed[j:j + k], k, b, d, res,
-                            dst, acc, scale, tile)
+            err = fn(src.data_ptr(), taps + tap_bytes * (first[m, key]
+                                                         + i * k),
+                     biases[m]["b" + key[1]].data_ptr() + 4 * cp * i,
+                     _ptr(res), _ptr(dst), _ptr(acc), scale, B, T, C, cp, k,
+                     d, LRELU_SLOPE, *tile, stream)
+            if err != 0:
+                _raise(err, src, k, d)
+            setattr(mrf, count, getattr(mrf, count) + 1)
     else:
         if _lib is None:
             build()
 
-        def conv(m, key, i, src, b, d, res, dst, acc, scale):
-            _conv_launch(src, weights[m][key][i], b, d, res, dst, acc, scale)
+        def conv(m, key, i, src, d, res, dst, acc, scale):
+            wd = weights[m]
+            _conv_launch(src, wd[key][i], wd["b" + key[1]][i], d, res, dst,
+                         acc, scale)
 
     out = torch.zeros_like(x)
     xr = torch.empty_like(x)
     xt = torch.empty_like(x)
     scale = 1.0 / len(weights)
-    for m, wd in enumerate(weights):
-        src = x
-        for i, d in enumerate(DILATIONS):
-            last = i == len(DILATIONS) - 1
-            conv(m, "w1", i, src, wd["b1"][i], d, None, xt, None, 0.0)
-            conv(m, "w2", i, xt, wd["b2"][i], 1, src,
-                 None if last else xr, out if last else None, scale)
-            src = xr
+    with torch.cuda.device(x.device):
+        for m in range(len(weights)):
+            src = x
+            for i, d in enumerate(DILATIONS):
+                last = i == len(DILATIONS) - 1
+                conv(m, "w1", i, src, d, None, xt, None, 0.0)
+                conv(m, "w2", i, xt, 1, src, None if last else xr,
+                     out if last else None, scale)
+                src = xr
     return out
 
 
-mrf.launches = 0        # csrc/mrf.cu launches
+mrf.launches = 0        # csrc/mrf.cu launches (route="conv" only)
 mrf.tc_launches = 0     # csrc/mrf_tc.cu launches (3xTF32)
 mrf.tc1_launches = 0    # its one-pass build's launches (route="tc" only)
 mrf.tf32_launches = 0   # csrc/mrf_tf32.cu launches (one TF32 pass)

@@ -89,38 +89,42 @@ def _stack_emulated(x, weights, max_rows=STACK_MAX_TILE, sms=None):
 
 @pytest.mark.parametrize("C,route", [
     (4, "stack"), (8, "stack"), (12, "stack"), (16, "stack"),
-    (20, "conv"), (24, "conv"), (32, "tc"), (48, "conv"), (64, "tc"),
-    (96, "conv"), (128, "tc"), (160, "conv"), (192, "tc"), (256, "tc"),
+    (20, "tc"), (24, "tc"), (32, "tc"), (48, "tc"), (64, "tc"),
+    (96, "tc"), (128, "tc"), (160, "tc"), (192, "tc"), (256, "tc"),
     (512, "tc")])
 def test_route(C, route):
+    """The stack kernel takes C <= 16; every other width the tensor
+    cores, padded where it is not a tile width (C=20, 24, 48, 96, 160)."""
     assert mrf_route(C) == route
 
 
 @pytest.mark.parametrize("C,n_rb,route", [
-    (16, 1, "stack"), (16, 4, "stack"), (16, 5, "conv"), (8, 6, "conv"),
-    (4, 5, "conv"), (32, 5, "tc"), (48, 5, "conv")])
+    (16, 1, "stack"), (16, 4, "stack"), (16, 5, "tc"), (8, 6, "tc"),
+    (4, 5, "tc"), (32, 5, "tc"), (48, 5, "tc")])
 def test_route_by_resblock_count(C, n_rb, route):
     """A C <= 16 stage with more resblocks than the stack kernel takes
-    goes to csrc/mrf.cu, which takes any count; mrf_cuda routes by the
-    weights it is given."""
+    goes to the tensor cores' narrow kernel, padded to 32, which takes any
+    count; mrf_cuda routes by the weights it is given."""
     assert mrf_route(C, n_rb) == route
 
 
-@pytest.mark.parametrize("n_rb,build", [(5, "build"), (3, "build_stack")])
+@pytest.mark.parametrize("n_rb,build", [(5, "build_tc"),
+                                        (3, "build_stack")])
 def test_mrf_cuda_routes_by_resblock_count(monkeypatch, n_rb, build):
-    """At C=16 mrf_cuda builds csrc/mrf.cu for 5 resblocks and the stack
-    kernel for 3 (each build is stubbed to stop there)."""
+    """At C=16 mrf_cuda builds csrc/mrf_tc.cu for 5 resblocks and the
+    stack kernel for 3 (each build is stubbed to stop there)."""
     class Built(Exception):
         pass
 
     def stub(name):
-        def fn():
+        def fn(*args):
             raise Built(name)
         return fn
 
     for name in ("build", "build_tc", "build_stack"):
         monkeypatch.setattr(mrf_mod, name, stub(name))
     monkeypatch.setattr(mrf_mod, "_lib", None)
+    monkeypatch.setattr(mrf_mod, "_tc_libs", {})
     monkeypatch.setattr(mrf_mod, "_stack_lib", None)
     w = _weights(16, seed=8, ks=(3,) * n_rb)
     with pytest.raises(Built, match=f"^{build}$"):
@@ -129,12 +133,11 @@ def test_mrf_cuda_routes_by_resblock_count(monkeypatch, n_rb, build):
 
 def test_route_at_every_width():
     """Every multiple of 4 up to 1024 has exactly one route; the stack
-    kernel takes exactly C <= 16."""
+    kernel takes exactly C <= 16, the tensor cores every other width."""
     routes = {C: mrf_route(C) for C in range(4, 1025, 4)}
-    assert set(routes.values()) == {"tc", "stack", "conv"}
+    assert set(routes.values()) == {"tc", "stack"}
     assert [C for C, r in routes.items() if r == "stack"] == [4, 8, 12, 16]
-    assert all(r == "tc" for C, r in routes.items()
-               if C in (32, 64) or (C >= 128 and C % 64 == 0))
+    assert all(r == "tc" for C, r in routes.items() if C > 16)
 
 
 @pytest.mark.parametrize("T,tile", [(77824, 400), (155648, 400), (997, 333),

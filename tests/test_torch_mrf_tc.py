@@ -21,8 +21,9 @@ from radtts_tpu.ops.pallas_mrf import pallas_mrf, pallas_mrf_folded
 
 from radtts_tpu_torch.ops import mrf as mrf_mod
 from radtts_tpu_torch.ops.mrf import (DILATIONS, LRELU_SLOPE, TC_CK,
-                                      _conv_plain, mrf, mrf_cuda, mrf_plain,
-                                      mrf_route, narrow, stage_pack, tc_grid,
+                                      _conv_plain, bias_pack, mrf, mrf_cuda,
+                                      mrf_plain, mrf_route, narrow,
+                                      padded_width, stage_pack, tc_grid,
                                       tc_pack, tc_pack_narrow, tc_split,
                                       tc_tile, tf32_plane_rows, tf32_round)
 
@@ -285,14 +286,22 @@ def _desc_rows(start, lbo, sbo, n_rows):
 def _narrow_conv_emulated(x, w_taps, b, d, nwg):
     """One launch of csrc/mrf_tc.cu's narrow kernel, addressing and all. x
     (B, T, C) before leaky ReLU, w_taps (k, C_in, C_out), b (C,) -> (B, T,
-    C) numpy: per (item, time tile) the hi and lo planes of all C channels
-    (the 16-byte unit (group g, row i) at (g * R + i) * 16 bytes), then per
-    (tap j, chunk c) unit of tc_pack_narrow and k-step q the kernel's
-    descriptors: A at group 8c + 2q, j d rows on; B the unit's 2C rows (hi,
-    then lo), its first C for the lo * hi product; the sum acc_w[:, :C] +
-    (acc_w[:, C:] + acc_l)."""
-    x = x.numpy()
-    B, T, C = x.shape
+    C) numpy, run at the padded width CP = padded_width(C) as the kernel
+    runs it (the split writes the channels at and past C as zeros; the
+    taps and the bias zero-padded as stage_pack and bias_pack pad them;
+    the channels past C neither staged nor stored): per (item, time tile)
+    the hi and lo planes of all CP channels (the 16-byte unit (group g, row
+    i) at (g * R + i) * 16 bytes), then per (tap j, chunk c) unit of
+    tc_pack_narrow and k-step q the kernel's descriptors: A at group 8c +
+    2q, j d rows on; B the unit's 2CP rows (hi, then lo), its first CP for
+    the lo * hi product; the sum acc_w[:, :CP] + (acc_w[:, CP:] +
+    acc_l)."""
+    C_real = x.shape[2]
+    C = padded_width(C_real)
+    x = F.pad(x, (0, C - C_real)).numpy()
+    w_taps = F.pad(w_taps, (0, C - C_real, 0, C - C_real))
+    b = F.pad(b, (0, C - C_real))
+    B, T, _ = x.shape
     k = w_taps.shape[0]
     TM, R = 64 * nwg, tf32_plane_rows(nwg)
     pad = (k - 1) // 2 * d
@@ -332,7 +341,7 @@ def _narrow_conv_emulated(x, w_taps, b, d, nwg):
             frag = acc_w[:, :C] + (acc_w[:, C:] + acc_l)
             n = min(TM, T - t0)
             y[item, t0:t0 + n] = frag[:n] + b.numpy()
-    return y
+    return y[..., :C_real]
 
 
 @pytest.mark.parametrize("C,T,k,d,nwg", [
@@ -352,3 +361,121 @@ def test_narrow_descriptor_emulation_matches_plain(C, T, k, d, nwg):
                        d).transpose(1, 2).numpy()
     got = _narrow_conv_emulated(x, w, b, d, nwg)
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_no_width_routes_to_the_fma_kernel(passes):
+    """Every multiple of 4 up to 256 goes to the tensor cores at both
+    precisions (csrc/mrf.cu runs only by name), but the stack kernel's
+    C <= 16 stages of at most 4 resblocks; 5 resblocks at C=16 take the
+    tensor cores too, padded to 32."""
+    tc = "tf32" if passes == 1 else "tc"
+    routes = {C: mrf_route(C, 3, passes) for C in range(4, 257, 4)}
+    assert "conv" not in routes.values()
+    assert {C for C, r in routes.items() if r == "stack"} == {4, 8, 12, 16}
+    assert all(r == tc for C, r in routes.items() if C > 16)
+    assert mrf_route(16, 5, passes) == tc and padded_width(16) == 32
+
+
+@pytest.mark.parametrize("C,cp,tile", [
+    (24, 32, (32, 2)), (20, 32, (32, 2)), (40, 64, (64, 2)),
+    (48, 64, (64, 2)), (72, 96, (96, 1)), (96, 96, (96, 1)),
+    (100, 128, (64, 2)), (160, 192, (64, 2)), (224, 256, (128, 2)),
+    (32, 32, (32, 2)), (64, 64, (64, 2)), (256, 256, (128, 2))])
+def test_padded_width_and_tile(C, cp, tile):
+    """The padded width (the next multiple of 32 up to 96, 128 up to 128,
+    the next multiple of 64 above) and its tile: the narrow kernel up to
+    96 (one warpgroup at 96, whose planes alone fill the block), the wide
+    kernel's tiles above; the v1 widths are their own."""
+    assert padded_width(C) == cp and cp - C < 64 and cp % 32 == 0
+    assert tc_tile(C) == tile
+    assert narrow(C, tile[0]) is (cp <= 96)
+    assert tc_grid(2, 997, C) == (-(-997 // (64 * tile[1])), cp // tile[0],
+                                  2)
+
+
+@pytest.mark.parametrize("C", [24, 96, 160])
+def test_padded_pack(C):
+    """stage_pack at a padded width: the taps zero in the padded rows and
+    columns, the C real ones as tc_pack(_narrow) lays out the unpadded
+    values; bias_pack zero past C and the C real biases as given."""
+    w = _weights(C, seed=C)
+    cp = padded_width(C)
+    tn = tc_tile(C)[0]
+    p = stage_pack(w, tn)
+    n_taps = sum(3 * wd[key].shape[1] for wd in w for key in ("w1", "w2"))
+    taps = torch.cat([wd[key].reshape(-1, C, C) for wd in w
+                      for key in ("w1", "w2")])
+    full = torch.zeros(n_taps, cp, cp)
+    full[:, :C, :C] = taps
+    want = tc_pack_narrow(full) if narrow(C, tn) else tc_pack(full, tn)
+    torch.testing.assert_close(p, want, rtol=0, atol=0)
+    # the padded rows and columns of both planes, read back, are zero
+    hi, lo = tc_split(full)
+    assert hi[:, C:].eq(0).all() and hi[:, :, C:].eq(0).all()
+    assert lo[:, C:].eq(0).all() and lo[:, :, C:].eq(0).all()
+    assert p.numel() == 2 * n_taps * cp * cp
+    for wd, bd in zip(w, bias_pack(w)):
+        for key in ("b1", "b2"):
+            assert bd[key].shape == (3, cp) and bd[key].is_contiguous()
+            torch.testing.assert_close(bd[key][:, :C], wd[key], rtol=0,
+                                       atol=0)
+            assert bd[key][:, C:].eq(0).all()
+    assert bias_pack(w)[0]["b1"] is bias_pack(w)[0]["b1"]   # kept
+    v1 = _weights(64, seed=1)
+    assert bias_pack(v1)[1]["b2"] is v1[1]["b2"]     # unpadded: as given
+
+
+@pytest.mark.parametrize("C,T,k,d", [(24, 101, 11, 5), (48, 97, 7, 3),
+                                     (96, 131, 11, 1), (20, 70, 3, 5)])
+def test_padded_narrow_conv_emulation_matches_plain(C, T, k, d):
+    """One conv through the narrow kernel at the padded width (zero
+    channels in the planes, zero-padded taps) equals the fp32 conv on the
+    same inputs within 1e-6 * max, ragged T."""
+    rng = np.random.default_rng(C + T + k)
+    x = torch.from_numpy(rng.standard_normal((2, T, C)).astype(np.float32))
+    w = torch.from_numpy((0.03 * rng.standard_normal((k, C, C)))
+                         .astype(np.float32))
+    b = torch.from_numpy((0.03 * rng.standard_normal(C)).astype(np.float32))
+    want = _conv_plain(F.leaky_relu(x.transpose(1, 2), LRELU_SLOPE), w, b,
+                       d).transpose(1, 2).numpy()
+    got = _narrow_conv_emulated(x, w, b, d, tc_tile(C)[1])
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def _narrow_chain_emulated(x, weights):
+    """mrf_cuda's 18-launch chain (route "tc") at a narrow padded width,
+    every launch as _narrow_conv_emulated."""
+    nwg = tc_tile(x.shape[2])[1]
+    out = np.zeros(tuple(x.shape), np.float32)
+    for wd in weights:
+        src = x.numpy()
+        for i, d in enumerate(DILATIONS):
+            xt = _narrow_conv_emulated(torch.from_numpy(src), wd["w1"][i],
+                                       wd["b1"][i], d, nwg)
+            src = src + _narrow_conv_emulated(
+                torch.from_numpy(xt), wd["w2"][i], wd["b2"][i], 1, nwg)
+        out += np.float32(1.0 / len(weights)) * src
+    return out
+
+
+@pytest.mark.parametrize("C", [24, 48, 96, 20])
+def test_padded_chain_matches_plain_and_pallas(C):
+    """The 18-launch chain on the narrow kernel at the padded width equals
+    mrf_plain within 1e-4 * max (the card's limit) at C = 24, 48, 96 and
+    20 (not a multiple of 8), and the JAX pallas_mrf in interpret mode,
+    the TPU kernel these widths ran, within rtol/atol 1e-5 at C=24 and 96;
+    ragged T."""
+    B, T = 2, 97
+    w = _weights(C, seed=C + 3)
+    x = _x((B, T, C), C + 4)
+    got = _narrow_chain_emulated(x, w)
+    ref = mrf_plain(x, w).numpy()
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+    if C in (24, 96):
+        jw = [{k: jnp.asarray(v.numpy()) for k, v in wd.items()} for wd in w]
+        pal = pallas_mrf(jnp.asarray(x.numpy()), jw, tile=128,
+                         interpret=True)
+        np.testing.assert_allclose(got, np.asarray(pal), rtol=1e-5,
+                                   atol=1e-5)

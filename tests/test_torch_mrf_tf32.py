@@ -32,20 +32,29 @@ from radtts_tpu.ops.pallas_mrf import pallas_mrf, pallas_mrf_folded
 from radtts_tpu_torch.ops import mrf as mrf_mod
 from radtts_tpu_torch.ops.mrf import (DILATIONS, LRELU_SLOPE, TC_CK,
                                       _conv_plain, mrf, mrf_cuda, mrf_plain,
-                                      mrf_route, tf32_pack, tf32_plane_rows,
-                                      tf32_round, tf32_stage_pack, tf32_tile)
+                                      mrf_route, padded_width, tf32_pack,
+                                      tf32_plane_rows, tf32_round,
+                                      tf32_stage_pack, tf32_tile)
 from tests.test_torch_mrf_tc import _desc_rows, _rna, _weights, _x
 
 
 
 def _conv_emulated(x, w_taps, b, d, tn, nwg, res=None):
     """One launch of csrc/mrf_tf32.cu, addressing and all. x (B, T, C)
-    before leaky ReLU, w_taps (k, C_in, C_out), b (C,) -> (B, T, C) numpy:
-    per (item, time tile, C_out tile, C_in chunk) the plane is built from
-    the slab, then per tap and warpgroup the four k-steps read their A and
-    B operands through the kernel's descriptors."""
-    x = x.numpy()
-    B, T, C = x.shape
+    before leaky ReLU, w_taps (k, C_in, C_out), b (C,) -> (B, T, C) numpy,
+    run at the padded width CP = padded_width(C) as the kernel runs it
+    (the slab's channels at and past C zero, the taps and the bias
+    zero-padded as tf32_stage_pack and bias_pack pad them, the channels
+    past C not stored): per (item, time tile, C_out tile, C_in chunk) the
+    plane is built from the slab, then per tap and warpgroup the four
+    k-steps read their A and B operands through the kernel's
+    descriptors."""
+    C_real = x.shape[2]
+    C = padded_width(C_real)
+    x = F.pad(x, (0, C - C_real)).numpy()
+    w_taps = F.pad(w_taps, (0, C - C_real, 0, C - C_real))
+    b = F.pad(b, (0, C - C_real))
+    B, T, _ = x.shape
     k = w_taps.shape[0]
     TM, R = 64 * nwg, tf32_plane_rows(nwg)
     pad = (k - 1) // 2 * d
@@ -84,6 +93,7 @@ def _conv_emulated(x, w_taps, b, d, tn, nwg, res=None):
                 n = min(TM, T - t0)
                 y[item, t0:t0 + n, nt * tn:(nt + 1) * tn] = (
                     acc[:n] + b.numpy()[nt * tn:(nt + 1) * tn])
+    y = y[..., :C_real]
     return y if res is None else y + res
 
 
@@ -106,12 +116,13 @@ def _chain_emulated(x, weights, tn, nwg):
                                      (512, "tf32"), (192, "tf32"),
                                      (64, "tf32"), (32, "tf32"),
                                      (16, "stack"), (8, "stack"),
-                                     (48, "conv")])
+                                     (48, "tf32"), (96, "tf32"),
+                                     (24, "tf32"), (160, "tf32")])
 def test_routing_rule_at_one_pass(C, route):
-    """At one pass csrc/mrf_tf32.cu takes every tensor-core width; at
-    three passes every tensor-core
-    width goes to csrc/mrf_tc.cu; the FMA kernels take their widths at
-    both."""
+    """At one pass csrc/mrf_tf32.cu takes every width but the stack's
+    (C=48, 96, 24 and 160 padded; csrc/mrf.cu, which took them, runs only
+    by name); at three passes those widths go to csrc/mrf_tc.cu; the stack
+    kernel takes its widths at both."""
     assert mrf_route(C, 3, passes=1) == route
     assert mrf_route(C, 3, passes=3) == ("tc" if route == "tf32" else route)
     assert mrf_route(C) == mrf_route(C, 3, passes=3)
@@ -141,13 +152,15 @@ def test_cpu_tensor_at_default_precision_takes_plain_path():
 
 @pytest.mark.parametrize("C,tile", [(256, (128, 2)), (128, (128, 2)),
                                     (64, (64, 2)), (32, (32, 2)),
-                                    (192, (64, 2))])
+                                    (192, (64, 2)), (96, (96, 2)),
+                                    (48, (64, 2)), (24, (32, 2)),
+                                    (160, (64, 2)), (100, (128, 2))])
 def test_tile(C, tile):
-    """TN = C up to 64, 128 at the multiples of 128, else 64: a tile the
-    kernel takes (TN in 32, 64, 128 dividing C) at every width mrf_route
-    sends it, C=192 among them."""
+    """TN = CP (the padded width) up to 96, 128 at the multiples of 128,
+    else 64: a tile the kernel takes (TN in 32, 64, 96, 128 dividing CP) at
+    every width mrf_route sends it, C=192 among them."""
     assert tf32_tile(C) == tile
-    assert tile[0] in (32, 64, 128) and C % tile[0] == 0
+    assert tile[0] in (32, 64, 96, 128) and padded_width(C) % tile[0] == 0
     assert mrf_route(C, 3, 1) == "tf32"
 
 
@@ -184,10 +197,13 @@ def test_plane_rows_are_odd_and_hold_every_tap():
     (256, 97, 3, 5, 128, 1), (256, 70, 11, 1, 64, 1),
     (128, 131, 7, 3, 128, 2), (128, 97, 11, 5, 64, 1),
     (64, 101, 11, 5, 64, 1), (64, 150, 7, 3, 32, 2),
-    (32, 97, 11, 3, 32, 1), (32, 201, 3, 1, 32, 2)])
+    (32, 97, 11, 3, 32, 1), (32, 201, 3, 1, 32, 2),
+    (160, 97, 11, 5, 64, 1), (24, 101, 7, 3, 32, 2), (96, 70, 11, 1, 96, 1)])
 def test_descriptor_emulation_matches_plain(C, T, k, d, tn, nwg):
     """One conv through the kernel's plane, descriptors and packed units
-    equals _conv_plain(..., passes=1) on the same inputs, ragged T."""
+    equals _conv_plain(..., passes=1) on the same inputs, ragged T; C=160
+    and C=24 at their padded widths (192, 32), C=96 in one 96-wide
+    tile."""
     rng = np.random.default_rng(C + T + k)
     x = torch.from_numpy(rng.standard_normal((2, T, C)).astype(np.float32))
     w = torch.from_numpy((0.03 * rng.standard_normal((k, C, C)))
@@ -200,12 +216,13 @@ def test_descriptor_emulation_matches_plain(C, T, k, d, tn, nwg):
     assert np.abs(got - want).max() <= 1e-6 * scale
 
 
-@pytest.mark.parametrize("C", [128, 64, 32])
+@pytest.mark.parametrize("C", [128, 64, 32, 24, 96])
 def test_one_pass_chain_matches_pallas(C):
     """The emulated chain against the TPU kernels it replaces: pallas_mrf
-    at C=128 and C=64, pallas_mrf_folded (4 frames folded into 128 lanes)
-    at C=32, ragged T; within 1.5x the one-pass plain version's own
-    distance from fp32 (see the module's docstring)."""
+    at C=128 and C=64 (and at C=24 and 96, padded to 32 and run as one
+    96-wide tile), pallas_mrf_folded (4 frames folded into 128 lanes) at
+    C=32, ragged T; within 1.5x the one-pass plain version's own distance
+    from fp32 (see the module's docstring)."""
     B, T = 2, 97
     w = _weights(C, seed=C + 11)
     x = _x((B, T, C), C + 12)
@@ -217,7 +234,7 @@ def test_one_pass_chain_matches_pallas(C):
         ref = pallas_mrf(jnp.asarray(x.numpy()), jw, tile=128,
                          interpret=True)
     ref = np.asarray(ref)
-    tn, nwg = min(C, 64), 1
+    tn, nwg = (96 if C == 96 else min(padded_width(C), 64)), 1
     got = _chain_emulated(x, w, tn, nwg)
     tf32_dist = (mrf_plain(x, w, passes=1) - mrf_plain(x, w)).abs().max()
     assert tf32_dist > 0
@@ -242,3 +259,40 @@ def test_stage_pack_is_kept_per_weight_version():
     torch.testing.assert_close(second, tf32_pack(taps, 64), rtol=0, atol=0)
     assert tf32_stage_pack(w, 32) is not second    # another tile width
     assert mrf_mod.stage_pack(w, 64) is not second  # the 3xTF32 packing
+
+
+@pytest.mark.parametrize("C,tn", [(48, 64), (20, 32), (96, 96)])
+def test_padded_one_pass_chain_matches_plain(C, tn):
+    """At widths that run padded (C=48 and 20 with zero channels, C=96 in
+    one 96-wide tile) the emulated one-pass chain equals
+    mrf_plain(passes=1) within the card's 1e-4 * max, ragged T. (C=160,
+    padded to 192, is held one conv at a time in
+    test_descriptor_emulation_matches_plain.)"""
+    B, T = 2, 97
+    w = _weights(C, seed=C + 21)
+    x = _x((B, T, C), C + 22)
+    assert tf32_tile(C)[0] == tn
+    got = _chain_emulated(x, w, tn, 1)
+    one = mrf_plain(x, w, passes=1).numpy()
+    assert np.abs(got - one).max() <= 1e-4 * np.abs(one).max()
+
+
+def test_padded_one_pass_pack():
+    """tf32_stage_pack at C=24 (padded to 32): the padded taps' units zero
+    in the padded rows and columns, the real ones rounded as tf32_pack
+    rounds the unpadded values."""
+    C, cp = 24, 32
+    w = _weights(C, seed=31)
+    p = tf32_stage_pack(w, 32)
+    taps = torch.cat([wd[key].reshape(-1, C, C) for wd in w
+                      for key in ("w1", "w2")])
+    full = torch.zeros(taps.shape[0], cp, cp)
+    full[:, :C, :C] = taps
+    torch.testing.assert_close(p, tf32_pack(full, 32), rtol=0, atol=0)
+    unit = p.reshape(taps.shape[0], -1)
+    rows = torch.arange(cp)      # (co, ci) of the unit, core-matrix order
+    co, ci = rows[:, None].expand(cp, cp), rows[None, :].expand(cp, cp)
+    idx = ((ci // 4) * (cp // 8) + co // 8) * 32 + (co % 8) * 4 + ci % 4
+    pad = (co >= C) | (ci >= C)
+    assert unit[:, idx[pad]].eq(0).all()
+    assert unit[:, idx[~pad]].ne(0).any()

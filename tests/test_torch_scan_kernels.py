@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from radtts_tpu.models.attributes import ar_step_infer as jax_ar_step_infer
 from radtts_tpu.models.radtts import radtts_infer as jax_radtts_infer
 from tests.test_torch_gap_models import agap_variant, build, rel, rnd
 from tests.test_torch_gap_serve_train import (IN_LENS, SPK, TEXT, gap_config,
@@ -49,21 +50,33 @@ def published_step():
 
 def check_plan(params, plan, smem_cap=ar_mod.SMEM_CAP):
     """Every unit and row of every segment owned by exactly one block, in
-    contiguous slices; every block's image within its stride and its bytes
-    within the cap; every block a producer of some phase; the producers
-    counted as the kernel waits for them."""
+    contiguous slices, and within its block either kept in shared memory
+    (the first n_res) or streamed from its overflow image (the others, as
+    `streamed` lists them); every block's image within its stride and its
+    bytes, state included, within the cap; every block a producer of some
+    phase; the producers counted as the kernel waits for them."""
     table, blocks = plan["table"], plan["blocks"]
+    streamed = []
     for s, (units, rows, K, _) in enumerate(plan["segments"]):
         starts, counts = table[:, s + 1, 0], table[:, s + 1, 1]
+        n_res = table[:, s + 1, 4]
         owned = np.zeros(units, int)
         for a, n in zip(starts, counts):
             owned[a:a + n] += 1
         assert (owned == 1).all()
         assert starts[0] == 0 and (np.diff(starts) == counts[:-1]).all()
+        assert ((0 <= n_res) & (n_res <= counts)).all()
+        streamed += [(i, s, int(starts[i] + n_res[i]),
+                      int(counts[i] - n_res[i]))
+                     for i in range(blocks) if counts[i] > n_res[i]]
+    assert sorted(streamed) == sorted(plan["streamed"])
+    assert plan["split"] == bool(streamed)
+    assert (plan["ovf_floats"] <= plan["ovf_stride"]).all()
     assert (plan["img_floats"] <= plan["img_stride"]).all()
     assert plan["smem"] == 4 * (plan["offsets"]["img"] + plan["img_stride"])
     assert plan["smem"] <= smem_cap
     assert (table[:, 1:, 2] % 4 == 0).all() and plan["img_stride"] % 4 == 0
+    assert (table[:, 1:, 5] % 4 == 0).all() and plan["ovf_stride"] % 4 == 0
     cnt = table[:, 1:, 1]           # attr, each layer, each head layer
     assert (cnt.sum(1) > 0).all()
     assert plan["producers"] == [
@@ -94,73 +107,81 @@ def test_plan_at_published_width(published_step, blocks):
     (1, [("resident", [0, 1])]), (8, [("resident", [0, 1])]),
     (16, [("resident", [0, 1])]),
     (24, [("resident", [0]), ("resident", [1])]),
-    (32, [("barrier", [0]), ("barrier", [1])])])
+    (32, [("split", [0]), ("split", [1])]),
+    (64, [("split", [0])] * 2 + [("split", [1])] * 2)])
 def test_pair_plan(published_step, B, routes):
     """f0 + energy at the published width: one launch on 132 blocks split
     66 / 66 by weight bytes up to B = 16; a launch each where the pair
-    does not fit and one does; the barrier kernel where one does not."""
+    does not fit and one does; at B = 32, where one's weights do not fit
+    beside its state, a split launch each; at B = 64, where the state alone
+    does not fit, a split launch each over each half of the items."""
     p = published_step
     launches = ar_mod.ar_scan_plan([p, p], B, 132)
     assert [(lc["route"], lc["problems"]) for lc in launches] == routes
     for lc in launches:
-        if lc["route"] == "resident":
-            assert lc["smem"] <= ar_mod.SMEM_CAP
-            for plan in lc["plans"]:
-                check_plan(p, plan)
-            assert lc["blocks"] == sum(pl["blocks"] for pl in lc["plans"])
+        assert lc["smem"] <= ar_mod.SMEM_CAP
+        for plan in lc["plans"]:
+            check_plan(p, plan)
+        assert lc["blocks"] == sum(pl["blocks"] for pl in lc["plans"])
     if len(routes) == 1:
         assert [pl["blocks"] for pl in launches[0]["plans"]] == [66, 66]
+        assert launches[0]["items"] == [(0, B), (0, B)]
+    if B == 64:
+        assert [lc["items"] for lc in launches] == [[(0, 32)], [(32, 64)]] * 2
 
 
 def test_plan_routes_wide_steps_to_the_barrier_kernel():
-    """A step whose weights exceed every block's shared memory (H = 1024:
-    ~50 MB against 132 x 227 KB) takes the barrier kernel, by shape; a
-    smaller cap moves the same published step there too."""
-    H = 1024
-    w = torch.zeros
-    params = {"attr": (w(4 * H, 1), w(4 * H, H), (w(4 * H), w(4 * H))),
-              "lstm": [(w(4 * H, H), w(4 * H, H), None)],
-              "head": [(w(H, H), w(H), "tanh"), (w(2, H), w(2), None)],
-              "kind": "affine", "scaling_fn": "tanh"}
-    assert [lc["route"] for lc in ar_mod.ar_scan_plan([params], 1, 132)] \
-        == ["barrier"]
+    """No shape takes the barrier kernel any more: a step whose weights
+    exceed every block's shared memory (H = 1024: ~50 MB against 132 x 227
+    KB) runs split on the resident kernel, by shape; a smaller cap splits
+    the same published step too; H = 18, not a multiple of 4, runs
+    resident, padded to 20."""
+    assert [lc["route"] for lc in ar_mod.ar_scan_plan(
+        [wide_params()], 1, 132)] == ["split"]
     _, mod = build(agap_variant("quadratic"), seed=1)
     small = mod.flows[0].scan_params("tanh")
     assert ar_mod.ar_scan_plan([small], 2, 132)[0]["route"] == "resident"
-    assert ar_mod.ar_scan_plan([small], 2, 132, smem_cap=1024)[0][
-        "route"] == "barrier"
-    # the resident kernel reads activations in float4s: H = 18 is not a
-    # multiple of 4
-    odd = dict(params, attr=(w(72, 1), w(72, 18), (w(72), w(72))),
+    assert ar_mod.ar_scan_plan([small], 2, 132, smem_cap=2048)[0][
+        "route"] == "split"
+    with pytest.raises(ValueError, match="more than the 1024"):
+        ar_mod.ar_scan_plan([small], 2, 132, smem_cap=1024)
+    # the resident kernel reads activations in float4s: H = 18 is padded
+    w = torch.zeros
+    odd = dict(wide_params(), attr=(w(72, 1), w(72, 18), (w(72), w(72))),
                lstm=[(w(72, 18), w(72, 18), None)],
                head=[(w(18, 18), w(18), "tanh"), (w(2, 18), w(2), None)])
     assert not ar_mod.resident_widths_ok(odd)
-    assert ar_mod.ar_scan_plan([odd], 1, 132)[0]["route"] == "barrier"
+    launch, = ar_mod.ar_scan_plan([odd], 1, 132)
+    assert launch["route"] == "resident" and launch["plans"][0]["H"] == 20
     assert [ar_mod.item_group(B) for B in (1, 2, 3, 5, 8, 16, 24)] == [
         1, 2, 4, 8, 8, 8, 8]
 
 
 def resident_emulation(params, res, cproj, plan):
     """csrc/ar_scan.cu's resident kernel in torch: every weight read from
-    the blocks' images through the plan's table; the attribute LSTM's
-    recurrent product made with layer 0 (the frame before) and finished
-    with W_ih_attr . prev and the bias."""
-    imgs = ar_mod.resident_pack(params, plan, "cpu")
+    the blocks' images through the plan's table (a split plan's units from
+    shared memory or the overflow image); the attribute
+    LSTM's recurrent product made with layer 0 (the frame before) and
+    finished with W_ih_attr . prev and the bias."""
+    imgs, ovfs = ar_mod.resident_pack(params, plan, "cpu")
     off, table = plan["offsets"]["img"], plan["table"]
     segs, lds, H, L = plan["segments"], plan["ld"], plan["H"], plan["L"]
     B, T, C = res.shape
-
     def rows(i, s):
-        start, count, w_off, b_off = (int(v) for v in table[i, s])
+        start, count, w_off, b_off, n_res, ovf_off = (
+            int(v) for v in table[i, s])
         _, r, K, biased = segs[s - 1]
-        n, ld = count * r, lds[s - 1]
-        W = imgs[i, w_off - off:w_off - off + n * ld].reshape(n, ld)[:, :K]
+        ld = lds[s - 1]
+        uf = r * ld
+        parts = [imgs[i, w_off - off:w_off - off + n_res * uf],
+                 ovfs[i, ovf_off:ovf_off + (count - n_res) * uf]]
+        W = torch.cat(parts).reshape(count * r, ld)[:, :K]
         if r == 4:
             ids = (start + torch.arange(count)[:, None]
                    + torch.arange(4)[None, :] * H).reshape(-1)
         else:
             ids = start + torch.arange(count)
-        b = imgs[i, b_off - off:b_off - off + n] if biased else None
+        b = imgs[i, b_off - off:b_off - off + count * r] if biased else None
         return ids, W, b
 
     w_ih_a = imgs[0, :4 * H * C].reshape(4 * H, C)
@@ -208,6 +229,7 @@ def test_resident_algorithm_equals_plain(head, layers, blocks):
     params, res, cproj = tattr.ar_step_problem(step, res, ctx, "tanh")
     plan = ar_mod.ar_scan_plan([params], 3, 132, blocks=blocks)[0]["plans"][0]
     check_plan(params, plan)
+    assert not plan["split"]
     with torch.no_grad():
         want = ar_mod.ar_scan_plain(params, res, cproj)
         got = resident_emulation(params, res, cproj, plan)
@@ -218,6 +240,118 @@ def test_resident_algorithm_equals_plain(head, layers, blocks):
     ld = icfg[ar_mod.RES_SCALARS:ar_mod.RES_SCALARS + ar_mod.MAX_SEGS]
     assert ld[0] == 0 and ld[1:1 + len(plan["ld"])] == plan["ld"]
     assert n_act == 2 * 3 * sum(w.shape[0] for w, _, _ in params["head"])
+
+
+def wide_params(H=1024):
+    """A step whose weights exceed every block's shared memory (H = 1024:
+    ~50 MB against 132 x 227 KB; chip_smoke.py:wide_step's shapes)."""
+    w = torch.zeros
+    return {"attr": (w(4 * H, 1), w(4 * H, H), (w(4 * H), w(4 * H))),
+            "lstm": [(w(4 * H, H), w(4 * H, H), None)],
+            "head": [(w(H, H), w(H), "tanh"), (w(2, H), w(2), None)],
+            "kind": "affine", "scaling_fn": "tanh"}
+
+
+@pytest.mark.parametrize("H", [1024, 1022, 1023])
+def test_split_plan_at_h1024(H):
+    """H = 1024 (and 1022 and 1023, padded to 1024) on 132 blocks: one
+    split launch; every unit owned once, kept or streamed; each block's
+    state and kept rows within the cap; the overflow images hold the rest
+    (~32 MB)."""
+    launches = ar_mod.ar_scan_plan([wide_params(H)], 1, 132)
+    assert [(lc["route"], lc["blocks"]) for lc in launches] == [
+        ("split", 132)]
+    plan = launches[0]["plans"][0]
+    assert plan["H"] == 1024
+    check_plan(wide_params(1024), plan)
+    kept = 4 * plan["img_floats"].sum()
+    streamed = 4 * plan["ovf_floats"].sum()
+    assert kept + streamed >= ar_mod.weight_bytes(wide_params(1024))
+    assert 30e6 < streamed < 35e6
+
+
+def agap_width(H, head, layers):
+    """agap_variant with the stacked LSTM H wide (a spline head's context,
+    the LSTM's output, with it)."""
+    cfg = agap_variant(head, layers)
+    cfg["hparams"]["n_hidden"] = H
+    if cfg["hparams"]["spline_flow_params"] is not None:
+        cfg["hparams"]["spline_flow_params"]["n_context_dim"] = H
+    return cfg
+
+
+@pytest.mark.parametrize("H", [16, 10])
+def test_pad_widths_is_exact(H):
+    """Zero-padded LSTM units and head rows (H = 10 to 12, head widths to
+    multiples of 4) leave ar_scan_plain's output as it was, bit for bit;
+    H = 16 is returned as it is."""
+    _, mod = build(agap_width(H, "quadratic", 2), seed=6)
+    ctx, res = torch.from_numpy(rnd((2, 7, 12), 7)), torch.from_numpy(
+        rnd((2, 7, 1), 8))
+    params, res, cproj = tattr.ar_step_problem(mod.flows[0], res, ctx,
+                                               "tanh")
+    padded, pproj = ar_mod.pad_widths(params, cproj)
+    assert ar_mod.resident_widths_ok(padded)
+    assert (padded is params) == (H % 4 == 0)
+    assert padded["attr"][1].shape == (4 * ar_mod._pad4(H),
+                                       ar_mod._pad4(H))
+    assert pproj.shape == (2, 7, 4 * ar_mod._pad4(H))
+    with torch.no_grad():
+        torch.testing.assert_close(ar_mod.ar_scan_plain(padded, res, pproj),
+                                   ar_mod.ar_scan_plain(params, res, cproj),
+                                   rtol=0, atol=1e-7)
+
+
+def test_kernel_params_kept_per_weight_version():
+    """kernel_params pads a step once per weight version: the same object
+    while the weights stay as they are, a new one after an in-place update
+    (with the update in it), and the widened step itself where no width
+    needs padding."""
+    _, mod = build(agap_width(10, "affine", 1), seed=3)
+    params = mod.flows[0].scan_params("tanh")
+    first = ar_mod.kernel_params(params)
+    assert first["attr"][1].shape == (48, 12)
+    assert ar_mod.kernel_params(params) is first
+    with torch.no_grad():
+        params["head"][0][0].add_(1.0)
+    again = ar_mod.kernel_params(params)
+    assert again is not first
+    torch.testing.assert_close(again["head"][0][0][:10, :10],
+                               params["head"][0][0], rtol=0, atol=0)
+    _, mod = build(agap_width(16, "affine", 1), seed=3)
+    wide = mod.flows[0].scan_params("tanh")
+    assert ar_mod.kernel_params(wide)["attr"] == wide["attr"]
+
+
+@pytest.mark.parametrize("head,layers,H,blocks,cap", [
+    ("quadratic", 1, 16, 5, 4096), ("linear", 2, 10, 7, 2560),
+    ("affine", 1, 10, 4, 2560), ("quadratic", 2, 18, 3, 9216)])
+def test_split_algorithm_equals_plain_and_jax(head, layers, H, blocks, cap):
+    """A cap of a few KB splits a small step (H not a multiple of 4 padded
+    by pad_widths): the resident kernel's algorithm over the kept rows and
+    the overflow images equals ar_scan_plain on the unpadded step
+    within 1e-5 * max (the same rows summed in the same order wherever
+    they lie), and the JAX package's ar_step_infer within 1e-4 * max."""
+    params_j, mod = build(agap_width(H, head, layers), seed=H + layers)
+    ctx_np, res_np = rnd((3, 8, 12), 9), rnd((3, 8, 1), 10)
+    params, res, cproj = tattr.ar_step_problem(
+        mod.flows[0], torch.from_numpy(res_np), torch.from_numpy(ctx_np),
+        "tanh")
+    launches = ar_mod.ar_scan_plan([params], 3, 132, blocks=blocks,
+                                   smem_cap=cap)
+    assert [lc["route"] for lc in launches] == ["split"]
+    plan = launches[0]["plans"][0]
+    padded, pproj = ar_mod.pad_widths(params, cproj)
+    check_plan(padded, plan, smem_cap=cap)
+    assert plan["streamed"]
+    with torch.no_grad():
+        want = ar_mod.ar_scan_plain(params, res, cproj)
+        got = resident_emulation(padded, res, pproj, plan)
+    rel(got, want.numpy(), 1e-5)
+    assert (want - res).abs().max() > 1e-2
+    jax_out = jax_ar_step_infer(params_j["flows"][0], jnp.asarray(res_np),
+                                jnp.asarray(ctx_np), "tanh")
+    rel(got, np.asarray(jax_out), 1e-4)
 
 
 def test_multi_entry_on_cpu_equals_plain_alone():
