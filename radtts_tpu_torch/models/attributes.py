@@ -23,6 +23,7 @@ package does, so grouped tensors line up channel for channel.
 import torch
 from torch import nn
 
+from radtts_tpu_torch import tracing
 from radtts_tpu_torch.models.coupling import (AffineCoupling, SplineAR,
                                               SplineCoupling)
 from radtts_tpu_torch.models.fftransformer import FFTransformer
@@ -451,13 +452,19 @@ def agap_infer(model, z, txt_enc, spk_emb, seq_lens=None):
     grouping) makes padded batches exact: the back steps reverse each
     item's valid prefix, as training does, instead of the padded axis; a
     grouped truncation is reflect-padded back to T frames."""
-    return agap_infer_multi([model], [z], [txt_enc], [spk_emb], seq_lens)[0]
+    return _agap_infer_multi([model], [z], [txt_enc], [spk_emb],
+                             seq_lens)[0]
 
 
 def agap_infer_multi(models, zs, txt_encs, spk_embs, seq_lens=None):
     """agap_infer of several AGAP models of as many flows in lock step (f0
     and energy): each flow index's steps go to ops/ar_scan.py as one
     ar_scan_multi call, one launch on the card where they fit."""
+    with tracing.span("attributes", zs[0].device):
+        return _agap_infer_multi(models, zs, txt_encs, spk_embs, seq_lens)
+
+
+def _agap_infer_multi(models, zs, txt_encs, spk_embs, seq_lens):
     if len({len(m.flows) for m in models}) != 1:
         raise ValueError("agap_infer_multi: the models' flow counts differ")
     states = []
@@ -523,8 +530,9 @@ def attribute_model_forward(model, txt_enc, spk_emb, x, lens,
 def attribute_model_infer(model, txt_enc, spk_emb, lens=None, z=None):
     """Inference of any family; z is the flows' noise (the DAP takes
     none)."""
-    if model.name == "dap":
-        return dap_infer(model, txt_enc, spk_emb, lens)
-    if model.name == "bgap":
-        return bgap_infer(model, z, txt_enc, spk_emb, lens)
-    return agap_infer(model, z, txt_enc, spk_emb, lens)
+    with tracing.span("attributes", txt_enc.device):
+        if model.name == "dap":
+            return dap_infer(model, txt_enc, spk_emb, lens)
+        if model.name == "bgap":
+            return bgap_infer(model, z, txt_enc, spk_emb, lens)
+        return agap_infer(model, z, txt_enc, spk_emb, lens)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from radtts_tpu_torch import tracing
 from radtts_tpu_torch.ops.conv import ConvNorm
 from radtts_tpu_torch.ops.mrf import (DILATIONS, KERNEL_SIZES, LRELU_SLOPE,
                                       mrf, mrf_plain)
@@ -167,16 +168,27 @@ class Generator(nn.Module):
             raise ValueError(f"mrf_impl must be 'auto' or 'plain', got "
                              f"{mrf_impl!r}")
         mrf_fn = mrf if mrf_impl == "auto" else mrf_plain
-        x = self.conv_pre(mel)
-        for up, stage in zip(self.ups, self.resblocks):
-            x = up(F.leaky_relu(x, LRELU_SLOPE)).contiguous()
-            if self.mrf_kernels:
-                x = mrf_fn(x, [blk.weights() for blk in stage])
-            else:
-                x = mrf_chain(x, stage)
-        # default torch slope 0.01 before the post conv (reference)
-        x = self.conv_post(F.leaky_relu(x))
-        return torch.tanh(x)[..., 0]
+        with tracing.span("vocoder", mel.device):
+            x = self.conv_pre(mel)
+            for up, stage in zip(self.ups, self.resblocks):
+                x = up(F.leaky_relu(x, LRELU_SLOPE)).contiguous()
+                # around the call of `mrf`, not inside it: a kernel's
+                # device-side annotation goes to the innermost profiler
+                # range, and a caller that wraps the module's `mrf` in a
+                # range of its own keeps it
+                with tracing.span("mrf", x.device) as rec:
+                    if rec is not None:
+                        rec["attrs"].update(shape=tuple(x.shape),
+                                            kernel_sizes=tuple(
+                                                blk.kernel_size
+                                                for blk in stage))
+                    if self.mrf_kernels:
+                        x = mrf_fn(x, [blk.weights() for blk in stage])
+                    else:
+                        x = mrf_chain(x, stage)
+            # default torch slope 0.01 before the post conv (reference)
+            x = self.conv_post(F.leaky_relu(x))
+            return torch.tanh(x)[..., 0]
 
 
 def gaussian_blur_kernels(kernel_size, sigmas):
@@ -334,13 +346,14 @@ def denoiser_apply(denoiser, audio, strength=0.1):
     conformed to the length the STFT round trip would give."""
     n_fft, hop, win = (denoiser.filter_length, denoiser.hop_length,
                        denoiser.win_length)
-    if strength <= 0:
-        n_out = istft_length(audio.shape[-1], n_fft, hop)
-        if n_out <= audio.shape[-1]:
-            return audio[..., :n_out]
-        return F.pad(audio, (0, n_out - audio.shape[-1]))
-    re, im = stft_reim(audio, n_fft, hop, win)
-    mag = torch.sqrt(re * re + im * im)
-    scale = (mag - denoiser.bias_spec * strength).clamp(min=0.0) \
-        / mag.clamp(min=_TINY)
-    return istft_reim(re * scale, im * scale, n_fft, hop, win)
+    with tracing.span("denoiser", audio.device):
+        if strength <= 0:
+            n_out = istft_length(audio.shape[-1], n_fft, hop)
+            if n_out <= audio.shape[-1]:
+                return audio[..., :n_out]
+            return F.pad(audio, (0, n_out - audio.shape[-1]))
+        re, im = stft_reim(audio, n_fft, hop, win)
+        mag = torch.sqrt(re * re + im * im)
+        scale = (mag - denoiser.bias_spec * strength).clamp(min=0.0) \
+            / mag.clamp(min=_TINY)
+        return istft_reim(re * scale, im * scale, n_fft, hop, win)

@@ -17,6 +17,7 @@ import copy
 import torch
 from torch import nn
 
+from radtts_tpu_torch import tracing
 from radtts_tpu_torch.debug import check_finite
 from radtts_tpu_torch.models.attention import ConvAttention
 from radtts_tpu_torch.models.attributes import (attribute_model,
@@ -221,8 +222,9 @@ def encode_speaker(model, spk_ids):
 def encode_text(model, text, in_lens, generator=None):
     """(text encoding, embeddings); a generator draws the encoder's
     training dropout."""
-    emb = model.embedding(text)
-    return model.encoder(emb, in_lens, generator), emb
+    with tracing.span("text_encoder", text.device):
+        emb = model.embedding(text)
+        return model.encoder(emb, in_lens, generator), emb
 
 
 def apply_voice_mask_to_text(model, text_enc, voiced_mask):
@@ -248,26 +250,27 @@ def preprocess_context(model, context, speaker_vecs, out_lens=None, f0=None,
                        energy_avg=None):
     """Group the context, append the speaker (and f0/energy), and run the
     bidirectional context LSTM if the model has one."""
-    meta = model.meta
-    g = meta["n_group_size"]
-    context = unfold_group(context, g)
-    if f0 is not None:
-        f0 = unfold_group(f0[:, :, None], g)
-    if energy_avg is not None:
-        energy_avg = unfold_group(energy_avg[:, :, None], g)
-    B, Tg, _ = context.shape
-    spk = speaker_vecs[:, None, :].expand(B, Tg, -1)
-    ctx = torch.cat([context, spk], dim=-1)
-    extra = [a for a in (f0, energy_avg) if a is not None]
-    if meta["use_context_lstm"]:
-        if meta["context_lstm_w_f0_and_energy"]:
+    with tracing.span("context", context.device):
+        meta = model.meta
+        g = meta["n_group_size"]
+        context = unfold_group(context, g)
+        if f0 is not None:
+            f0 = unfold_group(f0[:, :, None], g)
+        if energy_avg is not None:
+            energy_avg = unfold_group(energy_avg[:, :, None], g)
+        B, Tg, _ = context.shape
+        spk = speaker_vecs[:, None, :].expand(B, Tg, -1)
+        ctx = torch.cat([context, spk], dim=-1)
+        extra = [a for a in (f0, energy_avg) if a is not None]
+        if meta["use_context_lstm"]:
+            if meta["context_lstm_w_f0_and_energy"]:
+                ctx = torch.cat([ctx] + extra, dim=-1)
+            lens_g = None if out_lens is None else out_lens // g
+            ctx = cast_out(model.context_lstm(cast_in(ctx, model.amp), lens_g),
+                           model.amp)
+        if not meta["context_lstm_w_f0_and_energy"]:
             ctx = torch.cat([ctx] + extra, dim=-1)
-        lens_g = None if out_lens is None else out_lens // g
-        ctx = cast_out(model.context_lstm(cast_in(ctx, model.amp), lens_g),
-                       model.amp)
-    if not meta["context_lstm_w_f0_and_energy"]:
-        ctx = torch.cat([ctx] + extra, dim=-1)
-    return ctx
+        return ctx
 
 
 def is_attribute_unconditional(meta):
@@ -506,36 +509,37 @@ def infer_durations(model, speaker_id_text, text, token_dur_scaling=1.0,
     positions get duration 0). A flow duration model samples from z_dur
     (B, N, 1), drawn from `generator` times sigma_dur when None; the DAP
     takes no noise."""
-    spk_vec_text = encode_speaker(model, speaker_id_text)
-    txt_enc, _ = encode_text(model, text, in_lens)
-    B, N = text.shape
-    dur_model = model.dur_pred_layer
-    if z_dur is None:
-        z_dur = duration_noise(model, B, N, sigma_dur, generator,
-                               txt_enc.device)
-    dur = attribute_model_infer(dur_model, txt_enc, spk_vec_text, in_lens,
-                                z=z_dur)[..., 0]
-    g_dur = getattr(dur_model, "n_group_size", 1)
-    if dur.shape[1] < N:
-        # a grouped flow gives N // g tokens: replication pad (reference
-        # radtts.py:562-566)
-        dur = torch.cat([dur, dur[:, -1:].expand(-1, N - dur.shape[1])],
-                        dim=1)
-    if in_lens is not None and g_dur > 1:
-        # padded texts: tokens past (len // g) * g take that item's last
-        # computed group, as the exact-length run's replication pad does
-        last = ((in_lens // g_dur) * g_dur - 1).clamp(min=0)
-        idx = torch.minimum(torch.arange(N, device=dur.device)[None, :],
-                            last[:, None])
-        dur = torch.gather(dur, 1, idx)
-    dur = dur.clamp(0, token_duration_max)
-    if token_dur_scaling > 0:
-        dur = dur * token_dur_scaling
-    dur = torch.floor(dur + 0.5).to(torch.int32)
-    if in_lens is not None:
-        dur = dur * (torch.arange(N, device=dur.device)[None, :]
-                     < in_lens[:, None])
-    return dur
+    with tracing.span("durations", text.device):
+        spk_vec_text = encode_speaker(model, speaker_id_text)
+        txt_enc, _ = encode_text(model, text, in_lens)
+        B, N = text.shape
+        dur_model = model.dur_pred_layer
+        if z_dur is None:
+            z_dur = duration_noise(model, B, N, sigma_dur, generator,
+                                   txt_enc.device)
+        dur = attribute_model_infer(dur_model, txt_enc, spk_vec_text, in_lens,
+                                    z=z_dur)[..., 0]
+        g_dur = getattr(dur_model, "n_group_size", 1)
+        if dur.shape[1] < N:
+            # a grouped flow gives N // g tokens: replication pad (reference
+            # radtts.py:562-566)
+            dur = torch.cat([dur, dur[:, -1:].expand(-1, N - dur.shape[1])],
+                            dim=1)
+        if in_lens is not None and g_dur > 1:
+            # padded texts: tokens past (len // g) * g take that item's last
+            # computed group, as the exact-length run's replication pad does
+            last = ((in_lens // g_dur) * g_dur - 1).clamp(min=0)
+            idx = torch.minimum(torch.arange(N, device=dur.device)[None, :],
+                                last[:, None])
+            dur = torch.gather(dur, 1, idx)
+        dur = dur.clamp(0, token_duration_max)
+        if token_dur_scaling > 0:
+            dur = dur * token_dur_scaling
+        dur = torch.floor(dur + 0.5).to(torch.int32)
+        if in_lens is not None:
+            dur = dur * (torch.arange(N, device=dur.device)[None, :]
+                         < in_lens[:, None])
+        return dur
 
 
 def renormalize_f0(f0, voiced_mask, f0_mean, f0_std=0.0, out_lens=None):
@@ -604,94 +608,100 @@ def radtts_infer(model, speaker_id, text, sigma, max_frames, *, dur,
     package's signature and change nothing, as there. Returns a dict with
     mel (B, max_frames, n_mel); frames past sum(dur) are to be sliced
     off."""
-    meta = model.meta
-    g = meta["n_group_size"]
-    B = text.shape[0]
+    with tracing.span("decode", text.device):
+        meta = model.meta
+        g = meta["n_group_size"]
+        B = text.shape[0]
 
-    spk_vec = encode_speaker(model, speaker_id)
-    spk_vec_attrs = (spk_vec if speaker_id_attributes is None
-                     else encode_speaker(model, speaker_id_attributes))
-    txt_enc, _ = encode_text(model, text, in_lens)
-    z_f0, z_energy, residual = infer_noise(
-        model, B, max_frames, sigma=sigma, sigma_f0=sigma_f0,
-        sigma_energy=sigma_energy, generator=generator,
-        device=txt_enc.device, z_f0=z_f0, z_energy=z_energy,
-        residual=residual, f0=f0, energy_avg=energy_avg)
+        spk_vec = encode_speaker(model, speaker_id)
+        spk_vec_attrs = (spk_vec if speaker_id_attributes is None
+                         else encode_speaker(model, speaker_id_attributes))
+        txt_enc, _ = encode_text(model, text, in_lens)
+        z_f0, z_energy, residual = infer_noise(
+            model, B, max_frames, sigma=sigma, sigma_f0=sigma_f0,
+            sigma_energy=sigma_energy, generator=generator,
+            device=txt_enc.device, z_f0=z_f0, z_energy=z_energy,
+            residual=residual, f0=f0, energy_avg=energy_avg)
 
-    out_lens = dur.sum(1)
-    txt_enc_time_expanded = regulate_length(txt_enc, dur, max_frames)
+        out_lens = dur.sum(1)
+        txt_enc_time_expanded = regulate_length(txt_enc, dur, max_frames)
 
-    if not is_attribute_unconditional(meta):
-        if voiced_mask is None and meta["use_vpred_module"]:
-            v_logits = attribute_model_infer(
-                model.v_pred_module, txt_enc_time_expanded, spk_vec_attrs,
-                out_lens)
-            voiced_mask = (torch.sigmoid(v_logits[..., 0]) > 0.5).float()
+        if not is_attribute_unconditional(meta):
+            if voiced_mask is None and meta["use_vpred_module"]:
+                v_logits = attribute_model_infer(
+                    model.v_pred_module, txt_enc_time_expanded,
+                    spk_vec_attrs, out_lens)
+                voiced_mask = (torch.sigmoid(v_logits[..., 0])
+                               > 0.5).float()
 
-        ap_txt_enc = txt_enc_time_expanded
-        if meta["ap_use_voiced_embeddings"]:
-            ap_txt_enc = apply_voice_mask_to_text(
-                model, txt_enc_time_expanded, voiced_mask)
+            ap_txt_enc = txt_enc_time_expanded
+            if meta["ap_use_voiced_embeddings"]:
+                ap_txt_enc = apply_voice_mask_to_text(
+                    model, txt_enc_time_expanded, voiced_mask)
 
-        f0_bias = 0.0
-        if meta["use_unvoiced_bias"]:
-            f0_bias = _unvoiced_bias(model, txt_enc_time_expanded,
-                                     voiced_mask)
+            f0_bias = 0.0
+            if meta["use_unvoiced_bias"]:
+                f0_bias = _unvoiced_bias(model, txt_enc_time_expanded,
+                                         voiced_mask)
 
-        f0_mod, e_mod = model.f0_pred_module, model.energy_pred_module
-        if (f0 is None and energy_avg is None
-                and getattr(f0_mod, "name", None) == "agap"
-                and getattr(e_mod, "name", None) == "agap"
-                and len(f0_mod.flows) == len(e_mod.flows)):
-            # both AGAP: the two predictors in lock step, each flow pair's
-            # scans in one launch; the noise drawn in the same order
-            # (energy takes spk_vec, not spk_vec_attrs, as in the JAX
-            # package)
-            f0_raw, e_raw = agap_infer_multi(
-                [f0_mod, e_mod], [z_f0, z_energy], [ap_txt_enc, ap_txt_enc],
-                [spk_vec_attrs, spk_vec], out_lens)
-            f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
-            energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
-        if f0 is None:
-            f0_raw = attribute_model_infer(
-                f0_mod, ap_txt_enc, spk_vec_attrs, out_lens, z=z_f0)
-            f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
-        if f0_mean > 0.0:
-            f0 = renormalize_f0(f0, voiced_mask, f0_mean, f0_std,
-                                out_lens=out_lens)
-        if energy_avg is None:
-            # energy takes spk_vec, not spk_vec_attrs, as in the JAX package
-            e_raw = attribute_model_infer(
-                e_mod, ap_txt_enc, spk_vec, out_lens, z=z_energy)
-            energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
+            f0_mod, e_mod = model.f0_pred_module, model.energy_pred_module
+            if (f0 is None and energy_avg is None
+                    and getattr(f0_mod, "name", None) == "agap"
+                    and getattr(e_mod, "name", None) == "agap"
+                    and len(f0_mod.flows) == len(e_mod.flows)):
+                # both AGAP: the two predictors in lock step, each flow
+                # pair's scans in one launch; the noise drawn in the same
+                # order (energy takes spk_vec, not spk_vec_attrs, as in
+                # the JAX package)
+                f0_raw, e_raw = agap_infer_multi(
+                    [f0_mod, e_mod], [z_f0, z_energy],
+                    [ap_txt_enc, ap_txt_enc], [spk_vec_attrs, spk_vec],
+                    out_lens)
+                f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
+                energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
+            if f0 is None:
+                f0_raw = attribute_model_infer(
+                    f0_mod, ap_txt_enc, spk_vec_attrs, out_lens, z=z_f0)
+                f0 = _f0_postprocess(meta, f0_raw, voiced_mask)[..., 0]
+            if f0_mean > 0.0:
+                f0 = renormalize_f0(f0, voiced_mask, f0_mean, f0_std,
+                                    out_lens=out_lens)
+            if energy_avg is None:
+                # energy takes spk_vec, not spk_vec_attrs, as in the JAX
+                # package
+                e_raw = attribute_model_infer(
+                    e_mod, ap_txt_enc, spk_vec, out_lens, z=z_energy)
+                energy_avg = _energy_postprocess(meta, e_raw)[..., 0]
 
-        if meta["decoder_use_unvoiced_bias"]:
-            f0_ctx = f0 * voiced_mask + f0_bias
+            if meta["decoder_use_unvoiced_bias"]:
+                f0_ctx = f0 * voiced_mask + f0_bias
+            else:
+                f0_ctx = f0 * voiced_mask
+            ctx = preprocess_context(model, txt_enc_time_expanded, spk_vec,
+                                     out_lens, f0_ctx, energy_avg)
         else:
-            f0_ctx = f0 * voiced_mask
-        ctx = preprocess_context(model, txt_enc_time_expanded, spk_vec,
-                                 out_lens, f0_ctx, energy_avg)
-    else:
-        ctx = preprocess_context(model, txt_enc_time_expanded, spk_vec,
-                                 out_lens)
+            ctx = preprocess_context(model, txt_enc_time_expanded, spk_vec,
+                                     out_lens)
 
-    Tg = max_frames // g
-    exit_stack = list(meta["exit_steps"])
-    n_early = meta["n_early_size"]
-    mel_g = residual[..., len(exit_stack) * n_early:]
-    remaining = residual[..., : len(exit_stack) * n_early]
-    mask_g = sequence_mask(out_lens // g, Tg)
+        Tg = max_frames // g
+        exit_stack = list(meta["exit_steps"])
+        n_early = meta["n_early_size"]
+        mel_g = residual[..., len(exit_stack) * n_early:]
+        remaining = residual[..., : len(exit_stack) * n_early]
+        mask_g = sequence_mask(out_lens // g, Tg)
 
-    for i in reversed(range(len(model.flows))):
-        mel_g = _flow_step_inverse(model, model.flows[i], mel_g, ctx, mask_g)
-        if exit_stack and i == exit_stack[-1]:
-            exit_stack.pop()
-            chunk = remaining[..., len(exit_stack) * n_early:]
-            remaining = remaining[..., : len(exit_stack) * n_early]
-            mel_g = torch.cat([chunk, mel_g], dim=-1)
+        with tracing.span("flows", text.device, frames=Tg):
+            for i in reversed(range(len(model.flows))):
+                mel_g = _flow_step_inverse(model, model.flows[i], mel_g, ctx,
+                                           mask_g)
+                if exit_stack and i == exit_stack[-1]:
+                    exit_stack.pop()
+                    chunk = remaining[..., len(exit_stack) * n_early:]
+                    remaining = remaining[..., : len(exit_stack) * n_early]
+                    mel_g = torch.cat([chunk, mel_g], dim=-1)
 
-    mel = fold_group(mel_g, g)
-    if meta["do_mel_descaling"]:
-        mel = mel * 2 - 5.5
-    return {"mel": mel, "dur": dur, "f0": f0, "energy_avg": energy_avg,
-            "voiced_mask": voiced_mask, "out_lens": out_lens}
+        mel = fold_group(mel_g, g)
+        if meta["do_mel_descaling"]:
+            mel = mel * 2 - 5.5
+        return {"mel": mel, "dur": dur, "f0": f0, "energy_avg": energy_avg,
+                "voiced_mask": voiced_mask, "out_lens": out_lens}

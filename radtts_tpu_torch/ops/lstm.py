@@ -5,7 +5,10 @@
 Packed-sequence semantics are what the JAX package reproduces with masked
 scans: the forward direction stops at each sequence's length, the backward
 direction starts at its last valid frame, and outputs past the length are
-zero. Gate order i, f, g, o and the two bias vectors match torch.
+zero. Gate order i, f, g, o and the two bias vectors match torch. With
+lengths on the card, a run makes three blocking transfers, each a sync
+(tracing.py): the lengths' read, packing's copy of the sort order to the
+card and unpacking's read of it back.
 
 The recurrent weight is stored as its effective matrix. A spectral-normed
 weight is collapsed once at load from its stored power-iteration vectors,
@@ -28,6 +31,7 @@ from torch import nn
 from torch.nn.utils.rnn import (PackedSequence, pack_padded_sequence,
                                 pad_packed_sequence)
 
+from radtts_tpu_torch import tracing
 from radtts_tpu_torch.ops.masking import sequence_mask
 
 
@@ -104,6 +108,17 @@ def spectral_norm_update(model):
             m.power_iteration()
 
 
+def _pack(x, lengths):
+    """x (B, T, C) packed by `lengths` (B,), read to the host: packing
+    needs them there, each at least 1 (a length-0 item runs one frame, and
+    the caller zeroes it)."""
+    with tracing.readback("lengths", x.device):
+        lens = lengths.detach().to("cpu", torch.int64).clamp(min=1)
+    with tracing.upload("lengths", x.device):
+        return pack_padded_sequence(x, lens, batch_first=True,
+                                    enforce_sorted=False)
+
+
 class MaskedLSTM(nn.Module):
     """One- or two-directional single-layer LSTM over (B, T, C) with
     optional per-item lengths. Output (B, T, D*H), [fwd ; bwd]."""
@@ -141,40 +156,40 @@ class MaskedLSTM(nn.Module):
                     getattr(self.lstm, "bias_hh_l0" + sfx)]
         return out
 
-    def _run(self, x):
-        """self.lstm(x)[0] of a tensor or a PackedSequence. The weights,
-        biases and states follow x's dtype (bf16 in an AMP region)."""
+    def _run(self, x, T):
+        """self.lstm(x)[0] of a tensor or a PackedSequence padded to T
+        steps, in an `lstm` span. The weights, biases and states follow
+        x's dtype (bf16 in an AMP region)."""
         packed = isinstance(x, PackedSequence)
         data = x.data if packed else x
-        if not self.factored and data.dtype == self.lstm.weight_ih_l0.dtype:
-            return self.lstm(x)[0]
         n_dir = 2 if self.lstm.bidirectional else 1
-        n_batch = int(x.batch_sizes[0]) if packed else x.shape[0]
-        h0 = data.new_zeros(n_dir, n_batch, self.lstm.hidden_size)
-        weights = [w.to(data.dtype) for w in (
-            self.flat_weights() if self.factored
-            else self.lstm._flat_weights)]
-        if packed:
-            out = torch._VF.lstm(data, x.batch_sizes, (h0, h0), weights,
-                                 True, 1, 0.0, self.training,
-                                 self.lstm.bidirectional)[0]
-            return PackedSequence(out, x.batch_sizes, x.sorted_indices,
-                                  x.unsorted_indices)
-        return torch._VF.lstm(data, (h0, h0), weights, True, 1, 0.0,
-                              self.training, self.lstm.bidirectional,
-                              True)[0]
+        with tracing.span("lstm", data.device):
+            tracing.count("lstm_steps", T * n_dir)
+            if (not self.factored
+                    and data.dtype == self.lstm.weight_ih_l0.dtype):
+                return self.lstm(x)[0]
+            n_batch = int(x.batch_sizes[0]) if packed else x.shape[0]
+            h0 = data.new_zeros(n_dir, n_batch, self.lstm.hidden_size)
+            weights = [w.to(data.dtype) for w in (
+                self.flat_weights() if self.factored
+                else self.lstm._flat_weights)]
+            if packed:
+                out = torch._VF.lstm(data, x.batch_sizes, (h0, h0), weights,
+                                     True, 1, 0.0, self.training,
+                                     self.lstm.bidirectional)[0]
+                return PackedSequence(out, x.batch_sizes, x.sorted_indices,
+                                      x.unsorted_indices)
+            return torch._VF.lstm(data, (h0, h0), weights, True, 1, 0.0,
+                                  self.training, self.lstm.bidirectional,
+                                  True)[0]
 
     def forward(self, x, lengths=None):
-        if lengths is None:
-            return self._run(x)
         T = x.shape[1]
-        # pack_padded_sequence needs lengths >= 1 on the host; a length-0
-        # item runs one frame and is zeroed below
-        lens = lengths.detach().to("cpu", torch.int64).clamp(min=1)
-        packed = pack_padded_sequence(x, lens, batch_first=True,
-                                      enforce_sorted=False)
-        y, _ = pad_packed_sequence(self._run(packed), batch_first=True,
-                                   total_length=T)
+        if lengths is None:
+            return self._run(x, T)
+        y = self._run(_pack(x, lengths), T)
+        with tracing.readback("lengths", x.device):
+            y, _ = pad_packed_sequence(y, batch_first=True, total_length=T)
         return y * sequence_mask(lengths, T).to(y.dtype)[:, :, None]
 
     @torch.no_grad()
@@ -213,17 +228,24 @@ class LSTM(nn.Module):
         if carries is not None:
             hx = (torch.stack([h for h, _ in carries]),
                   torch.stack([c for _, c in carries]))
+        T = x.shape[1]
         if lengths is None:
-            y, (h, c) = self.lstm(x, hx)
+            y, (h, c) = self._run(x, hx, T)
         else:
-            T = x.shape[1]
-            lens = lengths.detach().to("cpu", torch.int64).clamp(min=1)
-            packed = pack_padded_sequence(x, lens, batch_first=True,
-                                          enforce_sorted=False)
-            y, (h, c) = self.lstm(packed, hx)
-            y, _ = pad_packed_sequence(y, batch_first=True, total_length=T)
+            y, (h, c) = self._run(_pack(x, lengths), hx, T)
+            with tracing.readback("lengths", x.device):
+                y, _ = pad_packed_sequence(y, batch_first=True,
+                                           total_length=T)
             y = y * sequence_mask(lengths, T).to(y.dtype)[:, :, None]
         return y, list(zip(h.unbind(0), c.unbind(0)))
+
+    def _run(self, x, hx, T):
+        """self.lstm(x, hx) of a tensor or a PackedSequence padded to T
+        steps, in an `lstm` span."""
+        data = x.data if isinstance(x, PackedSequence) else x
+        with tracing.span("lstm", data.device):
+            tracing.count("lstm_steps", T * self.lstm.num_layers)
+            return self.lstm(x, hx)
 
     def weights(self, layer):
         """(w_ih (4H, in), w_hh (4H, H), (b_ih, b_hh)) of one layer."""

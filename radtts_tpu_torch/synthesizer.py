@@ -30,6 +30,14 @@ the padded batch from the Synthesizer's one generator, in the order
 data_parallel=1 draws it, and each replica takes its slice, so an
 exact-multiple batch gives data_parallel=1's audio. Each replica's work is
 queued on its device before any result is gathered.
+
+Under a torch profiler (the benchmark's traced window, an operator's own
+torch.profiler.profile()) each call is traced by tracing.py: the trace
+holds its radtts.* spans (synthesize, frontend, noise, durations,
+text_encoder, attributes, decode, context, flows, lstm, vocoder, mrf,
+denoiser, readback, upload) and tracing.records() their host times, CUDA
+events and counts (syncs, lstm_steps). Without a profiler a span is one
+check.
 """
 
 import copy
@@ -38,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from radtts_tpu_torch import tracing
 from radtts_tpu_torch.data.dataset import data_factory
 from radtts_tpu_torch.models.hifigan import denoiser_apply
 from radtts_tpu_torch.models.radtts import (duration_noise, infer_durations,
@@ -236,8 +245,11 @@ class Synthesizer:
 
     def synthesize(self, texts, speaker, **kwargs):
         """Synthesize a batch of texts for one speaker at the
-        Synthesizer's matmul precision (see _synthesize)."""
-        with precision.scope(self.matmul_precision):
+        Synthesizer's matmul precision (see _synthesize). Under a torch
+        profiler the call is traced (tracing.py): its root span
+        `synthesize` holds the call's id and totals."""
+        with tracing.call("synthesize", self.device), \
+                precision.scope(self.matmul_precision):
             return self._synthesize(texts, speaker, **kwargs)
 
     def _shards(self, B):
@@ -265,34 +277,39 @@ class Synthesizer:
         module's docstring) the batch is split over the replicas."""
         if isinstance(texts, str):
             texts = [texts]
-        encs = [self.encode(t) for t in texts]
-        B_real = len(encs)
-        if B_real % self.data_parallel:
-            encs = encs + [encs[-1]] * (self.data_parallel
-                                        - B_real % self.data_parallel)
-        B = len(encs)
-        lens = np.array([len(e) for e in encs], np.int64)
-        if B == 1 and not self.bucket_single:
-            N, in_lens = int(lens[0]), None
-        else:
-            N = ((int(lens.max()) + 15) // 16) * 16
-            in_lens = torch.as_tensor(lens, device=self.device)
-        text_b = np.zeros((B, N), np.int64)
-        for j, e in enumerate(encs):
-            text_b[j, : len(e)] = e
-        text_b = torch.as_tensor(text_b, device=self.device)
+        with tracing.span("frontend", self.device):
+            encs = [self.encode(t) for t in texts]
+            B_real = len(encs)
+            if B_real % self.data_parallel:
+                encs = encs + [encs[-1]] * (self.data_parallel
+                                            - B_real % self.data_parallel)
+            B = len(encs)
+            lens = np.array([len(e) for e in encs], np.int64)
+            if B == 1 and not self.bucket_single:
+                N, in_lens = int(lens[0]), None
+            else:
+                N = ((int(lens.max()) + 15) // 16) * 16
+                with tracing.upload("tokens", self.device):
+                    in_lens = torch.as_tensor(lens, device=self.device)
+            text_b = np.zeros((B, N), np.int64)
+            for j, e in enumerate(encs):
+                text_b[j, : len(e)] = e
+            with tracing.upload("tokens", self.device):
+                text_b = torch.as_tensor(text_b, device=self.device)
 
-        sid = self.speaker_id(speaker)
-        spk = self._ids(None, sid, B)
-        spk_text = self._ids(speaker_text, sid, B)
-        spk_attr = self._ids(speaker_attributes, sid, B)
+            sid = self.speaker_id(speaker)
+            spk = self._ids(None, sid, B)
+            spk_text = self._ids(speaker_text, sid, B)
+            spk_attr = self._ids(speaker_attributes, sid, B)
+        tracing.annotate(B=B, N=N)
         shards = self._shards(B)
 
         def part(t, rows, dev):
             return None if t is None else t[rows].to(dev, non_blocking=True)
 
-        z_dur = duration_noise(self.model, B, N, sigma_tkndur, self.generator,
-                               self.device)
+        with tracing.span("noise", self.device):
+            z_dur = duration_noise(self.model, B, N, sigma_tkndur,
+                                   self.generator, self.device)
         durs = []
         for (dev, model, _, _), rows in shards:
             with amp.scope(model, self.use_amp):
@@ -304,19 +321,26 @@ class Synthesizer:
                     in_lens=part(in_lens, rows, dev),
                     z_dur=part(z_dur, rows, dev)))
         dur = torch.cat([d.to(self.device) for d in durs])
-        totals = dur.sum(1).cpu().numpy()
+        with tracing.readback("totals", self.device):
+            totals = dur.sum(1).cpu().numpy()
         if (totals < 1).any():  # untrained/degenerate duration guard
             valid = np.arange(N)[None, :] < lens[:, None]
             bump = (totals < 1)[:, None] & valid
-            dur = dur + torch.as_tensor(bump.astype(np.int32),
-                                        device=self.device)
-            totals = dur.sum(1).cpu().numpy()
+            with tracing.upload("totals", self.device):
+                bump = torch.as_tensor(bump.astype(np.int32),
+                                       device=self.device)
+            dur = dur + bump
+            with tracing.readback("totals", self.device):
+                totals = dur.sum(1).cpu().numpy()
         max_frames = frame_budget(totals.max(), self.group_size)
-        z_f0, z_energy, residual = infer_noise(
-            self.model, B, max_frames, sigma=sigma, sigma_f0=sigma_f0,
-            sigma_energy=sigma_energy, generator=self.generator,
-            device=self.device)
-        total = torch.as_tensor(totals, device=self.device)
+        tracing.annotate(max_frames=max_frames)
+        with tracing.span("noise", self.device):
+            z_f0, z_energy, residual = infer_noise(
+                self.model, B, max_frames, sigma=sigma, sigma_f0=sigma_f0,
+                sigma_energy=sigma_energy, generator=self.generator,
+                device=self.device)
+        with tracing.upload("totals", self.device):
+            total = torch.as_tensor(totals, device=self.device)
         t = torch.arange(max_frames, device=self.device)
         idx = torch.minimum(t[None, :], total[:, None] - 1)
         outs, audios = [], []
@@ -338,14 +362,18 @@ class Synthesizer:
             audios.append(denoiser_apply(denoiser, vocoder(mel),
                                          strength=denoising_strength))
             outs.append(out)
-        audio = np.concatenate([a.cpu().numpy() for a in audios])
-        wavs = [audio[j, : int(totals[j]) * self.hop_length] if trim
-                else audio[j] for j in range(B_real)]
-        aux = {"dur": dur.cpu().numpy()[:B_real], "n_frames": totals[:B_real]}
-        for k in ("f0", "energy_avg"):  # absent on attribute-less configs
-            if outs[0][k] is not None:
+        # f0 and energy are absent on attribute-less configs
+        feats = [k for k in ("f0", "energy_avg") if outs[0][k] is not None]
+        with tracing.readback("outputs", self.device,
+                              len(audios) + 1 + len(feats) * len(outs)):
+            audio = np.concatenate([a.cpu().numpy() for a in audios])
+            aux = {"dur": dur.cpu().numpy()[:B_real],
+                   "n_frames": totals[:B_real]}
+            for k in feats:
                 aux[k] = np.concatenate([o[k].cpu().numpy()
                                          for o in outs])[:B_real]
+        wavs = [audio[j, : int(totals[j]) * self.hop_length] if trim
+                else audio[j] for j in range(B_real)]
         return wavs, aux
 
     def synthesize_long(self, text, speaker, *, max_tokens, gap_ms=120.0,

@@ -399,7 +399,11 @@ def train(config, output_directory, epochs, optim_algo, learning_rate,
     activity) covers iterations profile_start_iter to profile_start_iter +
     profile_n_iters, as the JAX package's jax.profiler window does
     (radtts_tpu/train/trainer.py:504-512), and is written there as
-    trace_<start>_<stop>.json (Chrome trace format).
+    trace_<start>_<stop>.json (Chrome trace format). The trace holds the
+    port's own spans (tracing.py) as radtts.* ranges: in each step's
+    forward the LSTMs' `lstm` runs and their lengths' `readback` and
+    `upload` transfers (each a sync); a validation audio sample in the
+    window adds radtts_infer's `decode` tree.
 
     With a mesh (parallel/mesh.py; train/cli.py makes it from the launch
     environment), every rank builds the whole model from the seed, warm
