@@ -9,8 +9,8 @@ Phases, each printing a JSON or text line:
   2. build: nvcc of radtts_tpu_torch/csrc/mrf_tc.cu (twice: 3xTF32 and
      the one-pass -DMRF_TC_PASSES=1), csrc/mrf_tf32.cu, csrc/mrf_stack.cu,
      csrc/mrf.cu (run by name only: the "before" of the padded widths),
-     csrc/mel.cu, csrc/mas.cu and csrc/ar_scan.cu for sm_90a,
-     all eight at once, with seconds
+     csrc/mel.cu, csrc/mas.cu, csrc/ar_scan.cu and csrc/lstm.cu for
+     sm_90a, all nine at once, with seconds
      and ptxas register/spill lines; then each kernel's shared memory per
      block;
   3. MRF kernels vs plain: ops/mrf.py:mrf against mrf_plain on the card,
@@ -103,6 +103,13 @@ Phases, each printing a JSON or text line:
      1e-3 * max, at most 4 outputs past 1e-4 * max, the mean distance
      at most 0.1 of that from the unrounded scan), and both kernels with
      the rounding flag cleared, which that check must reject;
+  5bb. the LSTM kernel vs plain: csrc/lstm.cu (ops/lstm.py:lstm_cuda, the
+     route MaskedLSTM takes, asserted) at LSTM_SHAPES, the benchmark
+     cells' masked BiLSTMs at batch 16 with ragged lengths, against
+     lstm_plain within 1e-4 * max|plain| and zero past each length,
+     beside the cuDNN packed path on the same inputs (before), with the
+     plain version's time, the FLOP bound and the chain floor (the
+     handoff probe x T);
   5c. BGAP and AGAP serving: config_ljs_bgap.json and
      config_ljs_agap.json at their published widths with HiFi-GAN v1,
      random weights (seed 0; WN end convs at sd 0.002, the flows'
@@ -242,9 +249,9 @@ Phases, each printing a JSON or text line:
      1e-2 * max of the CPU's (both runs' distances from a float64 run on
      the CPU logged); median ms of 10 synchronized runs, a profiled run;
      no hand-kernel launch;
- 12. the {"kernels": [...]} line with the ten kernels (mrf_tc, mrf_tf32,
-     mrf_tc_one_pass, mrf_stack, mrf_conv, mel, mas and mas_block, ar_scan
-     and ar_scan_barrier) and their launches by path (serve, serve_files,
+ 12. the {"kernels": [...]} line with the eleven kernels (mrf_tc,
+     mrf_tf32, mrf_tc_one_pass, mrf_stack, mrf_conv, mel, mas and
+     mas_block, ar_scan, lstm and ar_scan_barrier) and their launches by path (serve, serve_files,
      serve_v2, train, train_radtts, serve_bgap, serve_agap, train_gap,
      serve_gap_files, vc, serve_amp, train_amp, resblock2, serve_fft,
      train_fft, serve_fft_files, serve_plain_w, train_plain_w,
@@ -709,9 +716,12 @@ def phase_main_path(synth, mrf_mod, dev, power):
     from radtts_tpu_torch.models.hifigan import denoiser_apply
     from radtts_tpu_torch.models.radtts import infer_durations, radtts_infer
 
+    from radtts_tpu_torch.ops.lstm import lstm_cuda
+
     hop = synth.hop_length
     n_generator_calls = 0
     _reset_mrf(mrf_mod)
+    lstm_cuda.launches = 0
     requests = [(TEXTS[0], {}), (TEXTS, {}),
                 (TEXTS[1], {"denoising_strength": 0.1, "sigma": 0.6})]
     for texts, kw in requests:
@@ -744,14 +754,15 @@ def phase_main_path(synth, mrf_mod, dev, power):
         times = {k: [t[k] for _, t in runs] for k in runs[0][1]}
         profile = profile_run(utterance)
         n_generator_calls += len(runs) + 1
-    launches = _mrf_counts(mrf_mod)
+    launches = dict(_mrf_counts(mrf_mod), lstm=lstm_cuda.launches)
     if audio.shape != (1, MAX_FRAMES * hop) or not torch.isfinite(
             audio).all():
         raise AssertionError(f"bad flagship audio {tuple(audio.shape)}")
     if launches != {"mrf_conv": 0, "mrf_tc": 72 * n_generator_calls,
                     "mrf_tc_one_pass": 0, "mrf_tf32": 0,
-                    "mrf_stack": 0}:
-        raise AssertionError(f"MRF launches {launches} != 72 tc x "
+                    "mrf_stack": 0,
+                    "lstm": DAP_CALL_LSTMS * n_generator_calls}:
+        raise AssertionError(f"launches {launches} != 72 tc x "
                              f"{n_generator_calls} generator calls")
     med = {k: statistics.median(v) for k, v in times.items()}
     audio_s = MAX_FRAMES * hop / synth.sampling_rate
@@ -813,6 +824,7 @@ def phase_serve_files(synth, mrf_mod, dev, power):
     from radtts_tpu_torch.inference import main as inference_main
     from radtts_tpu_torch.models.hifigan import generator_to_reference
     from radtts_tpu_torch.models.radtts import radtts_infer
+    from radtts_tpu_torch.ops.lstm import lstm_cuda
     from radtts_tpu_torch.serve import build_server
     from radtts_tpu_torch.text.chunking import split_text_to_chunks
 
@@ -840,6 +852,7 @@ def phase_serve_files(synth, mrf_mod, dev, power):
                  "-k", paths["vocoder_config"], "-s", "ljs", "--seed", "0"]
 
         _reset_mrf(mrf_mod)
+        lstm_cuda.launches = 0
         tic = time.perf_counter()
         written = inference_main(files + [
             "-t", paths["text"], "-o", paths["out"], "--batch_size",
@@ -914,11 +927,13 @@ def phase_serve_files(synth, mrf_mod, dev, power):
             if not 1 <= dispatches < len(TEXTS):
                 raise AssertionError(f"{len(TEXTS)} concurrent singles took "
                                      f"{dispatches} dispatches")
-            launches = _mrf_counts(mrf_mod)
+            launches = dict(_mrf_counts(mrf_mod), lstm=lstm_cuda.launches)
+            # the two denoiser bias calls run no model
             if launches != {"mrf_conv": 0, "mrf_tc": 72 * generator_calls,
                             "mrf_tc_one_pass": 0, "mrf_tf32": 0,
-                            "mrf_stack": 0}:
-                raise AssertionError(f"MRF launches {launches} != 72 tc x "
+                            "mrf_stack": 0,
+                            "lstm": DAP_CALL_LSTMS * (generator_calls - 2)}:
+                raise AssertionError(f"launches {launches} != 72 tc x "
                                      f"{generator_calls} generator calls")
         finally:
             server.shutdown()
@@ -1384,20 +1399,24 @@ def _reset_mrf(mrf_mod):
 
 def _counts(mas_mod, mel_mod, mrf_mod):
     from radtts_tpu_torch.ops.ar_scan import ar_scan
+    from radtts_tpu_torch.ops.lstm import lstm_cuda
     return {"mas": mas_mod.mas.launches, "mel": mel_mod.mel.launches,
             **_mrf_counts(mrf_mod), "ar_scan": ar_scan.launches,
             "mas_block": mas_mod.mas.block_launches,
-            "ar_scan_barrier": ar_scan.barrier_launches}
+            "ar_scan_barrier": ar_scan.barrier_launches,
+            "lstm": lstm_cuda.launches}
 
 
 def _reset_counts(mas_mod, mel_mod, mrf_mod):
     from radtts_tpu_torch.ops.ar_scan import ar_scan
+    from radtts_tpu_torch.ops.lstm import lstm_cuda
     mas_mod.mas.launches = 0
     mas_mod.mas.block_launches = 0
     mel_mod.mel.launches = 0
     _reset_mrf(mrf_mod)
     ar_scan.launches = 0
     ar_scan.barrier_launches = 0
+    lstm_cuda.launches = 0
 
 
 def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
@@ -1530,7 +1549,9 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
         if not all(np.isfinite(vals)):
             raise AssertionError(f"non-finite step {h}")
     # binarized steps: decoder iterations 1-3, the resumed 4, both DAP steps;
-    # validations: decoder at 0 and 3, DAP at 0, one batch each
+    # validations: decoder at 0 and 3, DAP at 0, one batch each. The LSTM
+    # kernel takes the runs that want no gradient (the validations', the
+    # frozen modules' of the DAP run); the others run cuDNN
     want_mas = 3 + 1 + 2 + 3
     curr = [(h["binarize"], h["use_kl"]) for h in runs["decoder"]]
     if (curr != [(False, False), (True, False), (True, True), (True, True)]
@@ -1539,12 +1560,14 @@ def phase_train_radtts(mas_mod, mel_mod, mrf_mod, dev, power, then=None):
             or launches != {"mas": want_mas, "mel": 0, "mrf_tc": 0,
                             "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                             "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0,
-                            "mas_block": 0, "ar_scan_barrier": 0}
+                            "mas_block": 0, "ar_scan_barrier": 0,
+                            "lstm": 13}
             or serve_launches != {"mas": 0, "mel": 0, "mrf_tc": 2 * 72,
                                   "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                                   "mrf_stack": 0, "mrf_conv": 0,
                                   "ar_scan": 0,
-                                  "mas_block": 0, "ar_scan_barrier": 0}
+                                  "mas_block": 0, "ar_scan_barrier": 0,
+                                  "lstm": DAP_CALL_LSTMS}
             or frozen_equal < 100):
         raise AssertionError(f"curriculum {curr}, launches {launches}, "
                              f"serving {serve_launches}, {frozen_equal} "
@@ -2222,6 +2245,104 @@ def phase_handoff_probe(ar_mod, dev, power, blocks, smem, n_phases, T):
     return out
 
 
+# the masked BiLSTMs of the benchmark cells at batch 16, (B, T, H, input):
+# a frame-level DAP's (~870 frames), the text encoder's (160 tokens), the
+# context's (435 frame pairs)
+LSTM_SHAPES = [(16, 870, 128, 256), (16, 160, 256, 512),
+               (16, 435, 520, 1044)]
+
+
+def lstm_inputs(shape, dev, seed):
+    """(MaskedLSTM, x, lengths) of one bidirectional layer at a cell's
+    width: a converged spectral norm (else the recurrence is chaotic),
+    seeded inputs, ragged lengths with T, 1 and T / 2 among them."""
+    from radtts_tpu_torch.ops.lstm import MaskedLSTM
+
+    B, T, H, C = shape
+    torch.manual_seed(seed)
+    mod = MaskedLSTM(C, H, norm="spectral").to(dev).eval()
+    mod.requires_grad_(False)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T, C, generator=gen)
+    lens = torch.randint(1, T + 1, (B,), generator=gen)
+    lens[:3] = torch.tensor([T, 1, T // 2])
+    return mod, x.to(dev), lens.to(dev)
+
+
+def lstm_kernel_ms(fn, calls=5):
+    """The device ms of csrc/lstm.cu's kernel a call of fn, under a
+    CUDA-only profiler over `calls` calls (as the split AR route's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+               if "lstm_resident_kernel" in e.key) / calls / 1e3
+
+
+def phase_lstm_kernel(lstm_mod, ar_mod, dev, power):
+    """csrc/lstm.cu's persistent kernel, the route MaskedLSTM takes at every
+    LSTM_SHAPES entry (asserted: one launch a run), against lstm_plain on
+    the card within 1e-4 * max|plain| (fp32 sums in another order over a
+    recurrence, as ar_scan's limit), exact zeros past each length; the
+    layer's time (the input projection and the launch; the kernel's own
+    device time from a profile) beside the cuDNN packed path on the same
+    inputs ("before", held against plain too; three syncs a run), the
+    plain version's, the bound (2 sum(len_b) 4H H D FLOP at 67 TFLOP/s:
+    the steps the lengths ask for, no padded step) and the chain floor
+    (the handoff probe on the kernel's grid, one handoff a step, x T)."""
+    rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in LSTM_SHAPES:
+        B, T, H, C = shape
+        mod, x, lens = lstm_inputs(shape, dev, seed=T)
+        weights = mod.weights()
+        plan = lstm_mod.lstm_plan(H, B, 2, sms)
+        with torch.no_grad():
+            if mod.route(x) != "kernel":
+                raise AssertionError(f"lstm {shape}: route {mod.route(x)}")
+            n0 = lstm_mod.lstm_cuda.launches
+            got = mod(x, lens)
+            torch.cuda.synchronize()
+            if lstm_mod.lstm_cuda.launches != n0 + 1:
+                raise AssertionError(f"lstm {shape}: not one launch")
+            want = lstm_mod.lstm_plain(x, lens, weights, True)
+            before = mod.packed(x, lens)
+            past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+            scale = want.abs().max().item()
+            row = {"shape": list(shape), "blocks": plan["blocks"],
+                   "units_a_block": plan["units"],
+                   "smem_bytes": plan["smem"],
+                   "max_abs_plain": scale,
+                   "max_abs_err": (got - want).abs().max().item(),
+                   "before_max_abs_err": (before - want).abs().max().item(),
+                   "zeros_past_lengths": bool((got[past] == 0).all())}
+            row["ms"] = cuda_ms(lambda: mod(x, lens))
+            row["before_ms"] = cuda_ms(lambda: mod.packed(x, lens))
+            row["plain_ms"] = cuda_ms(
+                lambda: lstm_mod.lstm_plain(x, lens, weights, True),
+                reps=3, warmup=1)
+            row["kernel_ms"] = lstm_kernel_ms(lambda: mod(x, lens))
+        flop = 2.0 * lens.sum().item() * 4 * H * H * 2
+        row["bound_ms"] = flop / FP32_FLOPS * 1e3
+        ar_mod.handoff_probe(1, T, "handoff", plan["blocks"], plan["smem"],
+                             dev)
+        row["chain_floor_ms"] = cuda_ms(lambda: ar_mod.handoff_probe(
+            1, T, "handoff", plan["blocks"], plan["smem"], dev))
+        row["us_per_step"] = 1e3 * row["kernel_ms"] / T
+        log({"phase": "lstm_kernel_vs_plain", "card": power, **row})
+        if not (row["max_abs_err"] <= 1e-4 * scale
+                and row["before_max_abs_err"] <= 1e-4 * scale
+                and row["zeros_past_lengths"] and scale > 0.05):
+            raise AssertionError(f"lstm kernel at {shape}: {row}")
+        rows.append(row)
+    return rows
+
+
 def gap_parts(kind, dev):
     """config_ljs_<kind>.json's model at its published widths, random from
     seed 0, folded, with the WN end convs drawn at sd 0.002 (as the
@@ -2356,6 +2477,7 @@ def phase_serve_gap(kind, vocoder, denoiser, tp, mods, dev, power):
          "request_samples": int(wavs[0].size),
          "voiced_frames": int(out["voiced_mask"].sum())})
     if (launches["ar_scan"] != want_ar or launches["mrf_tc"] != 72
+            or launches["lstm"] != GAP_CALL_LSTMS
             or launches["mas"] or launches["mel"] or launches["mrf_stack"]
             or launches["mrf_conv"] or launches["mas_block"]
             or launches["ar_scan_barrier"] or launches["mrf_tc_one_pass"]
@@ -2436,9 +2558,12 @@ def phase_train_gap(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
                             "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                             "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0,
-                            "mas_block": 0, "ar_scan_barrier": 0}
+                            "mas_block": 0, "ar_scan_barrier": 0,
+                            "lstm": 14}
             or serve["agap"]["launches"]["ar_scan"] != 2
             or serve["bgap"]["launches"]["ar_scan"] != 0
+            or any(v["launches"]["lstm"] != GAP_CALL_LSTMS
+                   for v in serve.values())
             or any(v["launches"]["ar_scan_barrier"]
                    or v["launches"]["mas_block"]
                    or v["launches"]["mrf_tc_one_pass"]
@@ -2754,6 +2879,10 @@ HIFIGAN_V3 = {
 HIFIGAN_RB1_DILATIONS = dict(HIFIGAN_V2,
                              resblock_dilation_sizes=[[1, 2, 4]] * 3)
 VC_SAMPLES = 2             # -n of the voice-conversion CLI runs
+# masked LSTM runs a synthesis call, each on the LSTM kernel: the text
+# encoder twice (durations, decode), the context and the duration DAP, and
+# for config_ljs_dap.json the f0 and energy DAPs
+DAP_CALL_LSTMS, GAP_CALL_LSTMS = 6, 4
 AMP_VARIANTS = {"fp32": {}, "amp": {"use_amp": True},
                 "bf16_weights": {"weight_dtype": "bfloat16"},
                 "amp_bf16_weights": {"use_amp": True,
@@ -2901,7 +3030,8 @@ def phase_vc(mods, dev, power, root, dap_ckpt, dap_config):
                 "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                 "mrf_stack": 0,
                 "mrf_conv": 0, "ar_scan": 0,
-                "mas_block": 0, "ar_scan_barrier": 0}
+                "mas_block": 0, "ar_scan_barrier": 0,
+                "lstm": {"injected": 14, "predicted": 18}[mode]}
         if len(written) != VC_SAMPLES or launches != want:
             raise AssertionError(f"vc {mode}: {len(written)} wavs, "
                                  f"launches {launches} != {want}")
@@ -3153,7 +3283,13 @@ def phase_amp_serve(config, model, vocoder, denoiser, tp, mods, dev, power):
     if launches != {"mas": 0, "mel": 0, "mrf_tc": 72 * n_calls,
                     "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                     "mrf_stack": 0, "mrf_conv": 0, "ar_scan": 0,
-                    "mas_block": 0, "ar_scan_barrier": 0}:
+                    "mas_block": 0, "ar_scan_barrier": 0,
+                    # fp32 and bf16 weights: every run (a request, the
+                    # decode, 3 utterances); under AMP the text encoder
+                    # alone (outside every bf16 region), there and in the
+                    # profiled decode and the two region probes
+                    "lstm": (2 * (DAP_CALL_LSTMS + 4 + 3 * DAP_CALL_LSTMS)
+                             + 2 * (2 + 1 + 3 * 2) + 1 + 2)}:
         raise AssertionError(f"amp serve launches {launches}, "
                              f"{n_calls} generator calls")
     for name, row in rows.items():
@@ -3232,7 +3368,8 @@ def phase_amp_train(mods, dev, power, root, files, dec_ckpt):
                             "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                             "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0,
-                            "mas_block": 0, "ar_scan_barrier": 0}):
+                            "mas_block": 0, "ar_scan_barrier": 0,
+                            "lstm": 14}):
         raise AssertionError(f"amp train: {rows}, launches {launches}")
     return launches
 
@@ -3420,7 +3557,9 @@ def phase_serve_dap_variant(kind, vocoder, denoiser, tp, mods, dev, power,
                     "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                     "mrf_stack": 0,
                     "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
-                    "ar_scan_barrier": 0}:
+                    "ar_scan_barrier": 0,
+                    # the FFTransformer's DAPs run no LSTM
+                    "lstm": {"fft": 3, "plain_w": DAP_CALL_LSTMS}[kind]}:
         raise AssertionError(f"serve_{kind} launches {launches}")
     if not (errs["mel"] <= 1e-3 and errs["wav"] <= 1e-3 * errs["wav_max_abs"]
             and torch.isfinite(out["mel"]).all()):
@@ -3516,7 +3655,7 @@ def phase_serve_agap_bf16(vocoder, denoiser, tp, mods, dev, power):
                     "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                     "mrf_stack": 0,
                     "mrf_conv": 0, "ar_scan": 2, "mas_block": 0,
-                    "ar_scan_barrier": 0}:
+                    "ar_scan_barrier": 0, "lstm": GAP_CALL_LSTMS}:
         raise AssertionError(f"serve_agap_bf16 launches {launches}")
     if not (card > 0 and card <= max(3 * cpu, 1e-3)):
         raise AssertionError(f"serve_agap_bf16: the card's mel distance "
@@ -3584,8 +3723,10 @@ def phase_train_fft(mods, dev, power, root, files, dec_ckpt, voc, voc_cfg,
                             "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                             "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
-                            "ar_scan_barrier": 0}
+                            "ar_scan_barrier": 0,
+                            "lstm": 4}
             or serve["launches"]["mrf_tc"] != 2 * 72
+            or serve["launches"]["lstm"] != 3
             or serve["launches"]["mas"]
             or serve["launches"]["mrf_tc_one_pass"]
             or serve["launches"]["mrf_tf32"]):
@@ -3632,7 +3773,8 @@ def phase_train_plain_w(mods, dev, power, root, files):
                             "mrf_tc_one_pass": 0, "mrf_tf32": 0,
                             "mrf_stack": 0,
                             "mrf_conv": 0, "ar_scan": 0, "mas_block": 0,
-                            "ar_scan_barrier": 0}):
+                            "ar_scan_barrier": 0,
+                            "lstm": 5}):
         raise AssertionError(f"train_plain_w: {len(history)} steps, "
                              f"{len(w_keys)} plain Ws, launches {launches}")
     return launches
@@ -3736,10 +3878,14 @@ def phase_train_audio_samples(mods, dev, power, root, files, dec_ckpt, voc,
     zero = {"mas": 0, "mel": 0, "mrf_tc": 0,
             "mrf_tc_one_pass": 0, "mrf_tf32": 0,
             "mrf_stack": 0, "mrf_conv": 0,
-            "ar_scan": 0, "mas_block": 0, "ar_scan_barrier": 0}
-    if (cli_launches != dict(zero, mas=2, mrf_tc=6 * 72 if has_tbx else 0)
-            or launches["with_samples"] != dict(zero, mas=1, mrf_tc=6 * 72)
-            or launches["without_samples"] != dict(zero, mas=1)):
+            "ar_scan": 0, "mas_block": 0, "ar_scan_barrier": 0, "lstm": 0}
+    # the LSTM kernel: the runs that want no gradient, 18 more with the
+    # samples (as the validation's with and without them)
+    if (cli_launches != dict(zero, mas=2, mrf_tc=6 * 72 if has_tbx else 0,
+                             lstm=6 + (18 if has_tbx else 0))
+            or launches["with_samples"] != dict(zero, mas=1, mrf_tc=6 * 72,
+                                                lstm=5 + 18)
+            or launches["without_samples"] != dict(zero, mas=1, lstm=5)):
         raise AssertionError(f"train_audio_samples launches: CLI "
                              f"{cli_launches}, validation {launches}")
     if [t for t, _, _, _ in recorded] != AUDIO_TAGS or any(
@@ -4621,6 +4767,7 @@ def main():
         return step_rank(sys.argv[2])
     sys.path.insert(0, REPO)
     from radtts_tpu_torch.ops import ar_scan as ar_mod
+    from radtts_tpu_torch.ops import lstm as lstm_mod
     from radtts_tpu_torch.ops import mas as mas_mod
     from radtts_tpu_torch.ops import mel as mel_mod
     from radtts_tpu_torch.ops import mrf as mrf_mod
@@ -4647,7 +4794,8 @@ def main():
             ("mrf_tf32", mrf_mod.build_tf32),
             ("mrf_stack", mrf_mod.build_stack),
             ("mrf_conv", mrf_mod.build), ("mel", mel_mod.build),
-            ("mas", mas_mod.build), ("ar_scan", ar_mod.build))}
+            ("mas", mas_mod.build), ("ar_scan", ar_mod.build),
+            ("lstm", lstm_mod.build))}
         for name, fut in builds.items():
             _, nvcc_log, build_s = fut.result()
             log({"phase": "build", "kernel": name, "seconds": build_s,
@@ -4725,6 +4873,7 @@ def main():
         ar_mod, dev, power, ar_rows[0]["blocks"], ar_rows[0]["smem_bytes"],
         ar_rows[0]["handoffs_per_frame"], MAX_FRAMES)
     ar_trace = phase_ar_scan_trace(ar_mod, dev, power)
+    lstm_rows = phase_lstm_kernel(lstm_mod, ar_mod, dev, power)
     gap_launches = {kind: phase_serve_gap(kind, vocoder, denoiser, tp, mods,
                                           dev, power)
                     for kind in GAP_CONFIGS}
@@ -4774,7 +4923,8 @@ def main():
     phase_simple_conv_cudnn(dev, power)
     phase_griffin_lim(mods, dev, power)
     # launches by path of every kernel: the earlier paths counted the MRF
-    # kernels (and mel, mas) only; the others never launch there
+    # kernels (and mel, mas; serve and serve_files lstm too) only; the
+    # others never launch there
     paths = {"serve": serve_launches, "serve_files": files_launches,
              "serve_v2": v2_launches, "train": train_launches,
              "train_radtts": radtts_launches,
@@ -4804,6 +4954,7 @@ def main():
 
     def by_path(kernel):
         return {p: c.get(kernel, 0) for p, c in paths.items()}
+    lstm_paths = {p: c["lstm"] for p, c in paths.items() if "lstm" in c}
 
     def mrf_entry(kernel, source, replaces, also_replaces, shapes=None,
                   ms_key="ms"):
@@ -5058,6 +5209,36 @@ def main():
             "bound_ms", "bound_by",
             "chain_floor_ms", "handoff_probe_ms", "l2_read_bytes_per_s",
             "max_abs_err")} for r in ar_split],
+    }, {
+        "name": "lstm",
+        "route": "cuda",
+        "source": "radtts_tpu_torch/csrc/lstm.cu (lstm_resident_kernel)",
+        "replaces": "radtts_tpu/ops/lstm.py:bilstm_apply (XLA scan, not "
+                    "Pallas); before: cuDNN on packed sequences",
+        "launches": sum(lstm_paths.values()),
+        "launches_by_path": lstm_paths,
+        "max_abs_err": max(r["max_abs_err"] for r in lstm_rows),
+        "ms": lstm_rows[0]["ms"],
+        "kernel_ms": lstm_rows[0]["kernel_ms"],
+        "before_ms": lstm_rows[0]["before_ms"],
+        "plain_ms": lstm_rows[0]["plain_ms"],
+        "bound_ms": lstm_rows[0]["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": lstm_rows[0]["before_ms"],
+        "chain_floor_ms": lstm_rows[0]["chain_floor_ms"],
+        "note": "one launch a masked LSTM run (both directions), weights "
+                "resident in shared memory, one handoff a step; times at "
+                "(16, 870, 128), a frame-level DAP's BiLSTM of the "
+                "benchmark's DAP cell; ms: the layer's call (the input "
+                "projection and the launch), kernel_ms the kernel's device "
+                "time; before_ms (= library_ms): MaskedLSTM's cuDNN path "
+                "on packed sequences, same inputs; launches_by_path: the "
+                "paths that count lstm_cuda.launches (the precision sweep's "
+                "and serve_dp2 count the MRF kernels only); bound_ms: "
+                "2 sum(len_b) 4H H D FLOP at 67 TFLOP/s; chain_floor_ms: "
+                "the handoff probe, T handoffs on the same grid",
+        "shapes_checked": len(lstm_rows),
+        "shapes": lstm_rows,
     }, {
         "name": "ar_scan_barrier",
         "route": "cuda",

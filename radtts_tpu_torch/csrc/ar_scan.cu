@@ -92,6 +92,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "handoff.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -699,46 +701,6 @@ __device__ float linear_inverse_warp(const float* qt, int nb, float y,
   float x = (y - left_edge) / q_e + edge * w;
   x = fminf(fmaxf(x, eps), 1.0f - eps);
   return (y < 0.0f || y > 1.0f) ? y : x;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// The handoff of one phase. Every thread has written its outputs; the
-// block's thread 0 makes one release-add on the phase's counter (if the
-// block owns rows of it), then spins on an acquire-load until the count
-// reaches target = frames so far x the phase's producers. The counter only
-// grows: no reset, no generation word. Data written inside the launch is
-// then read with ld.global.cg.
-__device__ __forceinline__ void handoff(unsigned int* ctr, bool producer,
-                                        unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    if (producer)
-      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(ctr)
-                   : "memory");
-    unsigned int v;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(v)
-                   : "l"(ctr)
-                   : "memory");
-    } while (v < target);
-  }
-  __syncthreads();
 }
 
 // acc[r][i] = W[r] . x_i for NR rows of W (stride ldw) and the items

@@ -2,14 +2,16 @@
 library with a plain C interface, and load it with ctypes.
 
 Libraries go to build/radtts_tpu_torch/ at the repository root, named by a
-hash of the source and the flags, so a changed source builds anew and an
-unchanged one is loaded as it is. Nothing is built at import: each kernel's
+hash of the source, the csrc/ headers it includes (`#include "x.cuh"`) and
+the flags, so a changed source or header builds anew and an unchanged one
+is loaded as it is. Nothing is built at import: each kernel's
 wrapper builds at its first CUDA call.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,8 +32,11 @@ def build_library(name, defines=()):
     src = os.path.join(CSRC, f"{name}.cu")
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(flags).encode()
-                             ).hexdigest()[:16]
+        text = f.read()
+    for header in re.findall(rb'#include "([^"]+)"', text):
+        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+            text += f.read()
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
     log = ""
     if not os.path.exists(so):

@@ -18,7 +18,8 @@ here `fn` runs under a TorchDispatchMode that sees every aten op:
   On the CPU an LSTM runs as per-step mm/addmm ops, which count as they
   are.
 The port's own kernels (ops/mrf.py:mrf, ops/mel.py:mel,
-ops/ar_scan.py:ar_scan_multi) run outside aten on the card; each is
+ops/ar_scan.py:ar_scan_multi, ops/lstm.py:lstm_cuda) run outside aten on
+the card; each is
 wrapped by `counted` with the records of its plain version's products,
 and what it dispatches inside is not counted, on the CPU and on the card
 alike. MAS (ops/mas.py) is a DP of maxima and sums with no product: it

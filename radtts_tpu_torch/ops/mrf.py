@@ -337,8 +337,9 @@ def _padded_taps(ts, cp):
     return F.pad(taps, (0, cp - C, 0, cp - C)) if cp != C else taps
 
 
-def _cached_pack(ts, tag, pack):
-    """pack() of the weight tensors ts, kept per weight version: the key is
+def _cached_pack(ts, tag, pack, cache=_packs, size=PACK_CACHE_SIZE):
+    """pack() of the weight tensors ts, kept per weight version in `cache`
+    (at most `size` entries; ops/lstm.py keeps its own): the key is
     each tensor's identity (a weak reference, so a freed tensor whose id is
     reused cannot hit), its _version, which in-place updates (the
     optimizer's step, load_state_dict) advance, and its data pointer,
@@ -349,16 +350,16 @@ def _cached_pack(ts, tag, pack):
         return pack()
     key = (tuple(id(t) for t in ts), tag)
     versions = tuple((t._version, t.data_ptr()) for t in ts)
-    hit = _packs.get(key)
+    hit = cache.get(key)
     if hit is not None and hit[1] == versions and all(
             ref() is t for ref, t in zip(hit[0], ts)):
-        _packs.move_to_end(key)
+        cache.move_to_end(key)
         return hit[2]
     packed = pack()
-    _packs[key] = (tuple(weakref.ref(t) for t in ts), versions, packed)
-    _packs.move_to_end(key)
-    while len(_packs) > PACK_CACHE_SIZE:
-        _packs.popitem(last=False)
+    cache[key] = (tuple(weakref.ref(t) for t in ts), versions, packed)
+    cache.move_to_end(key)
+    while len(cache) > size:
+        cache.popitem(last=False)
     return packed
 
 

@@ -7,7 +7,8 @@ profiler off, and the benchmark's four readers of the records.
 
 Tests marked `chip` run on the card: one call of each benchmark cell's
 configuration under torch.cuda.set_sync_debug_mode("warn") raises as
-many synchronizing-operation warnings as `syncs` counts, and a traced
+many synchronizing-operation warnings as `syncs` counts, every masked
+LSTM run of such a call takes csrc/lstm.cu with 8 syncs a call, and a traced
 benchmark run reports the four metrics and lists no radtts.* range among
 its kernels. Run them there without the JAX conftest:
 `python3 -m pytest --noconftest -m chip tests/test_torch_tracing.py`.
@@ -323,6 +324,37 @@ def test_syncs_are_what_cuda_reports(card, workload):
     (recs,) = tracing.calls().values()
     assert n_warned > 0
     assert recs[-1]["counts"]["syncs"] == n_warned
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("workload", ["dap_v1.offline_b16",
+                                      "agap_v1.offline_b16"])
+def test_masked_lstms_take_the_kernel(card, workload):
+    """One warm call of the cell's configuration: every masked LSTM run
+    takes csrc/lstm.cu (counts lstm_kernel, none lstm_cudnn), and the call
+    makes 8 syncs: the tokens and lengths up (2), the duration totals read
+    and copied back (2), the outputs read (4); none of the LSTMs'."""
+    from speedbench import traffic
+    from speedbench.run import cell_spec, set_up
+    spec = cell_spec(workload)
+    _, synth, recorder, _ = set_up(spec, SEED, card,
+                                   spec["config"]["matmul_precision"])
+    recorder.uninstall()
+    texts = traffic.closed_batches(spec["mix"], SEED)[0]
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        synth.synthesize(texts, spec["mix"]["speaker"],
+                         **spec["mix"]["knobs"])
+    (recs,) = tracing.calls().values()
+    lstm = [r for r in recs if r["name"] == "lstm"]
+    assert len(lstm) == _lstms_with_lengths(synth.model)
+    assert all(r["counts"] == {"lstm_steps": r["counts"]["lstm_steps"],
+                               "lstm_kernel": 1} for r in lstm)
+    root = recs[-1]
+    assert root["counts"]["lstm_kernel"] == len(lstm)
+    assert root["counts"]["syncs"] == 8
+    assert not [r for r in recs if r["name"] == "readback"
+                and r["attrs"]["site"] == "lengths"]
 
 
 @pytest.mark.chip
